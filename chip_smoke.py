@@ -1,0 +1,627 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+1. Environment: the card's name and power limit (nvidia-smi), the torch
+   and CUDA versions, and the build of the three kernels from
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
+2. Each kernel against its plain PyTorch version on the card, at the
+   shapes the serving path gives it and at the edge cases (ragged K, ±1
+   activations, bf16, int8 pools, a wrapping window ring, G = 7).  Times
+   come from CUDA events over many launches, rotating through enough input
+   copies to exceed the 50 MB L2 cache where the serving path finds its
+   data cold.
+3. The slice: full-width, full-depth qwen2-7b+xnor in bf16, random weights
+   from a seeded generator on the card, packed at load by the pack kernel,
+   served by a 4-slot ServeEngine (s_max 128) over 8 requests of 8-64
+   prompt tokens and 8-16 new tokens, half opening with a shared 32-token
+   prefix.  Launch counts are zeroed just before and read just after; every
+   kernel must have launched.  Then one prefill chunk and one decode step
+   run on the kernel path with every kernel launch held against its plain
+   version on the same inputs, and the kernel path is held end to end
+   against the plain path run apart (see ``check_paths``), in bf16 and in
+   f32 (two seeds) at the same width and depth.
+
+The line before the last is a JSON object listing every ported kernel;
+the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+L2_BYTES = 50 * 2**20
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, argsets, calls: int, replays: int = 5) -> float:
+    """Device ms per call.  ``calls`` calls, cycling through ``argsets``,
+    are captured in one CUDA graph, which is replayed and timed with CUDA
+    events: the host's per-call overhead (Python, checks, ctypes) is not in
+    the number, only the kernels and the gaps between them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in argsets[:2]:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(*argsets[i % len(argsets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def copies(make, nbytes: int):
+    """Enough independent input sets to exceed the L2 cache."""
+    n = max(2, -(-2 * L2_BYTES // max(nbytes, 1)))
+    return [make() for _ in range(min(n, 512))]
+
+
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_checks(gpu: str) -> dict:
+    """Phase 2: every kernel against its plain version on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import bitpack, xnor_layers
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import pack as kpack
+    from repro_torch.kernels import paged_attn as kpaged
+    from repro_torch.kernels import xnor_gemm as kxnor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def both(fn, *args, **kw):
+        k = fn(*args, **kw)
+        with cuda.plain_reference():
+            p = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return k, p
+
+    rec = {}
+    linears = {"wq/wo": (3584, 3584), "wk/wv": (512, 3584),
+               "w1/w3": (18944, 3584), "w2": (3584, 18944)}
+
+    # -- pack ----------------------------------------------------------------
+    err = 0.0
+    for name, (n, k) in linears.items():
+        w = randn(n, k, dtype=torch.bfloat16)
+        (kp, ka), (pp, pa) = both(kpack.pack, w)
+        assert torch.equal(kp, pp), f"pack planes differ at {name}"
+        # kernel alpha is f32, plain alpha is rounded through bf16
+        torch.testing.assert_close(ka, pa, rtol=2 ** -8, atol=0)
+        err = max(err, (ka - pa).abs().max().item())
+    x = randn(33, 45)
+    x[0, :3] = torch.tensor([-0.0, 0.0, float("nan")])
+    (kp, ka), (pp, pa) = both(kpack.pack, x)
+    assert torch.equal(kp, pp), "pack planes differ at ragged K"
+    torch.testing.assert_close(ka, pa, rtol=1e-6, atol=0, equal_nan=True)
+    n, k = linears["w1/w3"]
+    kw = bitpack.packed_width(k)
+    nbytes = n * k * 2 + n * kw * 4 + n * 4
+    sets = copies(lambda: (randn(n, k, dtype=torch.bfloat16),), n * k * 2)
+    ms = time_ms(kpack.pack, sets, 50)
+    with cuda.plain_reference():
+        plain = time_ms(kpack.pack, sets[:2], 2, 2)
+    b_ms, b_by = bound(nbytes, 2 * n * k, "bf16")
+    rec["pack"] = dict(
+        name="pack", route="cuda",
+        source="src/repro_torch/kernels/csrc/pack.cu",
+        replaces="src/repro/kernels/pack.py:45", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"[pack] bf16 ({n}, {k}): {ms} ms, plain {plain} ms, bound "
+          f"{b_ms} ms ({b_by}); alpha max abs err {err}  [{gpu}]")
+
+    # -- fused XNOR linear ---------------------------------------------------
+    err = 0.0
+    for name, (n, k) in linears.items():
+        wp = xnor_layers.pack_weights(randn(n, k, dtype=torch.bfloat16))
+        pb, beta = wp
+        kw = pb.shape[1]
+        for m in (4, 32):
+            pm1 = torch.where(randn(m, k) >= 0, 1.0, -1.0)
+            kk, pp = both(kxnor.xnor_linear_fused, pm1, pb, beta, k)
+            assert torch.equal(kk, pp), f"±1 dots differ at {name} M={m}"
+            xf = randn(m, k)
+            kk, pp = both(kxnor.xnor_linear_fused, xf, pb, beta, k)
+            torch.testing.assert_close(kk, pp, rtol=2e-5, atol=2e-5)
+            xb = xf.to(torch.bfloat16)
+            kk, pp = both(kxnor.xnor_linear_fused, xb, pb, beta, k)
+            # kernel alpha f32 vs plain alpha rounded to bf16: <= 2^-9 rel
+            torch.testing.assert_close(kk, pp, rtol=2 ** -8, atol=1e-6)
+            e = (kk - pp).abs().max().item()
+            nbytes = m * k * 2 + n * kw * 4 + n * 4 + m * n * 4
+            sets = copies(lambda: (randn(m, k, dtype=torch.bfloat16),
+                                   *xnor_layers.pack_weights(
+                                       randn(n, k, dtype=torch.bfloat16)),
+                                   k), n * kw * 4)
+            ms = time_ms(kxnor.xnor_linear_fused, sets, 200)
+            with cuda.plain_reference():
+                plain = time_ms(kxnor.xnor_linear_fused, sets[:2], 2, 2)
+            gemm = time_ms(F.linear, copies(
+                lambda: (xb, randn(n, k, dtype=torch.bfloat16)), n * k * 2),
+                200)
+            b_ms, b_by = bound(nbytes, 2 * m * n * k, "int8")
+            print(f"[xnor_linear_fused] {name} M={m} N={n} K={k}: {ms} ms, "
+                  f"plain {plain} ms, bound {b_ms} ms ({b_by}), dense bf16 "
+                  f"F.linear of the same shape {gemm} ms; max abs err {e}"
+                  f"  [{gpu}]")
+            if name == "w1/w3" and m == 4:
+                rec["xnor_linear_fused"] = dict(
+                    name="xnor_linear_fused", route="cuda",
+                    source="src/repro_torch/kernels/csrc/xnor_linear.cu",
+                    replaces="src/repro/kernels/xnor_gemm.py:150",
+                    max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+            err = max(err, e)
+    # a ragged K (not a word multiple)
+    w = randn(9, 70)
+    pb, beta = xnor_layers.pack_weights(w)
+    kk, pp = both(kxnor.xnor_linear_fused, randn(5, 70), pb, beta, 70)
+    torch.testing.assert_close(kk, pp, rtol=2e-5, atol=2e-5)
+
+    # -- paged decode attention ----------------------------------------------
+    B, KV, G, dh, bs, W = 4, 4, 7, 128, 16, 8
+    n_blocks = 1 + B * W
+    scale = dh ** -0.5
+
+    def case(dtype, i8):
+        q = randn(B, KV, G, dh, dtype=dtype)
+        ck = randn(n_blocks, KV, bs, dh)
+        cv = randn(n_blocks, KV, bs, dh)
+        if i8:
+            ck = torch.clamp(torch.round(ck * 32), -127, 127).to(torch.int8)
+            cv = torch.clamp(torch.round(cv * 32), -127, 127).to(torch.int8)
+        else:
+            ck, cv = ck.to(dtype), cv.to(dtype)
+        perm = torch.randperm(B * W, generator=g, device=dev)
+        table = (perm.reshape(B, W) + 1).to(torch.int32)
+        return q, ck, cv, table
+
+    pos_main = torch.tensor([79, 63, 40, 17], dtype=torch.int32, device=dev)
+    pos_ring = torch.tensor([45, 80, 300, 127], dtype=torch.int32, device=dev)
+    err = 0.0
+    for dtype, i8, tol in [(torch.float32, False, 2e-5),
+                           (torch.bfloat16, False, 3e-2),
+                           (torch.bfloat16, True, 3e-2),
+                           (torch.float32, True, 2e-5)]:
+        q, ck, cv, table = case(dtype, i8)
+        sc, osc = (scale / 32, 1 / 32) if i8 else (scale, 1.0)
+        for window, pos in ((0, pos_main), (40, pos_ring)):
+            kk, pp = both(kpaged.paged_decode_attention, q, ck, cv, table,
+                          pos, window=window, scale=sc, out_scale=osc)
+            torch.testing.assert_close(kk.float(), pp.float(), rtol=tol,
+                                       atol=tol)
+            if dtype == torch.bfloat16 and not i8 and window == 0:
+                err = (kk.float() - pp.float()).abs().max().item()
+    # timed over input sets (q, pools, table) rotated past the L2 cache:
+    # on the serving path each layer's pool is cold
+    sets = copies(lambda: (*case(torch.bfloat16, False), pos_main),
+                  B * KV * G * dh * 2 + 2 * n_blocks * KV * bs * dh * 2)
+    q, ck, cv, table, _ = sets[0]
+    live = int((pos_main // bs + 1).sum())          # blocks this data reads
+    nbytes = (q.numel() * 2 * 2 + live * KV * 2 * bs * dh * 2
+              + table.numel() * 4 + B * 4)
+    b_ms, b_by = bound(nbytes, 4 * KV * G * dh * int((pos_main + 1).sum()),
+                       "bf16")
+    ms = time_ms(lambda *a: kpaged.paged_decode_attention(
+        *a, window=0, scale=scale), sets, 200)
+    with cuda.plain_reference():
+        plain = time_ms(lambda *a: kpaged.paged_decode_attention(
+            *a, window=0, scale=scale), sets[:2], 10, 2)
+    # library yardstick: SDPA over K/V already gathered to dense (B, KV,
+    # cap, dh) with the position mask (the gather itself is not timed)
+    mask = (torch.arange(W * bs, device=dev)[None]
+            <= pos_main[:, None].long())[:, None, None, :]
+
+    def gathered(q, ck, cv, table, _):
+        idx = table.long()
+        return (q, ck[idx].permute(0, 2, 1, 3, 4).reshape(B, KV, W * bs, dh),
+                cv[idx].permute(0, 2, 1, 3, 4).reshape(B, KV, W * bs, dh),
+                mask)
+
+    lib = time_ms(lambda a, b_, c, m: F.scaled_dot_product_attention(
+        a, b_, c, attn_mask=m), [gathered(*s) for s in sets], 200)
+    rec["paged_decode_attention"] = dict(
+        name="paged_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attn.cu",
+        replaces="src/repro/kernels/paged_attn.py:146", max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    print(f"[paged_decode_attention] bf16 B={B} KV={KV} G={G} dh={dh} "
+          f"bs={bs} W={W} pos={pos_main.tolist()}, {len(sets)} input sets "
+          f"rotated: {ms} ms, plain {plain} "
+          f"ms, SDPA on pre-gathered K/V {lib} ms, bound {b_ms} ms ({b_by});"
+          f" max abs err {err}  [{gpu}]")
+    return rec
+
+
+def serve_slice(gpu: str) -> dict:
+    """Phase 3: full qwen2-7b+xnor through the port's ServeEngine."""
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels import pack as kpack
+    from repro_torch.kernels import paged_attn as kpaged
+    from repro_torch.kernels import xnor_gemm as kxnor
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeEngine, synthetic_trace
+
+    cfg = configs.get("qwen2-7b+xnor")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_ff, cfg.vocab, cfg.dtype) == (28, 3584, 28, 4, 18944,
+                                                152064, torch.bfloat16)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[slice] init {cfg.name}: {lm.pdefs.count(lm.param_defs(cfg))} "
+          f"params in {time.perf_counter() - t0} s")
+
+    base = synthetic_trace(8, cfg.vocab, seed=SEED,
+                           prompt_lens=(8, 16, 24, 32),
+                           new_tokens=(8, 12, 16))
+    prefix = np.random.default_rng([SEED, 0xC1A]).integers(
+        0, cfg.vocab, size=32).astype(np.int32)
+    trace = [Request(r.rid, np.concatenate([prefix, r.prompt])
+                     if r.rid % 2 == 0 else r.prompt, r.max_new_tokens)
+             for r in base]
+    assert all(8 <= len(r.prompt) <= 64 for r in trace)
+
+    kernels = (kpack.pack, kxnor.xnor_linear_fused,
+               kpaged.paged_decode_attention)
+    for f in kernels:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, slots=4, s_max=128, device="cuda")
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    peak_load = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for r in trace:
+        eng.submit(r)
+    report = eng.run()
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in kernels}
+    peak_serve = torch.cuda.max_memory_allocated()
+
+    done = [s for s in report.sessions.values() if s.done]
+    assert len(done) == len(trace), f"{len(done)}/{len(trace)} completed"
+    for s in done:
+        assert len(s.tokens) == s.request.max_new_tokens
+        assert all(0 <= t < cfg.vocab for t in s.tokens)
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched on the main path"
+    st = report.stats
+    ttft = report.ttft_quantiles((0.5, 0.95))
+    lat = report.latency_quantiles((0.5, 0.95))
+    print(f"[slice] load + pack {t_pack} s, peak memory at load "
+          f"{peak_load / 2**30} GiB  [{gpu}]")
+    print(f"[slice] served {len(done)}/{len(trace)} requests, "
+          f"{report.generated} tokens in {report.wall} s -> "
+          f"{report.tok_per_s} tok/s; {st.prefills} prefills "
+          f"({st.prefill_chunks} chunks), {st.decode_steps} decode steps; "
+          f"prefix hits {st.prefix_hits}, cow {st.cow_copies}  [{gpu}]")
+    print(f"[slice] TTFT p50 {ttft[0.5] * 1e3} ms p95 {ttft[0.95] * 1e3} ms;"
+          f" latency p50 {lat[0.5] * 1e3} ms p95 {lat[0.95] * 1e3} ms; "
+          f"peak memory while serving {peak_serve / 2**30} GiB  [{gpu}]")
+    print(f"[slice] main-path launches {launches}")
+
+    # one prefill chunk and one decode step: kernel path vs plain path
+    toks = torch.from_numpy(trace[0].prompt[None, :cfg.prefill_chunk].copy())
+    nxt = int(trace[0].prompt[cfg.prefill_chunk])
+    check_paths(cfg, eng.params, toks, nxt, gpu)
+    del eng
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    for seed in (SEED, SEED + 1):
+        params32 = lm.pack_params(cfg32, lm.init_params(cfg32, seed,
+                                                        device="cuda"))
+        check_paths(cfg32, params32, toks, nxt, gpu, seed=seed)
+        del params32
+        torch.cuda.empty_cache()
+    return launches
+
+
+LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")   # launch order per layer
+
+
+def alpha_kernel_order(x):
+    """alpha = sum|x| / K summed as ``csrc/xnor_linear.cu`` sums it: each of
+    a warp's 32 lanes adds its own elements in sequence (16-byte loads when
+    K and the row allow, else one element per 32-wide word), the lanes'
+    sums meet in an xor butterfly, and the total is divided by K."""
+    import torch
+    import torch.nn.functional as F
+    m, k = x.shape
+    a = x.float().abs()
+    e = 16 // x.element_size()
+    if k % (32 * e) == 0 and x.data_ptr() % 16 == 0:
+        seq = a.reshape(m, k // (32 * e), 32, e).permute(0, 2, 1, 3)
+    else:
+        kw = -(-k // 32)
+        seq = F.pad(a, (0, kw * 32 - k)).reshape(m, kw, 32).permute(0, 2, 1)
+    seq = seq.reshape(m, 32, -1)
+    acc = torch.zeros((m, 32), dtype=torch.float32, device=x.device)
+    for j in range(seq.shape[-1]):
+        acc = acc + seq[..., j]
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lanes ^ o]
+    return acc[:, 0] / torch.full((m,), float(k), device=x.device)
+
+
+def linear_kernel_order(x, pb, beta, valid_k):
+    """The plain fused linear with the kernel's alpha (f32, its summation
+    order) in place of the reference's (``x.dtype``, torch's order)."""
+    from repro_torch.core import bitpack
+    from repro_torch.kernels import ref
+    dots = ref.xnor_gemm(bitpack.pack_bits(bitpack.pad_to_word(x)), pb,
+                         valid_k).float()
+    return dots * alpha_kernel_order(x)[:, None] * beta[None, :]
+
+
+def first_flip(xs_a, xs_b):
+    """Walk two runs' fused-linear inputs launch by launch: the largest
+    relative L2 gap up to and including the first launch whose sign bits
+    differ, and where that first differing bit is (None if none does)."""
+    drift = 0.0
+    for i, (a, b) in enumerate(zip(xs_a, xs_b)):
+        drift = max(drift, ((a - b).norm() / b.norm()).item())
+        diff = (a >= 0) != (b >= 0)
+        if diff.any():
+            r, c = (int(v) for v in diff.nonzero()[0])
+            return drift, dict(
+                launch=i, layer=i // len(LINEARS),
+                linear=LINEARS[i % len(LINEARS)], row=r, col=c,
+                x_a=a[r, c].item(), x_b=b[r, c].item(),
+                row_mean_abs=b[r].abs().mean().item(),
+                bits=int(diff.sum()))
+    return drift, None
+
+
+def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
+    """One prefill chunk and one decode step, kernel path against plain
+    path.
+
+    Held per launch: every fused linear and paged attention of the kernel
+    path against its plain version on the same inputs (the fused linear
+    2e-5 in f32 and 2^-8 in bf16, where the kernel's f32 alpha and the
+    reference's bf16-rounded alpha differ by up to 2^-9; attention 2e-5 /
+    3e-2), and every fused linear bitwise against the plain version summed
+    in the kernel's order (:func:`linear_kernel_order`).
+
+    Held end to end: the kernel path against the plain path with the
+    kernel's alpha, run apart, the prefill chunk from a fresh state and the
+    decode step from the same state.  A sign binarization turns an
+    activation that sits within rounding of zero into the other bit, and
+    28 binarized layers amplify one such bit into logits that differ by
+    tens of percent.  So: the two paths' fused-linear inputs must track
+    each other (relative L2 within 1e-4 in f32, 3e-2 in bf16) at every
+    launch up to and including the first whose sign bits differ; where no
+    bit differs, the logits must agree to 1e-3 relative L2.
+
+    Reported (f32): the same walk for the kernel path against the plain
+    path with the reference's alpha, and for that plain path against
+    itself with every fused linear's output scaled by 1 + 2^-23 (one f32
+    ulp), which shows how far one ulp carries."""
+    import types
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import cuda, ops, ref
+    from repro_torch.kernels import paged_attn as kpaged
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import lm
+
+    f32 = cfg.dtype == torch.float32
+    tol_lin, tol_attn = (2e-5, 2e-5) if f32 else (2 ** -8, 3e-2)
+    track_tol = 1e-4 if f32 else 3e-2
+    ref_linear, fused = ref.xnor_linear_fused, ops.xnor_linear_fused
+    name = f"{cfg.name} {str(cfg.dtype)[6:]} seed {seed}"
+
+    bs, w = cfg.block_size, 128 // cfg.block_size
+    table = torch.arange(1, 1 + 4 * w, dtype=torch.int32,
+                         device="cuda").reshape(4, w)
+    dtable = table.clone()
+    dtable[1:] = 0
+    active = torch.tensor([True, False, False, False], device="cuda")
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    tok[0, 0] = nxt
+    held = {"xnor_linear_fused": 0, "paged_decode_attention": 0}
+    worst = dict.fromkeys(held, 0.0)
+
+    def attn_held(*args, **kw):
+        k = kpaged.paged_decode_attention(*args, **kw)
+        with cuda.plain_reference():
+            p = kpaged.paged_decode_attention(*args, **kw)
+        torch.testing.assert_close(k.float(), p.float(), rtol=tol_attn,
+                                   atol=tol_attn)
+        held["paged_decode_attention"] += 1
+        worst["paged_decode_attention"] = max(
+            worst["paged_decode_attention"],
+            (k.float() - p.float()).abs().max().item())
+        return k
+
+    def run(step, state, *, kernel, plain=linear_kernel_order, scale=1.0):
+        """-> (logits (1, 1, V) f32, state after, fused-linear inputs)."""
+        xs = []
+
+        def lin(x, pb, beta, valid_k):
+            xs.append(x.float().clone())
+            out = fused(x, pb, beta, valid_k)
+            if kernel:
+                r = ref_linear(x, pb, beta, valid_k)
+                torch.testing.assert_close(out, r, rtol=tol_lin, atol=1e-6)
+                assert torch.equal(out, linear_kernel_order(
+                    x, pb, beta, valid_k)), "fused linear differs from its " \
+                    "plain version summed in the kernel's order"
+                worst["xnor_linear_fused"] = max(
+                    worst["xnor_linear_fused"], (out - r).abs().max().item())
+                held["xnor_linear_fused"] += 1
+            return out * scale if scale != 1.0 else out
+
+        if state is None:
+            state = lm.paged_decode_state_spec(cfg, 4, n_blocks=1 + 4 * w,
+                                               block_size=bs, device="cuda")
+        else:
+            state = lm.DecodeState(state.pos.clone(), [
+                type(st)(*(t.clone() for t in st))
+                for st in state.seg_states])
+        patches = [mock.patch.object(ops, "xnor_linear_fused", lin),
+                   mock.patch.object(ref, "xnor_linear_fused", plain)]
+        if kernel:
+            patches.append(mock.patch.object(attn_mod, "paged_attn",
+                                             types.SimpleNamespace(
+                                                 paged_decode_attention=
+                                                 attn_held)))
+        with contextlib.ExitStack() as stack, torch.inference_mode():
+            for pt in patches:
+                stack.enter_context(pt)
+            if not kernel:
+                stack.enter_context(cuda.plain_reference())
+            if step == "prefill_chunk":
+                logits, state = lm.prefill_chunk_step(
+                    cfg, params, toks.cuda(), state, 0, toks.shape[1],
+                    {"full": table[:1]}, fresh=True)
+            else:
+                logits, state = lm.paged_decode_step(
+                    cfg, params, tok, state, {"full": dtable}, active=active)
+        assert len(xs) == len(LINEARS) * cfg.n_layers, len(xs)
+        logits = logits[:1].float()
+        assert torch.isfinite(logits).all()
+        assert logits.shape == (1, 1, cfg.padded_vocab), logits.shape
+        return logits, state, xs
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    start = None                 # the decode step starts from the plain
+    for step in ("prefill_chunk", "decode_step"):     # path's prefill state
+        lk, _, xk = run(step, start, kernel=True)
+        lp, after, xp = run(step, start, kernel=False)
+        drift, flip = first_flip(xk, xp)
+        r = rel(lk, lp)
+        print(f"[slice] {name} {step}, kernel path vs plain path with the "
+              f"kernel's alpha, run apart: logits relative L2 {r}; inputs "
+              f"tracked within {drift} up to the first differing sign bit "
+              f"{flip}  [{gpu}]")
+        if flip is None:
+            assert r <= 1e-3, f"{step}: no sign bit differs, logits {r}"
+        else:
+            assert drift <= track_tol, f"{step}: inputs drifted {drift}"
+        if f32:
+            lr, _, xr = run(step, start, kernel=False, plain=ref_linear)
+            drift, flip = first_flip(xk, xr)
+            print(f"[slice] {name} {step}, kernel path vs plain path with "
+                  f"the reference's alpha (reported): logits relative L2 "
+                  f"{rel(lk, lr)}; inputs tracked within {drift} up to the "
+                  f"first differing sign bit {flip}  [{gpu}]")
+            lu, _, xu = run(step, start, kernel=False, plain=ref_linear,
+                            scale=1.0 + 2 ** -23)
+            drift, flip = first_flip(xu, xr)
+            print(f"[slice] {name} {step}, plain path vs itself with every "
+                  f"fused linear's output scaled by 1 + 2^-23 (reported): "
+                  f"logits relative L2 {rel(lu, lr)}; inputs tracked within "
+                  f"{drift} up to the first differing sign bit {flip}  "
+                  f"[{gpu}]")
+        start = after
+    n_lin = len(LINEARS) * cfg.n_layers * 2
+    assert held == {"xnor_linear_fused": n_lin,
+                    "paged_decode_attention": cfg.n_layers}, held
+    print(f"[slice] {name}: {held} launches of one prefill chunk + one "
+          f"decode step each held against the plain version on the same "
+          f"inputs (the fused linear also bitwise against the plain version "
+          f"summed in the kernel's order); max abs err {worst}  [{gpu}]")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this run "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import cuda
+
+    gpu = gpu_line()
+    print(gpu)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    cuda.build()
+    for name in cuda.ENTRY_POINTS:
+        cuda.fn(name)
+    print(f"kernels built and loaded in {time.perf_counter() - t0} s "
+          f"(nvcc {cuda.build_seconds()} s)")
+    for line in cuda.build_log().splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  " + line.strip())
+
+    rec = kernel_checks(gpu)
+    launches = serve_slice(gpu)
+    kernels = []
+    for key, fname in (("pack", "pack"),
+                       ("xnor_linear_fused", "xnor_linear_fused"),
+                       ("paged_decode_attention", "paged_decode_attention")):
+        r = dict(rec[key])
+        r["launches"] = launches[fname]
+        kernels.append({k: r[k] for k in (
+            "name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    print(gpu)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,120 @@
+"""Serving entry point of the port: the continuous-batching paged engine
+over a seeded synthetic mixed-length trace.
+
+Runs on CUDA unless ``--device cpu``; ``--smoke`` takes the reduced
+same-family config.  Parameters are random, drawn from ``--seed``.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b+xnor \\
+      --slots 4 --requests 16 --new-tokens 16 --prefix-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b+xnor \\
+      --smoke --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+import repro_torch.configs as configs
+from repro_torch.models import lm
+from repro_torch.serve import ServeEngine, synthetic_trace
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--workload", choices=("lm",), default="lm",
+                    help="what to serve (only the chat trace is ported)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="max prompt length in the trace")
+    ap.add_argument("--new-tokens", type=int, default=16,
+                    help="max per-request token budget in the trace")
+    ap.add_argument("--s-max", type=int, default=0,
+                    help="resident cache capacity (0: prompt+new)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="only 0 (greedy) is ported")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--no-pack", action="store_true",
+                    help="serve quant archs from float weights (A/B)")
+    ap.add_argument("--block-size", type=int, default=0,
+                    help="paged-KV tokens per block (0: cfg.block_size)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked-prefill piece size (0: cfg.prefill_chunk)")
+    ap.add_argument("--n-blocks", type=int, default=0,
+                    help="shared block-pool size (0: slots x full tables)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable content-addressed prefix caching (A/B)")
+    ap.add_argument("--prefix-len", type=int, default=0,
+                    help="shared leading tokens in the trace (0: none)")
+    ap.add_argument("--prefix-frac", type=float, default=0.9,
+                    help="fraction of requests opening with the shared "
+                         "prefix (with --prefix-len)")
+    args = ap.parse_args(argv)
+
+    cfg = configs.get(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    params = lm.init_params(cfg, args.seed, device=args.device)
+    pl = max(4, args.prompt_len)
+    nt = max(2, args.new_tokens)
+    trace = synthetic_trace(
+        args.requests, cfg.vocab, seed=args.seed,
+        prompt_lens=tuple(sorted({max(2, pl // 4), max(3, pl // 2), pl})),
+        new_tokens=tuple(sorted({max(2, nt // 2), nt})),
+        prefix_frac=args.prefix_frac, prefix_len=args.prefix_len)
+    s_max = args.s_max or (args.prefix_len + pl + nt)
+
+    eng = ServeEngine(cfg, params, slots=args.slots, s_max=s_max,
+                      eos_id=args.eos_id, temperature=args.temperature,
+                      pack=not args.no_pack, block_size=args.block_size,
+                      prefill_chunk=args.prefill_chunk,
+                      n_blocks=args.n_blocks,
+                      prefix_cache=not args.no_prefix_cache,
+                      device=args.device)
+    del params                      # the engine holds the packed form
+    for r in trace:
+        eng.submit(r)
+    report = eng.run()
+    lat = report.latency_quantiles((0.5, 0.95))
+    ttft = report.ttft_quantiles((0.5, 0.95))
+    qwait = report.queue_wait_quantiles((0.5, 0.95))
+    packed = (not args.no_pack) and cfg.quant == "xnor"
+    print(f"arch={cfg.name} device={eng.device} slots={args.slots} "
+          f"requests={len(trace)} packed={packed} layout=paged")
+    print(f"  generated {report.generated} tokens in {report.wall:.2f}s "
+          f"-> {report.tok_per_s:.1f} tok/s "
+          f"({report.prefills} prefills, {report.decode_steps} decode steps)")
+    print(f"  latency p50={lat[0.5]*1e3:.0f}ms p95={lat[0.95]*1e3:.0f}ms")
+    print(f"  ttft    p50={ttft[0.5]*1e3:.0f}ms p95={ttft[0.95]*1e3:.0f}ms "
+          f"(queue-wait p50={qwait[0.5]*1e3:.0f}ms "
+          f"p95={qwait[0.95]*1e3:.0f}ms)")
+    st = report.stats
+    if st.blocks_total:
+        print(f"  blocks: peak {st.blocks_peak}/{st.blocks_total} "
+              f"mean {st.blocks_mean:.1f} "
+              f"(util {st.block_utilization:.0%}); "
+              f"{st.prefill_chunks} prefill chunks")
+        print(f"  prefix cache: "
+              f"{'on' if eng.prefix_caching else 'off'}; "
+              f"hit rate {st.prefix_hit_rate:.0%} "
+              f"({st.prefix_hits}/{st.prefills} prompts, "
+              f"{st.prefix_tokens}/{st.prompt_tokens} tokens), "
+              f"{st.blocks_per_request:.2f} fresh blocks/request, "
+              f"{st.cow_copies} cow, {st.prefix_evictions} evictions")
+    done = sum(1 for s in report.sessions.values() if s.done)
+    first = trace[0]
+    print(f"  completed {done}/{len(trace)}; first request tokens: "
+          f"{np.asarray(report.tokens(first.rid))[:8].tolist()}...")
+    return 0 if done == len(trace) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,147 @@
+"""Language-model assembly for the paged serve path: embeddings, the
+per-segment blocks, the full-precision head.
+
+Public surface:
+  param_defs / init_params / pack_params
+  paged_table_widths / paged_decode_state_spec
+  paged_decode_step(cfg, params, token, state, tables, active)
+  prefill_chunk_step(cfg, params, tokens, state, slot, n_valid, tables, ...)
+  paged_copy_block / prefix_cache_eligible / prefix_table_class
+
+The resident state is updated in place: the pools are written by the
+scatter, ``pos`` by the step.  Each step returns the state it was given.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import blocks, layers
+from repro_torch.models import params as pdefs
+from repro_torch.models import registry
+
+
+def param_defs(cfg) -> dict:
+    defs: dict[str, Any] = {"embed": layers.embed_defs(cfg)}
+    for i, (kind, n, d) in enumerate(blocks.segment_defs(cfg)):
+        defs[f"seg{i}_{kind}"] = d
+    return defs
+
+
+def init_params(cfg, seed: int = 0, *, device="cuda") -> dict:
+    """Random parameters drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (CUDA unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return pdefs.init(param_defs(cfg), gen, dev)
+
+
+def pack_params(cfg, params) -> dict:
+    """Serve-resident form: every binarizable linear packed to sign planes
+    + beta (the float weight leaves the tree).  Identity for
+    ``quant="none"``."""
+    if cfg.quant != "xnor":
+        return params
+    return pdefs.pack(param_defs(cfg), params)
+
+
+def _seg_params(cfg, params):
+    """[((kind, n), stacked params), ...] in depth order."""
+    return [((kind, n), params[f"seg{i}_{kind}"])
+            for i, (kind, n) in enumerate(cfg.segments())]
+
+
+class DecodeState(NamedTuple):
+    pos: torch.Tensor          # (B,) int32 per-slot tokens consumed
+    seg_states: list           # per-segment layer-stacked pools
+
+
+def paged_table_widths(cfg, s_max: int, block_size: int,
+                       prefill_chunk: int) -> dict:
+    """Block-table width per table class: monotone classes get
+    ``ceil(s_max / bs)`` blocks, window rings ``W * bs >= window + C - 1``;
+    kinds sharing a class take the max."""
+    widths: dict[str, int] = {}
+    for kind, _ in cfg.segments():
+        c = registry.contract(kind)
+        if not c.paged_kv:
+            continue
+        if c.window:
+            cap = min(s_max, cfg.local_window + max(prefill_chunk, 1) - 1)
+        else:
+            cap = s_max
+        w = -(-cap // block_size)
+        widths[c.table_class] = max(widths.get(c.table_class, 0), w)
+    return widths
+
+
+def paged_decode_state_spec(cfg, batch: int, *, n_blocks: int,
+                            block_size: int, device) -> DecodeState:
+    """Zeroed resident state: shared pools + per-slot positions."""
+    seg = blocks.segment_paged_states(cfg, cfg.segments(), n_blocks,
+                                      block_size, device)
+    return DecodeState(torch.zeros((batch,), dtype=torch.int32,
+                                   device=device), seg)
+
+
+def paged_decode_step(cfg, params, token: torch.Tensor, state: DecodeState,
+                      tables: dict, active: torch.Tensor | None = None):
+    """token (B, 1) -> logits (B, 1, V) for every slot.  ``active`` (B,)
+    bool freezes inactive slots' positions and trash-routes their writes."""
+    x = layers.embed(params["embed"], token).to(cfg.dtype)
+    x = blocks.segment_decode(cfg, _seg_params(cfg, params), x,
+                              state.seg_states, state.pos, tables,
+                              active=active)
+    logits = layers.logits(cfg, params["embed"], x)
+    state.pos.add_(1 if active is None else active.to(torch.int32))
+    return logits, state
+
+
+def prefill_chunk_step(cfg, params, tokens: torch.Tensor, state: DecodeState,
+                       slot: int, n_valid: int, tables: dict,
+                       fresh: bool = False, start: int = 0):
+    """One chunked-prefill piece for resident slot ``slot``.
+
+    tokens (1, C) hold positions ``pos0 .. pos0 + C - 1`` with
+    ``pos0 = start`` on the request's first chunk (``fresh``; ``start`` is
+    the prefix-cache skip point) and ``state.pos[slot]`` after; the first
+    ``n_valid`` tokens are real.  ``tables`` rows are (1, W).
+    Returns (logits of the last valid position (1, 1, V), state)."""
+    c = tokens.shape[1]
+    dev = tokens.device
+    pos0 = (torch.full((1,), start, dtype=torch.int32, device=dev) if fresh
+            else state.pos[slot:slot + 1].clone())
+    valid = (torch.arange(c, device=dev) < n_valid)[None]       # (1, C)
+    x = layers.embed(params["embed"], tokens).to(cfg.dtype)
+    x = blocks.segment_chunk(cfg, _seg_params(cfg, params), x,
+                             state.seg_states, pos0, valid, tables)
+    logits = layers.logits(cfg, params["embed"], x[:, n_valid - 1:n_valid])
+    state.pos[slot:slot + 1] = pos0 + n_valid
+    return logits, state
+
+
+def paged_copy_block(cfg, state: DecodeState, src: int, dst: int):
+    """Copy-on-write block duplication ``dst := src`` in every pool."""
+    blocks.segment_copy_block(cfg, state.seg_states, src, dst)
+    return state
+
+
+def prefix_cache_eligible(cfg) -> bool:
+    """Prefix sharing is sound only when every decoder kind declares
+    ``prefix_shareable`` (fail-closed)."""
+    kinds = {k for k, _ in cfg.segments()}
+    return bool(kinds) and all(registry.contract(k).prefix_shareable
+                               for k in kinds)
+
+
+def prefix_table_class(cfg) -> str | None:
+    """The one table class shared prefixes register under, or None."""
+    classes = {registry.contract(k).table_class
+               for k, _ in cfg.segments()
+               if registry.contract(k).paged_kv
+               and registry.contract(k).prefix_shareable}
+    return classes.pop() if len(classes) == 1 else None

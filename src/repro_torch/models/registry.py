@@ -1,0 +1,67 @@
+"""Block-contract registry: each block kind declares its serving contract
+as data, and consumers (``lm.py``'s builders, the serve engine's gates)
+read the declarations instead of switching on kind strings.
+
+``paged_kv``          the kind's decode state is a shared paged KV pool
+                      (implies ``table_class``)
+``per_slot_state``    dense per-slot leaves ride the batch axis
+``table_class``       name of the block-table class the pool reads
+``window``            the table is a sliding-window ring (never shareable)
+``prefix_shareable``  cached blocks fully encode the kind's sequential
+                      state; fail-closed (default False)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockContract:
+    kind: str
+    paged_kv: bool = False
+    per_slot_state: bool = False
+    table_class: str | None = None
+    window: bool = False
+    prefix_shareable: bool = False
+
+    def __post_init__(self):
+        if not self.kind:
+            raise ValueError("contract needs a non-empty kind name")
+        if self.paged_kv and self.table_class is None:
+            raise ValueError(f"kind {self.kind!r}: a paged-pool state needs "
+                             "a table_class to address the pool through")
+        if self.window and self.table_class is None:
+            raise ValueError(f"kind {self.kind!r}: window ring semantics "
+                             "describe a block table; declare its table_class")
+        if self.window and self.prefix_shareable:
+            raise ValueError(f"kind {self.kind!r}: a window ring recycles "
+                             "blocks in place and cannot be prefix-shared")
+
+
+_KINDS: dict[str, type] = {}
+
+
+def register(cls: type) -> type:
+    """Class decorator: register a block under its contract's kind name."""
+    contract = getattr(cls, "contract", None)
+    if not isinstance(contract, BlockContract):
+        raise TypeError(
+            f"{cls.__name__} must declare a BlockContract as `contract`")
+    if contract.kind in _KINDS:
+        raise ValueError(f"block kind {contract.kind!r} already registered "
+                         f"by {_KINDS[contract.kind].__name__}")
+    _KINDS[contract.kind] = cls
+    return cls
+
+
+def get(kind: str) -> type:
+    try:
+        return _KINDS[kind]
+    except KeyError:
+        raise KeyError(f"unknown block kind {kind!r} — registered: "
+                       f"{sorted(_KINDS)}") from None
+
+
+def contract(kind: str) -> BlockContract:
+    return get(kind).contract

@@ -1,0 +1,453 @@
+"""Continuous-batching serve engine over the block-paged KV cache.
+
+A FIFO request queue feeds a fixed pool of batch slots over one resident
+:class:`repro_torch.models.lm.DecodeState`:
+
+* **paged KV**: attention state lives in a shared block pool addressed
+  through host-owned per-slot block tables (:class:`BlockPool` allocates;
+  tables are mirrored to the device when they change);
+* **admission**: a request's worst-case blocks are reserved (the FIFO head
+  waits otherwise) and its prompt is consumed by **chunked prefill**, one
+  ``prefill_chunk``-sized piece per engine step, interleaved with decode;
+* **prefix cache** with copy-on-write (DESIGN.md §15): full prompt blocks
+  are registered in a content-addressed index; a later prompt with the
+  same prefix maps them read-only, copies the block its first write would
+  land in, and prefills only the rest;
+* **eviction** on EOS or budget: the slot frees, its blocks return to the
+  pool (cached ones park in the idle tier), its table row is zeroed so the
+  dead slot's writes land in the trash block 0.
+
+With ``pack=True`` and a ``quant="xnor"`` arch the engine serves from
+packed weights (:func:`repro_torch.models.lm.pack_params`): sign planes +
+beta; the float copies of binarized linears are not kept.
+
+Greedy sampling only: temperature > 0 needs a twin of the reference's
+threefry / gumbel stream and is not ported yet.  This mirrors
+``repro/serve/engine.py``'s paged path, token for token.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.params import tree_map
+from repro_torch.serve.pools import BlockPool, SlotPool
+from repro_torch.serve.prefix import PrefixIndex
+from repro_torch.serve.session import Request, Session
+from repro_torch.serve.stats import EngineStats, ServeReport
+
+
+def _greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
+    """Last-position argmax over the true vocab (pad ids never win)."""
+    lg = logits[:, -1, :cfg.vocab].float()
+    return lg.argmax(dim=-1).to(torch.int32)[:, None]
+
+
+@dataclasses.dataclass
+class _PrefillProgress:
+    """Host bookkeeping for one slot's in-flight chunked prefill."""
+
+    session: Session
+    padded: np.ndarray          # prompt suffix zero-padded to n_chunks * C
+    p_len: int                  # suffix length = prompt length - skip
+    n_chunks: int
+    next_chunk: int
+    rows: dict                  # this slot's (1, W) device table rows
+    skip: int = 0               # positions served from shared prefix blocks
+    chain: list = dataclasses.field(default_factory=list)
+                                # full prompt's (key, parent, tokens) chain
+    registered: int = 0         # prompt blocks registered so far
+
+
+class ServeEngine:
+    """Continuous-batching serve engine over one resident paged state.
+
+    Args:
+      cfg: ArchConfig. ``quant="xnor"`` archs serve from packed weights
+        unless ``pack=False``.
+      params: float parameter tree (``lm.init_params`` or
+        ``convert.from_jax``); moved to ``device`` and packed there.
+      slots: resident batch width (concurrent requests).
+      s_max: per-slot cache capacity; a request needs
+        ``len(prompt) + max_new_tokens - 1 <= s_max``.
+      eos_id: token id that ends a request early (None: budget only).
+      temperature: must be 0 (greedy).
+      prefix_cache: content-addressed prefix sharing over the pool,
+        auto-disabled for archs whose state cannot be rebuilt from cached
+        blocks (``engine.prefix_caching`` reports the effective setting).
+      device: ``"cuda"`` (default) or ``"cpu"``; asking for CUDA without
+        it raises.
+    """
+
+    def __init__(self, cfg, params, *, slots: int, s_max: int,
+                 eos_id: int | None = None, temperature: float = 0.0,
+                 pack: bool = True, block_size: int = 0,
+                 prefill_chunk: int = 0, n_blocks: int = 0,
+                 prefix_cache: bool = True, device="cuda"):
+        if temperature > 0.0:
+            raise NotImplementedError(
+                "sampling at temperature > 0 is not ported yet; use greedy")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.slots = slots
+        self.s_max = s_max
+        self.eos_id = eos_id
+        params = tree_map(lambda t: t.to(self.device), params)
+        self.params = lm.pack_params(cfg, params) if pack else params
+        self.pool = SlotPool(slots)
+        self.sessions: dict[int, Session] = {}
+        self.stats = EngineStats()
+        self._step_idx = 0                 # engine steps since construction
+        self.block_size = block_size or cfg.block_size
+        self.prefill_chunk = prefill_chunk or cfg.prefill_chunk
+        self._widths = lm.paged_table_widths(cfg, s_max, self.block_size,
+                                             self.prefill_chunk)
+        if n_blocks <= 0:
+            # enough for every slot at full table width
+            n_blocks = 1 + slots * max(sum(self._widths.values()), 1)
+        self.n_blocks = n_blocks
+        self.blocks = BlockPool(n_blocks) if self._widths else None
+        self.stats.blocks_total = n_blocks - 1 if self.blocks else 0
+        self._share_cls = lm.prefix_table_class(cfg)
+        self._prefix = (PrefixIndex(self.block_size)
+                        if prefix_cache and self.blocks is not None
+                        and self._share_cls is not None
+                        and lm.prefix_cache_eligible(cfg) else None)
+        # host-owned block tables, mirrored to the device on change
+        self._tables = {c: np.zeros((slots, w), np.int32)
+                        for c, w in self._widths.items()}
+        self._dev_tables = None
+        self._state = lm.paged_decode_state_spec(
+            cfg, slots, n_blocks=n_blocks, block_size=self.block_size,
+            device=self.device)
+        # host-side mirrors of the device batch (tiny, moved every step)
+        self._tokens = np.zeros((slots, 1), np.int32)
+        self._active = np.zeros((slots,), bool)
+        self._prefilling: dict[int, _PrefillProgress] = {}
+        # memoized FIFO-head prefix plan: ((rid, index generation), plan)
+        self._plan_cache: tuple[tuple[int, int], tuple] | None = None
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _blocks_per_class(self, prompt_len: int,
+                          max_new_tokens: int) -> dict[str, int]:
+        """Worst-case blocks per table class for one request: positions
+        0..P+G-2 are cached; the single source for the admission gate and
+        the allocation."""
+        nb = -(-(prompt_len + max_new_tokens - 1) // self.block_size)
+        return {c: min(nb, w) for c, w in self._widths.items()}
+
+    def _blocks_needed(self, prompt_len: int, max_new_tokens: int) -> int:
+        return sum(self._blocks_per_class(prompt_len,
+                                          max_new_tokens).values())
+
+    # -- request lifecycle ---------------------------------------------------
+
+    def submit(self, request: Request) -> Session:
+        if request.rid in self.sessions:
+            raise ValueError(f"duplicate request id {request.rid}")
+        if request.ctx is not None:
+            raise NotImplementedError(
+                "modality context (vlm / enc-dec archs) is not ported yet")
+        need = request.prompt.shape[0] + request.max_new_tokens - 1
+        if need > self.s_max:
+            raise ValueError(
+                f"request {request.rid} needs {need} cache positions, "
+                f"engine capacity is s_max={self.s_max}")
+        if self.blocks is not None:
+            nb = self._blocks_needed(request.prompt.shape[0],
+                                     request.max_new_tokens)
+            if nb > self.blocks.capacity:
+                raise ValueError(
+                    f"request {request.rid} needs {nb} blocks, pool "
+                    f"capacity is {self.blocks.capacity} "
+                    f"(n_blocks={self.n_blocks} incl. trash block)")
+        session = Session(request, t_submit=time.monotonic())
+        self.sessions[request.rid] = session
+        self.pool.submit(session)
+        return session
+
+    def _finish(self, session: Session, reason: str) -> None:
+        session.finish_reason = reason
+        session.t_done = time.monotonic()
+        if session.slot is not None and session.slot in self.pool.active:
+            slot = session.slot
+            self.pool.evict(slot)
+            self._active[slot] = False
+            self._tokens[slot] = 0   # dead slots feed a constant token id
+            # the zeroed table row routes the dead slot's writes to the
+            # trash block; cached blocks park in the pool's idle tier
+            if self.blocks is not None:
+                if self._prefix is not None:
+                    self._register_finished(session, slot)
+                self.blocks.free(session.request.rid)
+            for t in self._tables.values():
+                t[slot, :] = 0
+            self._dev_tables = None
+
+    def _register_finished(self, session: Session, slot: int) -> None:
+        """Register the request's full written blocks on release — prompt
+        and generated region (positions 0..P+G-2 are written)."""
+        req = session.request
+        written = req.prompt.shape[0] + len(session.tokens) - 1
+        seq = req.prompt
+        if len(session.tokens) > 1:
+            seq = np.concatenate(
+                [seq, np.asarray(session.tokens[:-1], np.int32)])
+        row = self._tables[self._share_cls][slot]
+        for i, (key, parent, toks) in enumerate(
+                self._prefix.chain(seq[:written])):
+            bid = int(row[i])
+            if self._prefix.register(key, parent, bid, toks):
+                self.blocks.set_cached(bid)
+        self.stats.prefix_cached_blocks = len(self._prefix)
+
+    def _post_prefill(self, session: Session, slot: int, tok: int) -> None:
+        """Record the prefill-sampled token; the request joins the decode
+        batch unless it already finished."""
+        session.tokens.append(tok)
+        session.t_first = time.monotonic()
+        session.step_first = self._step_idx
+        if self.eos_id is not None and tok == self.eos_id:
+            self._finish(session, "eos")
+        elif session.request.max_new_tokens == 1:
+            self._finish(session, "length")
+        else:
+            self._tokens[slot, 0] = tok
+            self._active[slot] = True
+
+    @property
+    def prefix_caching(self) -> bool:
+        """Whether prefix sharing is effectively on for this engine."""
+        return self._prefix is not None
+
+    # -- admission -----------------------------------------------------------
+
+    def _prefix_plan(self, req: Request) -> tuple[list[int], int, int | None]:
+        """``(shared, skip, cow_src)``: the cached blocks the request can
+        map read-only, the prompt positions that skips (capped at P-1: the
+        last prompt position is always recomputed for its logits), and the
+        shared block its first write would land in (the copy-on-write
+        source), if any."""
+        p_len = req.prompt.shape[0]
+        if self._prefix is None:
+            return [], 0, None
+        ids, n_full, child = self._prefix.lookup(req.prompt)
+        shared = list(ids)
+        skip = n_full * self.block_size
+        if child is not None and (n_full > 0 or child[1] > 0):
+            shared.append(child[0])
+            skip += child[1]
+        skip = min(skip, p_len - 1)
+        if skip <= 0:
+            return [], 0, None
+        w0 = skip // self.block_size
+        cow = shared[w0] if w0 < len(shared) else None
+        return shared, skip, cow
+
+    def _fresh_needed(self, req: Request,
+                      plan: tuple[list[int], int, int | None]) -> dict:
+        """Fresh blocks per table class given a plan: shared blocks cost
+        nothing, the copy-on-write target one extra."""
+        shared, _, cow = plan
+        per = self._blocks_per_class(req.prompt.shape[0], req.max_new_tokens)
+        if shared:
+            per = dict(per)
+            per[self._share_cls] -= len(shared) - (1 if cow is not None else 0)
+        return per
+
+    def _alloc_blocks(self, rid: int, n: int) -> list[int]:
+        """Alloc, reclaiming LRU idle cached blocks when the free list runs
+        short (the admission gate checked free + idle covers the need)."""
+        short = n - self.blocks.available
+        if short > 0:
+            for bid in self.blocks.evict_idle(short):
+                self._prefix.drop_block(bid)
+                self.stats.prefix_evictions += 1
+            self.stats.prefix_cached_blocks = len(self._prefix)
+        return self.blocks.alloc(rid, n)
+
+    def _head_plan(self, req: Request) -> tuple[list[int], int, int | None]:
+        """The FIFO head's plan, memoized on (rid, index generation)."""
+        if self._prefix is None:
+            return self._prefix_plan(req)
+        tag = (req.rid, self._prefix.generation)
+        if self._plan_cache is None or self._plan_cache[0] != tag:
+            self._plan_cache = (tag, self._prefix_plan(req))
+        return self._plan_cache[1]
+
+    def _admissible(self) -> tuple | None:
+        """The FIFO head's plan when it can be admitted, else None.  Gates
+        on fresh blocks against free + evictable idle, excluding idle
+        blocks the plan itself revives; with nothing in flight a plan
+        blocked only by that deficit degrades to a wholly fresh one."""
+        head = self.pool.peek()
+        if head is None or not self.pool.free_slots:
+            return None
+        plan = self._head_plan(head.request)
+        if self.blocks is None:
+            return plan
+        need = sum(self._fresh_needed(head.request, plan).values())
+        revived = sum(1 for b in plan[0] if self.blocks.is_idle(b))
+        if need <= self.blocks.reclaimable - revived:
+            return plan
+        if plan[0] and not self.pool.active:
+            fresh = ([], 0, None)
+            n = sum(self._fresh_needed(head.request, fresh).values())
+            if n <= self.blocks.reclaimable:
+                return fresh
+        return None
+
+    def _slot_table_rows(self, slot: int) -> dict:
+        return {c: self._dev(t[slot:slot + 1]) for c, t in self._tables.items()}
+
+    def _admit(self) -> None:
+        """Map the head's shared prefix blocks, reserve fresh blocks,
+        copy-on-write the divergence block, and queue the chunked prefill
+        of the unshared suffix (dispatched one chunk per step)."""
+        while (plan := self._admissible()) is not None:
+            session, slot = self.pool.admit()
+            req = session.request
+            session.t_admit = time.monotonic()
+            p_len = req.prompt.shape[0]
+            shared, skip, cow_src = plan
+            if self.blocks is not None:
+                if shared:
+                    self.blocks.share(req.rid, shared)
+                fresh = {cls_name: self._alloc_blocks(req.rid, n)
+                         for cls_name, n in
+                         self._fresh_needed(req, plan).items()}
+                for cls_name, ids in fresh.items():
+                    row = self._tables[cls_name][slot]
+                    row[:] = 0
+                    if cls_name == self._share_cls and shared:
+                        row[:len(shared)] = shared
+                        tail = ids
+                        if cow_src is not None:
+                            # repoint the first-write block at a private
+                            # copy, made below before any later launch
+                            row[skip // self.block_size] = ids[0]
+                            tail = ids[1:]
+                        row[len(shared):len(shared) + len(tail)] = tail
+                    else:
+                        row[:len(ids)] = ids
+                self._dev_tables = None
+                if cow_src is not None:
+                    lm.paged_copy_block(self.cfg, self._state, cow_src,
+                                        fresh[self._share_cls][0])
+                    self.blocks.drop(req.rid, cow_src)
+                    self.stats.cow_copies += 1
+                self.stats.fresh_blocks += sum(len(v) for v in fresh.values())
+                self.stats.observe_blocks(self.blocks.in_use)
+            self.stats.prompt_tokens += p_len
+            if shared:
+                self.stats.prefix_hits += 1
+                self.stats.prefix_shared_blocks += len(shared)
+                self.stats.prefix_tokens += skip
+            c = self.prefill_chunk
+            n_suffix = p_len - skip
+            n_chunks = -(-n_suffix // c)
+            padded = np.zeros((n_chunks * c,), np.int32)
+            padded[:n_suffix] = req.prompt[skip:]
+            chain = ([] if self._prefix is None
+                     else self._prefix.chain(req.prompt))
+            self._prefilling[slot] = _PrefillProgress(
+                session=session, padded=padded, p_len=n_suffix,
+                n_chunks=n_chunks, next_chunk=0,
+                rows=self._slot_table_rows(slot), skip=skip, chain=chain)
+            self.stats.prefills += 1
+
+    def _register_upto(self, prog: _PrefillProgress, slot: int,
+                       n_done: int) -> None:
+        """Register the prompt's first ``n_done`` full blocks.  Launches run
+        in issue order on the stream, so a later sharer's reads see the
+        content the key promises, even from a still-prefilling donor."""
+        row = self._tables[self._share_cls][slot]
+        n = min(n_done, len(prog.chain))
+        while prog.registered < n:
+            key, parent, toks = prog.chain[prog.registered]
+            bid = int(row[prog.registered])
+            if self._prefix.register(key, parent, bid, toks):
+                self.blocks.set_cached(bid)
+            prog.registered += 1
+        self.stats.prefix_cached_blocks = len(self._prefix)
+
+    @torch.inference_mode()
+    def _prefill_step(self) -> None:
+        """Advance every in-flight chunked prefill by exactly one chunk; a
+        prompt that finishes joins the decode batch this same step."""
+        for slot in sorted(self._prefilling):
+            prog = self._prefilling[slot]
+            c = self.prefill_chunk
+            j = prog.next_chunk
+            piece = self._dev(prog.padded[None, j * c:(j + 1) * c])
+            n_valid = min(c, prog.p_len - j * c)
+            logits, self._state = lm.prefill_chunk_step(
+                self.cfg, self.params, piece, self._state, slot, n_valid,
+                prog.rows, fresh=j == 0, start=prog.skip)
+            self.stats.prefill_chunks += 1
+            prog.next_chunk += 1
+            if self._prefix is not None:
+                done = prog.skip + min((j + 1) * c, prog.p_len)
+                self._register_upto(prog, slot, done // self.block_size)
+            if prog.next_chunk == prog.n_chunks:
+                del self._prefilling[slot]
+                tok = int(_greedy(self.cfg, logits)[0, 0])
+                self._post_prefill(prog.session, slot, tok)
+
+    def _device_tables(self) -> dict:
+        if self._dev_tables is None:
+            self._dev_tables = {c: self._dev(t)
+                                for c, t in self._tables.items()}
+        return self._dev_tables
+
+    @torch.inference_mode()
+    def _decode_once(self) -> None:
+        """One batched decode step; slots still mid-prefill ride along
+        inertly (their writes go to the trash block)."""
+        active_sessions = {s: sess for s, sess in self.pool.active.items()
+                           if s not in self._prefilling}
+        logits, self._state = lm.paged_decode_step(
+            self.cfg, self.params, self._dev(self._tokens), self._state,
+            self._device_tables(), active=self._dev(self._active))
+        if self.blocks is not None:
+            self.stats.observe_blocks(self.blocks.in_use)
+        self.stats.decode_steps += 1
+        toks = _greedy(self.cfg, logits).cpu().numpy()  # the per-step sync
+        for slot, sess in active_sessions.items():
+            t = int(toks[slot, 0])
+            sess.tokens.append(t)
+            self._tokens[slot, 0] = t
+            if self.eos_id is not None and t == self.eos_id:
+                self._finish(sess, "eos")
+            elif len(sess.tokens) >= sess.request.max_new_tokens:
+                self._finish(sess, "length")
+
+    def step(self) -> bool:
+        """Admit, advance in-flight prefills by one chunk each, then decode
+        once; returns False when fully drained."""
+        self._step_idx += 1
+        self._admit()
+        if self._prefilling:
+            self._prefill_step()
+        if any(s not in self._prefilling for s in self.pool.active):
+            self._decode_once()
+        return not self.pool.idle()
+
+    def run(self) -> ServeReport:
+        """Drain queue + slots; returns the per-request report."""
+        t0 = time.monotonic()
+        while self.step():
+            pass
+        return ServeReport(sessions=dict(self.sessions),
+                           wall=time.monotonic() - t0,
+                           decode_steps=self.stats.decode_steps,
+                           prefills=self.stats.prefills,
+                           stats=self.stats)
