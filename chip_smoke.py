@@ -6,24 +6,41 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch
-   and CUDA versions, and the build of the three kernels from
+   and CUDA versions, and the build of the seven kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
 2. Each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it and at the edge cases (ragged K, ±1
-   activations, bf16, int8 pools, a wrapping window ring, G = 7).  Times
-   come from CUDA events over many launches, rotating through enough input
-   copies to exceed the 50 MB L2 cache where the serving path finds its
-   data cold.
-3. The slice: full-width, full-depth qwen2-7b+xnor in bf16, random weights
-   from a seeded generator on the card, packed at load by the pack kernel,
-   served by a 4-slot ServeEngine (s_max 128) over 8 requests of 8-64
-   prompt tokens and 8-16 new tokens, half opening with a shared 32-token
-   prefix.  Launch counts are zeroed just before and read just after; every
-   kernel must have launched.  Then one prefill chunk and one decode step
-   run on the kernel path with every kernel launch held against its plain
-   version on the same inputs, and the kernel path is held end to end
-   against the plain path run apart (see ``check_paths``), in bf16 and in
-   f32 (two seeds) at the same width and depth.
+   shapes its path gives it and at the edge cases (ragged K, ±1
+   activations, bf16, int8 pools, a wrapping window ring, G = 7; ragged
+   M, N and Kw; buffer lengths 1 to 128·512 + 3, misaligned starts,
+   digest widths 64 to 256 and 96, counters that wrap 2^32).  Times come from
+   CUDA events over many launches, rotating through enough input copies to
+   exceed the 50 MB L2 cache where the path finds its data cold.
+3. The serving slice: full-width, full-depth qwen2-7b+xnor in bf16, random
+   weights from a seeded generator on the card, packed at load by the pack
+   kernel, served by a 4-slot ServeEngine (s_max 128) over 8 requests of
+   8-64 prompt tokens and 8-16 new tokens, half opening with a shared
+   32-token prefix.  Launch counts are zeroed just before and read just
+   after; every kernel of the path must have launched.  Then one prefill
+   chunk and one decode step run on the kernel path with every kernel
+   launch held against its plain version on the same inputs, and the
+   kernel path is held end to end against the plain path run apart (see
+   ``check_paths``), in bf16 and in f32 (two seeds) at the same width and
+   depth.
+4. The integer chain at checkpoint scale: the same seeded 7.6 B-parameter
+   bf16 tree (15.2 GB), leaf by leaf through one CimEngine — digest,
+   encrypt, decrypt, verify_copy of the decrypted leaf against the
+   original, digest again; a one-bit flip must fail verify_copy and move
+   exactly one digest bit; the engine's cycle count must equal the bits
+   streamed.  Then a DigestCache scrub of a ServeEngine's resident packed
+   weights: prime, an unchanged pass (no dirty chunk), one changed word
+   (exactly one dirty chunk).  Digests and ciphertext are held against the
+   plain versions bitwise afterwards.
+5. The binary layers: the XNOR-CNN classifier (256 -> 512 -> 2) on 256
+   stripe images, packed path against float path; the unfused prepacked
+   linear (binarize -> xnor_gemm -> scale) at every qwen2-7b linear shape,
+   M = 4 and 32, bitwise against its plain path; and a 2-request
+   full-width ServeEngine run with ``fused_decode="off"``, which must not
+   launch the paged decode kernel.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -44,8 +61,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
+# "f32" is the CUDA-core rate, also used for the word-wise integer ops
+# (XOR, multiply) of the streaming kernels: the table has no int32 entry
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 L2_BYTES = 50 * 2**20
+ROOT_KEY = "chip-smoke-root-key"
+MASK = 0xFFFFFFFF
 
 
 def gpu_line() -> str:
@@ -97,6 +118,10 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+LINEAR_SHAPES = {"wq/wo": (3584, 3584), "wk/wv": (512, 3584),
+                 "w1/w3": (18944, 3584), "w2": (3584, 18944)}   # (N, K)
+
+
 def kernel_checks(gpu: str) -> dict:
     """Phase 2: every kernel against its plain version on the card."""
     import torch
@@ -123,8 +148,7 @@ def kernel_checks(gpu: str) -> dict:
         return k, p
 
     rec = {}
-    linears = {"wq/wo": (3584, 3584), "wk/wv": (512, 3584),
-               "w1/w3": (18944, 3584), "w2": (3584, 18944)}
+    linears = LINEAR_SHAPES
 
     # -- pack ----------------------------------------------------------------
     err = 0.0
@@ -279,6 +303,127 @@ def kernel_checks(gpu: str) -> dict:
     return rec
 
 
+LEAF_WORDS = 28 * 3584 * 3584 // 2   # a layer-stacked wq leaf, bf16 words
+
+
+def integer_kernel_checks(gpu: str, linears: dict) -> dict:
+    """Phase 2, the integer chain's kernels against their plain versions:
+    bitwise at the path's shapes and edges, then timed past L2."""
+    import torch
+
+    from repro_torch.kernels import bulk as kbulk
+    from repro_torch.kernels import cipher as kcipher
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import pack as kpack
+    from repro_torch.kernels import parity as kparity
+    from repro_torch.kernels import xnor_gemm as kxnor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+
+    def words(n):
+        return torch.randint(-2 ** 31, 2 ** 31, (n,), generator=g,
+                             device=dev, dtype=torch.int32)
+
+    def planes(m, k):
+        return kpack.pack(torch.randn((m, k), generator=g, device=dev)
+                          .to(torch.bfloat16))[0]
+
+    def held(fn, *args):
+        k = fn(*args)
+        with cuda.plain_reference():
+            p = fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), f"{fn.__name__} differs from its plain " \
+            f"version at {[tuple(a.shape) if hasattr(a, 'shape') else a for a in args]}"
+        return k
+
+    def row(name, src, replaces, ms, plain, nbytes, ops, kind, lib):
+        b_ms, b_by = bound(nbytes, ops, kind)
+        return dict(name=name, route="cuda",
+                    source=f"src/repro_torch/kernels/csrc/{src}",
+                    replaces=replaces, max_abs_err=0.0, ms=ms,
+                    plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib)
+
+    rec = {}
+    # -- xnor_gemm: quickstart, XNOR-CNN, every qwen2-7b linear, ragged ----
+    shapes = [("quickstart", 64, 32, 256), ("xnor-cnn", 256, 512, 512),
+              ("ragged", 5, 9, 70), ("ragged", 17, 40, 200)]
+    shapes += [(f"{name} M={m}", m, n, k) for name, (n, k) in linears.items()
+               for m in (4, 32)]
+    for label, m, n, k in shapes:
+        pa, pb = planes(m, k), planes(n, k)
+        out = held(kxnor.xnor_gemm, pa, pb, k)
+        kw = pa.shape[1]
+        off = torch.cat([pa.new_zeros(1), pa.reshape(-1)])[1:].reshape(m, kw)
+        assert torch.equal(held(kxnor.xnor_gemm, off, pb, k), out), label
+        sets = copies(lambda: (planes(m, k), planes(n, k), k), n * kw * 4)
+        ms = time_ms(kxnor.xnor_gemm, sets, 200)
+        with cuda.plain_reference():
+            plain = time_ms(kxnor.xnor_gemm, sets[:2], 2, 2)
+        r = row("xnor_gemm", "xnor_gemm.cu", "src/repro/kernels/xnor_gemm.py:80",
+                ms, plain, (m + n) * kw * 4 + m * n * 4, 2 * m * n * k, "int8",
+                None)
+        print(f"[xnor_gemm] {label} ({m}, {kw}) x ({n}, {kw}), K={k}: {ms} "
+              f"ms, plain {plain} ms, bound {r['bound_ms']} ms "
+              f"({r['bound_by']})  [{gpu}]")
+        if label == "w1/w3 M=4":
+            rec["xnor_gemm"] = r
+
+    # -- edges of the streaming kernels: lengths, alignment, widths, wrap --
+    for n in (1, 127, 128, 129, 128 * 512 + 3):
+        a, b = words(n + 1), words(n + 1)
+        for x, y in ((a[:n], b[:n]), (a[1:], b[1:])):
+            for inv in (False, True):
+                held(kbulk.bulk_xor, x, y, inv)
+            for width in (64, 96, 128, 256):
+                held(kparity.parity_digest, x, width)
+                held(kparity.parity_digest, x, width, 2 * width)
+            for ctr in (0, 12345, 2 ** 32 - 5):
+                ct = held(kcipher.xor_cipher, x, 0x9E3779B9, 0x0BADF00D, ctr)
+                assert torch.equal(kcipher.xor_cipher(
+                    ct, 0x9E3779B9, 0x0BADF00D, ctr), x), "not an involution"
+    x = words(128 * 512 + 3)
+    d0 = kparity.parity_digest(x)
+    x[33333] ^= 1 << 5
+    assert popcount_bits(d0, kparity.parity_digest(x)) == 1, \
+        "one flip, one digest bit"
+
+    # -- timed on a layer-stacked leaf's size (719 MB), past L2 ------------
+    n = LEAF_WORDS
+    sets = copies(lambda: (words(n), words(n)), n * 4)
+    ms = time_ms(kbulk.bulk_xor, sets, 20)
+    with cuda.plain_reference():
+        plain = time_ms(kbulk.bulk_xor, sets, 2, 2)
+    lib = time_ms(torch.bitwise_xor, sets, 20)
+    rec["bulk_xor"] = row("bulk_xor", "bulk.cu", "src/repro/kernels/bulk.py:39",
+                          ms, plain, 12 * n, n, "f32", lib)
+    print(f"[bulk_xor] {n} words: {ms} ms, plain {plain} ms, "
+          f"torch.bitwise_xor {lib} ms, bound {rec['bulk_xor']['bound_ms']} "
+          f"ms  [{gpu}]")
+    sets = [(s[0],) for s in sets]
+    ms = time_ms(kparity.parity_digest, sets, 20)
+    with cuda.plain_reference():
+        plain = time_ms(kparity.parity_digest, sets, 2, 2)
+    rec["parity_digest"] = row("parity_digest", "parity.cu",
+                               "src/repro/kernels/parity.py:47", ms, plain,
+                               4 * n + 512, n, "f32", None)
+    print(f"[parity_digest] {n} words: {ms} ms, plain {plain} ms, bound "
+          f"{rec['parity_digest']['bound_ms']} ms  [{gpu}]")
+    sets = [(w, 0x9E3779B9, 0x0BADF00D, 2 ** 32 - 5) for (w,) in sets]
+    ms = time_ms(kcipher.xor_cipher, sets, 20)
+    with cuda.plain_reference():
+        plain = time_ms(kcipher.xor_cipher, sets, 2, 2)
+    rec["xor_cipher"] = row("xor_cipher", "cipher.cu",
+                            "src/repro/kernels/cipher.py:47", ms, plain, 8 * n,
+                            12 * n, "f32", None)
+    print(f"[xor_cipher] {n} words: {ms} ms, plain {plain} ms, bound "
+          f"{rec['xor_cipher']['bound_ms']} ms  [{gpu}]")
+    return rec
+
+
 def serve_slice(gpu: str) -> dict:
     """Phase 3: full qwen2-7b+xnor through the port's ServeEngine."""
     import numpy as np
@@ -366,6 +511,249 @@ def serve_slice(gpu: str) -> dict:
         check_paths(cfg32, params32, toks, nxt, gpu, seed=seed)
         del params32
         torch.cuda.empty_cache()
+    return launches
+
+
+def popcount_bits(a, b) -> int:
+    """Number of bits in which two int32 tensors differ."""
+    import numpy as np
+    x = (a ^ b).cpu().numpy().view(np.uint8)
+    return int(np.unpackbits(x).sum())
+
+
+def integer_chain(gpu: str) -> dict:
+    """Phase 4: digest, encrypt, decrypt and verify the full qwen2-7b tree
+    leaf by leaf through one CimEngine, then scrub a ServeEngine's resident
+    packed weights with a DigestCache."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.core import encrypt, engine, incremental, verify
+    from repro_torch.kernels import bulk as kbulk
+    from repro_torch.kernels import cipher as kcipher
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels import parity as kparity
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+
+    cfg = configs.get("qwen2-7b+xnor")
+    params = lm.init_params(cfg, SEED, device="cuda")
+    leaves = [(verify.leaf_key(p), t)
+              for p, t in verify.tree_flatten_with_path(params)]
+    n_params = sum(t.numel() for _, t in leaves)
+    tree_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    assert n_params > 7.6e9, n_params
+    torch.cuda.synchronize()
+    print(f"[chain] {cfg.name}: {len(leaves)} leaves, {n_params} params, "
+          f"{tree_bytes / 1e9} GB")
+
+    kernels = (kbulk.bulk_xor, kparity.parity_digest, kcipher.xor_cipher)
+    for f in kernels:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine.CimEngine(device="cuda")
+    want_bits = []                   # the bits each engine call streams
+    events = {p: [] for p in ("digest", "encrypt", "decrypt", "verify",
+                              "redigest")}
+
+    def timed(name, fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        events[name].append((start, end))
+        return out
+
+    t0 = time.perf_counter()
+    digs = {}
+    for key, t in leaves:
+        digs[key] = timed("digest", eng.digest, t)
+        want_bits.append(t.numel() * t.element_size() * 8)
+    for key, t in leaves:
+        words = ops.as_words(t)                   # a view: no copy
+        nbits = words.numel() * 32
+        ct = timed("encrypt", encrypt.encrypt_device, words, ROOT_KEY, key,
+                   eng)
+        assert not bool(eng.verify_copy(ct, words)), f"{key}: ciphertext " \
+            "equals plaintext"
+        pt = timed("decrypt", encrypt.encrypt_device, ct, ROOT_KEY, key, eng)
+        del ct
+        back = pt.view(t.dtype)[:t.numel()].reshape(t.shape)
+        assert bool(timed("verify", eng.verify_copy, back, t)), \
+            f"{key}: decrypted leaf differs from the original"
+        assert torch.equal(timed("redigest", eng.digest, back), digs[key]), \
+            f"{key}: digest moved through encrypt + decrypt"
+        del pt, back
+        want_bits += [nbits, nbits, nbits, nbits,
+                      t.numel() * t.element_size() * 8]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    passes = {name: sum(a.elapsed_time(b) for a, b in ev)
+              for name, ev in events.items()}
+
+    # one flipped bit in one leaf
+    key, t = leaves[[k for k, _ in leaves].index("embed/tokens")]
+    bad = t.clone()
+    bad_words = ops.as_words(bad)                 # a view of bad
+    bad_words[bad_words.numel() // 3] ^= 1 << 11
+    assert not bool(eng.verify_copy(bad, t)), "a flipped bit went unseen"
+    d_bad = eng.digest(bad)
+    assert popcount_bits(d_bad, digs[key]) == 1, "one flip, one digest bit"
+    want_bits += [t.numel() * t.element_size() * 8] * 2
+    del bad, bad_words
+    want_cycles = sum(eng.cycles_for(b) for b in want_bits)
+    st = eng.stats.snapshot()
+    assert (st.cycles, st.bit_ops, st.calls) == (
+        want_cycles, sum(want_bits), len(want_bits)), (st, want_cycles)
+
+    # the scrub IntegrityScrubber runs, over the resident packed weights
+    serve = ServeEngine(cfg, params, slots=1, s_max=64, device="cuda")
+    cache = incremental.DigestCache(engine=eng)
+    cache.digests(serve.params)
+    prime = cache.last
+    before = cache.digests(serve.params)
+    clean = cache.last
+    assert clean.dirty_chunks == 0 and clean.clean_leaves == clean.leaves
+    plane = serve.params["seg0_attn"]["ffn_w2"].pb
+    plane.view(-1)[plane.numel() // 2 + 5] ^= 1 << 3
+    after = cache.digests(serve.params)
+    hit = cache.last
+    assert hit.dirty_chunks == 1 and hit.clean_leaves == hit.leaves - 1, hit
+    fb, fa = ({verify.leaf_key(p): d
+               for p, d in verify.tree_flatten_with_path(x)}
+              for x in (before, after))
+    moved = [k for k in fa if (fa[k] != fb[k]).any()]
+    assert moved == ["seg0_attn/ffn_w2/0"], moved
+    resident = sum(x.numel() * x.element_size() for _, x in
+                   verify.tree_flatten_with_path(serve.params))
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched on the integer chain"
+    del serve, cache
+
+    # held against the plain versions (after the counts were read): two
+    # digests, and one leaf's ciphertext cut into chunks
+    flat = dict(leaves)
+    for key in ("embed/tokens", "seg0_attn/attn_wq"):
+        with cuda.plain_reference():
+            plain = ops.digest(flat[key])
+        assert torch.equal(plain, digs[key]), f"{key}: digest != plain"
+    key = "seg0_attn/attn_wo"
+    words = ops.as_words(flat[key])
+    k0, k1, ctr = (int(v) for v in encrypt.derive_key(ROOT_KEY, key))
+    ct = kcipher.xor_cipher(words, k0, k1, ctr)
+    step = 1 << 25
+    for s0 in range(0, words.numel(), step):
+        with cuda.plain_reference():
+            plain = ops.stream_cipher(words[s0:s0 + step], (k0, k1),
+                                      (ctr + s0) & MASK)
+        assert torch.equal(ct[s0:s0 + step], plain), f"{key} @ {s0}"
+    del params, flat, leaves, words, ct, t
+    torch.cuda.empty_cache()
+
+    gb = tree_bytes / 1e9
+    rates = {name: gb / (ms / 1e3) for name, ms in passes.items()}
+    print(f"[chain] digest, encrypt, decrypt, verify_copy and re-digest of "
+          f"all {len(digs)} leaves ({gb} GB) in {wall} s wall; device ms "
+          f"per pass {passes}; GB/s over the tree {rates} against "
+          f"{HBM_BYTES_PER_S / 1e9} GB/s of HBM  [{gpu}]")
+    print(f"[chain] engine stats: {st.cycles} cycles = cycles_for the "
+          f"{st.bit_ops} bits streamed in {st.calls} calls; by op "
+          f"{st.by_op}; peak memory {peak / 2**30} GiB  [{gpu}]")
+    print(f"[chain] scrub of the resident packed weights ({resident / 1e9} "
+          f"GB, {prime.leaves} leaves, {prime.chunks} chunks): prime "
+          f"{prime}, unchanged {clean}, one word changed {hit}  [{gpu}]")
+    print(f"[chain] main-path launches {launches}")
+    assert peak < 25 * 2 ** 30, f"peak {peak / 2**30} GiB"
+    return launches
+
+
+def binary_layers(gpu: str, linears: dict) -> dict:
+    """Phase 5: the XNOR-CNN classifier, the unfused prepacked linear at
+    every qwen2-7b shape, and a full-width serve run with
+    ``fused_decode="off"``."""
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.core import xnor_layers
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import pack as kpack
+    from repro_torch.kernels import paged_attn as kpaged
+    from repro_torch.kernels import xnor_gemm as kxnor
+    from repro_torch.models import lm, xnor_classifier
+    from repro_torch.serve import ServeEngine, synthetic_trace
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    x_np, _ = xnor_classifier.make_data(np.random.default_rng(SEED), 256)
+    images = torch.from_numpy(x_np).to(dev)
+    cnn = xnor_classifier.init(g, dev)
+    layer_in = [(torch.randn((m, k), generator=g, device=dev)
+                 .to(torch.bfloat16), *xnor_layers.pack_weights(
+                     torch.randn((n, k), generator=g, device=dev)
+                     .to(torch.bfloat16)), k)
+                for n, k in linears.values() for m in (4, 32)]
+    cfg = dataclasses.replace(configs.get("qwen2-7b+xnor"),
+                              fused_decode="off")
+    params = lm.init_params(cfg, SEED, device="cuda")
+    trace = synthetic_trace(2, cfg.vocab, seed=SEED, prompt_lens=(24, 40),
+                            new_tokens=(8,))
+    torch.cuda.synchronize()
+
+    kernels = (kpack.pack, kxnor.xnor_gemm, kxnor.xnor_linear_fused,
+               kpaged.paged_decode_attention)
+    for f in kernels:
+        f.launches = 0
+    logits_packed = xnor_classifier.forward(cnn, images, packed=True)
+    outs = [xnor_layers.xnor_linear_prepacked(x, pb, beta, k, mode="off")
+            for x, pb, beta, k in layer_in]
+    eng = ServeEngine(cfg, params, slots=2, s_max=64, device="cuda")
+    del params
+    for r in trace:
+        eng.submit(r)
+    report = eng.run()
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in kernels}
+    done = [s for s in report.sessions.values() if s.done]
+    assert len(done) == 2 and all(
+        len(s.tokens) == s.request.max_new_tokens for s in done)
+    assert launches["xnor_gemm"] > 0 and launches["pack"] > 0, launches
+    assert launches["xnor_linear_fused"] > 0, launches
+    assert launches["paged_decode_attention"] == 0, launches
+    del eng
+    torch.cuda.empty_cache()
+
+    # held against the float path and the plain versions (not counted)
+    logits_float = xnor_classifier.forward(cnn, images, packed=False)
+    assert torch.isfinite(logits_packed).all()
+    assert logits_packed.shape == (256, xnor_classifier.N_CLS)
+    torch.testing.assert_close(logits_packed, logits_float, rtol=1e-3,
+                               atol=1e-3)
+    err = (logits_packed - logits_float).abs().max().item()
+    h = torch.tanh(images @ cnn["w_in"].T)
+    kk = xnor_layers.xnor_linear(h, cnn["w_mid"], packed=True)
+    with cuda.plain_reference():
+        pp = xnor_layers.xnor_linear(h, cnn["w_mid"], packed=True)
+    assert torch.equal(kk, pp), "XNOR-CNN binary layer differs from plain"
+    for (x, pb, beta, k), y in zip(layer_in, outs):
+        with cuda.plain_reference():
+            plain = xnor_layers.xnor_linear_prepacked(x, pb, beta, k,
+                                                      mode="off")
+        assert torch.equal(y, plain), f"unfused linear {tuple(x.shape)} x " \
+            f"{tuple(pb.shape)} differs from its plain path"
+    print(f"[binary] XNOR-CNN 256 -> 512 -> 2 on 256 images: packed vs float "
+          f"path max abs diff {err}; the binary layer bitwise equal to its "
+          f"plain version  [{gpu}]")
+    print(f"[binary] unfused prepacked linear (pack -> xnor_gemm -> scale) "
+          f"bitwise equal to its plain path at {len(outs)} shapes "
+          f"(every qwen2-7b linear, M = 4 and 32)  [{gpu}]")
+    print(f"[binary] fused_decode='off' serve run: {report.generated} tokens "
+          f"for 2 requests in {report.wall} s; launches {launches}  [{gpu}]")
     return launches
 
 
@@ -605,13 +993,15 @@ def main() -> int:
             print("  " + line.strip())
 
     rec = kernel_checks(gpu)
+    rec.update(integer_kernel_checks(gpu, LINEAR_SHAPES))
     launches = serve_slice(gpu)
+    launches.update(integer_chain(gpu))
+    launches["xnor_gemm"] = binary_layers(gpu, LINEAR_SHAPES)["xnor_gemm"]
     kernels = []
-    for key, fname in (("pack", "pack"),
-                       ("xnor_linear_fused", "xnor_linear_fused"),
-                       ("paged_decode_attention", "paged_decode_attention")):
+    for key in ("pack", "xnor_linear_fused", "paged_decode_attention",
+                "xnor_gemm", "bulk_xor", "parity_digest", "xor_cipher"):
         r = dict(rec[key])
-        r["launches"] = launches[fname]
+        r["launches"] = launches[key]
         kernels.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -1,9 +1,10 @@
-"""PyTorch / CUDA port of the XNOR serving path (``repro`` is the JAX
-reference it is held against).
+"""PyTorch / CUDA port of the XNOR serving path and the integer chain
+(bit packing, the banked CiM engine, copy verification, encryption,
+incremental digests); ``repro`` is the JAX reference it is held against.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-the three hand-written Hopper kernels (``kernels/csrc``) launch on CUDA
-tensors and their plain PyTorch versions run on CPU tensors.
+the hand-written Hopper kernels (``kernels/csrc``) launch on CUDA tensors
+and their plain PyTorch versions run on CPU tensors.
 """
 
 import torch

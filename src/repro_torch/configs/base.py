@@ -47,10 +47,9 @@ class ArchConfig:
     kv_i8_scale: float = 32.0      # fixed-point scale for the i8 cache
     block_size: int = 16           # paged KV-cache tokens per block
     prefill_chunk: int = 32        # chunked-prefill piece size (serve)
-    fused_decode: str = "auto"     # "auto"/"on": fused kernels on the decode
-                                   # path; "off": the unfused chain (CPU only
-                                   # in this port: on CUDA the binarized
-                                   # linears and decode attention raise)
+    fused_decode: str = "auto"     # "auto"/"on": the paged decode kernel
+                                   # for C == 1 attention; "off": the
+                                   # gather / mask / softmax chain
     notes: str = ""
 
     def __post_init__(self):

@@ -41,7 +41,7 @@ def pad_to_word(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return F.pad(x, widths)
 
 
-def _as_int32(words: torch.Tensor) -> torch.Tensor:
+def as_int32(words: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2**32) -> int32 tensor with the same 32 bits."""
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
@@ -55,7 +55,21 @@ def pack_bits(x: torch.Tensor) -> torch.Tensor:
     bits = x if x.dtype == torch.bool else x >= 0
     bits = bits.reshape(*x.shape[:-1], k // WORD, WORD).to(torch.int64)
     shifts = torch.arange(WORD, dtype=torch.int64, device=x.device)
-    return _as_int32((bits << shifts).sum(-1))
+    return as_int32((bits << shifts).sum(-1))
+
+
+def unpack_bits(p: torch.Tensor, k: int | None = None, signed: bool = True,
+                dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: (..., Kw) words -> (..., k) values,
+    ±1 (``signed``) or {0, 1}; ``k`` defaults to all ``32 * Kw`` bits."""
+    full = p.shape[-1] * WORD
+    k = full if k is None else k
+    shifts = torch.arange(WORD, dtype=torch.int32, device=p.device)
+    bits = (p.to(torch.int32)[..., :, None] >> shifts) & 1
+    bits = bits.reshape(*p.shape[:-1], full)[..., :k]
+    if signed:
+        return (2 * bits - 1).to(dtype)
+    return bits.to(dtype)
 
 
 def popcount(words: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,11 @@
   y = (sign(x) . sign(W)^T) * alpha_x * beta_w,
       alpha_x = mean|x| per input row,  beta_w = mean|W| per output channel.
 
-``xnor_linear`` is the float-domain path (the straight-through estimator's
-forward), ``xnor_linear_prepacked`` the serve path over resident sign
-planes; the two agree bit for bit in their sign semantics.
+``xnor_linear`` runs the float-domain path (the straight-through
+estimator's forward) or, with ``packed=True``, packs both operands and runs
+the XNOR-popcount product (the ``xnor_gemm`` kernel on CUDA);
+``xnor_linear_prepacked`` is the serve path over resident sign planes.  All
+agree bit for bit in their sign semantics.
 """
 
 from __future__ import annotations
@@ -51,9 +53,23 @@ def binarize_ste(x: torch.Tensor) -> torch.Tensor:
     return x * clip + (s - x * clip).detach()
 
 
-def xnor_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Binary linear, float domain: x (..., K) @ w (N, K)^T -> (..., N)."""
+def xnor_linear(x: torch.Tensor, w: torch.Tensor, *,
+                packed: bool = False) -> torch.Tensor:
+    """Binary linear: x (..., K) @ w (N, K)^T -> (..., N).
+
+    ``packed`` packs both operands and runs the XNOR-popcount product in
+    the bit domain (inference); otherwise the float-domain sign product."""
+    n, k = w.shape
     beta = bitpack.mean_abs(w.contiguous()).to(w.dtype)      # (N,)
+    if packed:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, k)
+        alpha = bitpack.mean_abs(x2).to(x.dtype)              # (M,)
+        pa, _ = ops.binarize(x2)
+        pb, _ = ops.binarize(w)
+        dots = ops.xnor_matmul(pa, pb, k)                     # (M, N) int32
+        y = dots.float() * alpha[:, None] * beta[None, :]
+        return y.reshape(*lead, n).to(x.dtype)
     alpha = bitpack.mean_abs(x).to(x.dtype)[..., None]
     y = torch.einsum("...k,nk->...n", binarize_ste(x).float(),
                      binarize_ste(w).float())
@@ -66,7 +82,10 @@ def xnor_linear_prepacked(x: torch.Tensor, pb: torch.Tensor,
     """Inference over weights packed offline: ``pb`` (N, Kw), ``beta`` (N,).
 
     ``mode`` (:func:`ops.fused_mode`) picks the single-launch fused linear
-    or the unfused binarize -> xnor_matmul -> scale chain."""
+    or the unfused binarize -> xnor_matmul -> scale chain (the pack and
+    ``xnor_gemm`` kernels on CUDA).  Every step of the unfused chain is
+    integer-exact or the same torch op on both paths, so on the card it is
+    bitwise equal to its plain version."""
     lead, k = x.shape[:-1], x.shape[-1]
     if k != valid_k:
         raise ValueError(

@@ -1,0 +1,38 @@
+"""Bulk XOR / XNOR of word buffers: wrapper of ``csrc/bulk.cu``.
+
+Replaces ``repro/kernels/bulk.py::bulk_xor``.  CPU tensors run the plain
+version (:func:`repro_torch.kernels.ref.bulk_xor`); CUDA tensors launch
+the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cuda, ref
+
+
+def bulk_xor(a: torch.Tensor, b: torch.Tensor,
+             invert: bool = False) -> torch.Tensor:
+    """Elementwise XOR (XNOR with ``invert``) of two flat int32 word
+    buffers of any length -> a new (n,) int32 buffer."""
+    cuda.check(a.ndim == 1 and a.shape == b.shape,
+               f"bulk_xor needs two (n,) buffers, got {tuple(a.shape)} and "
+               f"{tuple(b.shape)}")
+    if not cuda.use_kernel(a, b):
+        return ref.bulk_xor(a, b, invert)
+    cuda.check(a.dtype == torch.int32 and b.dtype == torch.int32,
+               f"bulk_xor takes int32 words, got {a.dtype}/{b.dtype}")
+    cuda.check(a.is_contiguous() and b.is_contiguous(),
+               "bulk_xor needs contiguous buffers")
+    out = torch.empty_like(a)
+    if a.numel() == 0:
+        return out
+    with torch.cuda.device(a.device):
+        cuda.launch("bulk_xor", a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    a.numel(), int(invert), cuda.stream(a))
+    bulk_xor.launches += 1
+    return out
+
+
+bulk_xor.launches = 0

@@ -34,6 +34,23 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// Blocks for a grid-stride loop over `items` work items, `threads` per
+// block: enough for 8 resident blocks on every SM of the current device,
+// and no more than the items need.
+inline int stream_blocks(long long items, int threads) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (sms <= 0) sms = 132;
+  const long long need = (items + threads - 1) / threads;
+  const long long cap = 8LL * sms;
+  return static_cast<int>(need < 1 ? 1 : (need < cap ? need : cap));
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

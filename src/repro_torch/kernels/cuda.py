@@ -31,12 +31,14 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("pack", "xnor_linear", "paged_attn")
+SOURCES = ("pack", "xnor_linear", "paged_attn", "xnor_gemm", "bulk", "parity",
+           "cipher")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _U = ctypes.c_longlong, ctypes.c_uint
 # C entry points: name -> (library, argtypes); every one returns cudaError_t
 ENTRY_POINTS = {
     "xnor_pack": ("pack", [_P, _I, _P, _P, _I, _I, _I, _P]),
@@ -44,6 +46,10 @@ ENTRY_POINTS = {
                                           _P]),
     "paged_decode": ("paged_attn", [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I,
                                     _I, _I, _I, _I, _I, _F, _F, _P]),
+    "xnor_gemm": ("xnor_gemm", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "bulk_xor": ("bulk", [_P, _P, _P, _L, _I, _P]),
+    "parity_digest": ("parity", [_P, _L, _L, _I, _P, _P]),
+    "xor_cipher": ("cipher", [_P, _P, _L, _U, _U, _U, _P]),
 }
 
 _plain = contextvars.ContextVar("plain_reference", default=False)

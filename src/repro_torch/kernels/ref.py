@@ -9,11 +9,14 @@ the JAX reference bitwise in the integer domain.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import bitpack
 
 NEG_INF = -1e30
 _CHUNK_ELEMS = 1 << 24      # bounds the (M, n, Kw) int64 temporaries
+MASK = 0xFFFFFFFF
+GOLDEN = 0x9E3779B9
 
 
 def xnor_gemm(pa: torch.Tensor, pb: torch.Tensor, valid_k: int) -> torch.Tensor:
@@ -81,3 +84,67 @@ def paged_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", w, gv.float())
     return (out * out_scale).to(q.dtype)
+
+
+def bulk_xor(a: torch.Tensor, b: torch.Tensor,
+             invert: bool = False) -> torch.Tensor:
+    """Elementwise XOR (XNOR with ``invert``) of two int32 word buffers."""
+    x = torch.bitwise_xor(a, b)
+    return torch.bitwise_not(x) if invert else x
+
+
+def parity_digest(words: torch.Tensor, digest_width: int,
+                  chunk_words: int) -> torch.Tensor:
+    """XOR-fold a flat int32 word stream, one digest row per chunk.
+
+    Row ``c`` of the (n_chunks, digest_width) result folds words
+    ``[c*chunk_words, (c+1)*chunk_words)`` (``chunk_words`` a multiple of
+    the width); missing words of the last row count as zero.  Torch has no
+    XOR reduction, so rows fold by halving (``x[:h] ^ x[h:2h]``, the odd
+    row carried), which runs on any device.
+    """
+    n = words.numel()
+    n_chunks = max(1, -(-n // chunk_words))
+    flat = words.reshape(-1)
+    if n_chunks * chunk_words != n:
+        flat = F.pad(flat, (0, n_chunks * chunk_words - n))
+    x = flat.reshape(n_chunks, chunk_words // digest_width, digest_width)
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        y = x[:, :h] ^ x[:, h:2 * h]
+        if x.shape[1] % 2:
+            y[:, 0] ^= x[:, 2 * h]
+        x = y
+    return x[:, 0].clone()
+
+
+def keystream_word(idx: torch.Tensor, key0: int, key1: int) -> torch.Tensor:
+    """The reference's murmur3-finalizer keystream of word indices.
+
+    ``idx`` is int64 in [0, 2**32); the uint32 arithmetic runs in int64,
+    masked to 32 bits after every multiply and add (a product may wrap
+    int64, which leaves its low 32 bits intact).  Returns int64 values in
+    [0, 2**32)."""
+    h = (idx * GOLDEN + key0) & MASK
+    h = h ^ key1
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & MASK
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & MASK
+    return h ^ (h >> 16)
+
+
+def xor_cipher(words: torch.Tensor, key0: int, key1: int,
+               counter: int = 0) -> torch.Tensor:
+    """Counter-mode XOR of a flat int32 word stream (an involution): word
+    ``i`` is XORed with ``keystream_word((i + counter) mod 2**32)``.
+    Runs in slices of 2**24 words so the int64 temporaries stay bounded."""
+    flat = words.reshape(-1)
+    out = torch.empty_like(flat)
+    for s in range(0, flat.numel(), _CHUNK_ELEMS):
+        e = min(s + _CHUNK_ELEMS, flat.numel())
+        idx = (torch.arange(s, e, dtype=torch.int64, device=flat.device)
+               + counter) & MASK
+        out[s:e] = flat[s:e] ^ bitpack.as_int32(
+            keystream_word(idx, key0, key1))
+    return out.reshape(words.shape)

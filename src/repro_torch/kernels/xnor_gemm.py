@@ -1,8 +1,12 @@
-"""Fused prepacked XNOR linear: wrapper of ``csrc/xnor_linear.cu``.
+"""XNOR-popcount products: wrappers of ``csrc/xnor_gemm.cu`` and
+``csrc/xnor_linear.cu``.
 
-Replaces ``repro/kernels/xnor_gemm.py::xnor_linear_fused``.  The unfused
-``xnor_gemm`` kernel is not ported yet; its plain version lives in
-:mod:`repro_torch.kernels.ref`.
+:func:`xnor_gemm` replaces ``repro/kernels/xnor_gemm.py::xnor_gemm`` (the
+packed (M, Kw) x (N, Kw) product of the unfused chain);
+:func:`xnor_linear_fused` replaces ``xnor_linear_fused`` there (binarize,
+product and scales in one launch, the serving path).  CPU tensors run the
+plain versions of :mod:`repro_torch.kernels.ref`; CUDA tensors launch the
+kernels.
 """
 
 from __future__ import annotations
@@ -11,6 +15,39 @@ import torch
 
 from repro_torch.core import bitpack
 from repro_torch.kernels import cuda, ref
+
+
+def xnor_gemm(pa: torch.Tensor, pb: torch.Tensor,
+              valid_k: int) -> torch.Tensor:
+    """(M, Kw) x (N, Kw) int32 planes -> (M, N) int32 ``valid_k - 2*popc``.
+
+    The kernel walks the true Kw words and masks ragged M, N and Kw
+    itself: no operand is padded or copied."""
+    cuda.check(pa.ndim == 2 and pb.ndim == 2 and pa.shape[1] == pb.shape[1],
+               f"xnor_gemm needs (M, Kw) x (N, Kw), got {tuple(pa.shape)} "
+               f"x {tuple(pb.shape)}")
+    if not cuda.use_kernel(pa, pb):
+        return ref.xnor_gemm(pa, pb, valid_k)
+    cuda.check(pa.dtype == torch.int32 and pb.dtype == torch.int32,
+               f"planes must be int32 words, got {pa.dtype}/{pb.dtype}")
+    cuda.check(pa.is_contiguous() and pb.is_contiguous(),
+               "xnor_gemm needs contiguous planes")
+    m, kw = pa.shape
+    n = pb.shape[0]
+    cuda.check(8 * kw * 4 <= 227 * 1024 and -(-m // 8) <= 65535,
+               f"xnor_gemm takes Kw <= 7264 and M <= 524280, got Kw={kw}, "
+               f"M={m}")
+    out = torch.empty((m, n), dtype=torch.int32, device=pa.device)
+    if m == 0 or n == 0:
+        return out
+    with torch.cuda.device(pa.device):
+        cuda.launch("xnor_gemm", pa.data_ptr(), pb.data_ptr(),
+                    out.data_ptr(), m, n, kw, valid_k, cuda.stream(pa))
+    xnor_gemm.launches += 1
+    return out
+
+
+xnor_gemm.launches = 0
 
 
 def xnor_linear_fused(x: torch.Tensor, pb: torch.Tensor, beta: torch.Tensor,

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import cuda, ops, paged_attn
+from repro_torch.kernels import ops, paged_attn
 from repro_torch.models import layers
 from repro_torch.models.params import ParamDef
 
@@ -108,17 +108,13 @@ def paged_attention(cfg, p: dict, x: torch.Tensor, cache: PagedKVCache,
     Token at absolute position q lives at block ``table[b, (q // bs) % W]``,
     offset ``q % bs``; ``valid`` (B, C) routes padding / dead-slot writes
     to the trash block 0.  C == 1 under the fused mode runs the paged
-    decode kernel; C > 1 runs the gather / mask / softmax chain.  The
-    unfused decode (``fused_decode="off"``) is the plain chain, so on CUDA
-    it raises rather than run the plain version on the card.
+    decode kernel; C > 1, and C == 1 with ``fused_decode="off"``, run the
+    gather / mask / softmax chain — the reference's XLA code, which has no
+    kernel of its own, so plain PyTorch is its port on any device.
     Returns out (B, C, d); the pool is updated in place.
     """
     b, c, _ = x.shape
     fused = ops.fused_mode(cfg.fused_decode) == "kernel"
-    if c == 1 and not fused and cuda.use_kernel(cache.k):
-        raise NotImplementedError(
-            "unfused decode attention (fused_decode='off') is not ported to "
-            "CUDA: use fused_decode='auto'")
     bs = cache.k.shape[2]
     w = table.shape[1]
     cap = w * bs

@@ -9,7 +9,8 @@ Tolerances: bitwise for sign planes and for ±1 activations (alpha = 1
 exactly); 2e-5 for f32; for bf16 activations 2^-8 relative, because the
 kernels keep alpha in f32 while the plain versions round it through bf16
 (half an ulp, 2^-9 relative); attention at the reference suite's f32 2e-5
-and bf16 3e-2.
+and bf16 3e-2.  The integer kernels (``xnor_gemm``, ``bulk_xor``,
+``parity_digest``, ``xor_cipher``) are held bitwise.
 """
 
 import numpy as np
@@ -17,10 +18,15 @@ import pytest
 import torch
 
 from repro_torch.core import xnor_layers
+from repro_torch.kernels import bulk as kbulk
+from repro_torch.kernels import cipher as kcipher
 from repro_torch.kernels import cuda
 from repro_torch.kernels import pack as kpack
 from repro_torch.kernels import paged_attn as kpaged
+from repro_torch.kernels import parity as kparity
 from repro_torch.kernels import xnor_gemm as kxnor
+
+LENGTHS = [1, 127, 128, 129, 128 * 512 + 3]
 
 
 def _case(*, b, kv, g, dh, bs, w, i8, seed):
@@ -107,3 +113,71 @@ def test_cuda_paged_decode(gpu, dtype, i8, tol, window, pos):
                                window=window, scale=scale,
                                out_scale=out_scale)
     torch.testing.assert_close(kk.float(), pp.float(), rtol=tol, atol=tol)
+
+
+def _words(n, gpu, seed=0):
+    g = torch.Generator(device=gpu)
+    g.manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31, (n,), generator=g, device=gpu,
+                         dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,kw,valid_k", [(64, 32, 8, 256),
+                                            (256, 512, 16, 512),
+                                            (4, 18944, 112, 3584),
+                                            (32, 3584, 592, 18944),
+                                            (5, 9, 3, 70), (17, 40, 7, 200)])
+def test_cuda_xnor_gemm(gpu, m, n, kw, valid_k):
+    xa = torch.randn((m, valid_k), device=gpu)
+    xb = torch.randn((n, valid_k), device=gpu)
+    pa, _ = kpack.pack(xa)
+    pb, _ = kpack.pack(xb)
+    kk, pp = _kernel_and_plain(kxnor.xnor_gemm, pa, pb, valid_k)
+    assert kk.dtype == torch.int32 and torch.equal(kk, pp)
+    # a misaligned operand (one word in) takes the one-word path
+    big = torch.cat([pa.new_zeros(1), pa.reshape(-1)])[1:].reshape(m, kw)
+    kk2, _ = _kernel_and_plain(kxnor.xnor_gemm, big, pb, valid_k)
+    assert torch.equal(kk2, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("invert", [False, True])
+def test_cuda_bulk_xor(gpu, n, invert):
+    a, b = _words(n + 1, gpu, 1), _words(n + 1, gpu, 2)
+    for x, y in ((a[:n], b[:n]), (a[1:], b[1:])):     # aligned, then not
+        kk, pp = _kernel_and_plain(kbulk.bulk_xor, x, y, invert)
+        assert torch.equal(kk, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("width", [64, 96, 128, 256, 1000])
+def test_cuda_parity_digest(gpu, n, width):
+    w = _words(n + 1, gpu, 3)
+    for x in (w[:n], w[1:]):
+        kk, pp = _kernel_and_plain(kparity.parity_digest, x, width)
+        assert torch.equal(kk, pp)
+        for chunk in (width, 4 * width):
+            kk, pp = _kernel_and_plain(kparity.parity_digest, x, width, chunk)
+            assert torch.equal(kk, pp)
+    x = w[:n].clone()
+    d0 = kparity.parity_digest(x, width)
+    x[n // 2] ^= 1 << 9
+    d1 = kparity.parity_digest(x, width)
+    flips = (d0 ^ d1).cpu().numpy().view(np.uint32)
+    assert int(np.unpackbits(flips.view(np.uint8)).sum()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("counter", [0, 12345, 2 ** 32 - 5])
+def test_cuda_xor_cipher(gpu, n, counter):
+    w = _words(n + 1, gpu, 4)
+    for x in (w[:n], w[1:]):
+        kk, pp = _kernel_and_plain(kcipher.xor_cipher, x, 0x9E3779B9,
+                                   0x0BADF00D, counter)
+        assert torch.equal(kk, pp)
+        assert torch.equal(kcipher.xor_cipher(kk, 0x9E3779B9, 0x0BADF00D,
+                                              counter), x)

@@ -142,24 +142,38 @@ def test_entry_points_need_cuda_unless_cpu_asked():
 
 
 @pytest.mark.parametrize("name", ["qwen2-7b+xnor", "qwen2-7b"])
-def test_unfused_decode_raises_on_cuda(monkeypatch, name):
-    """fused_decode="off" is the plain chain: on CUDA tensors the decode
-    step raises instead of running it on the card.  The device check is
-    faked (every tensor counts as CUDA) so this runs without a GPU; the
-    chunked prefill, whose gather chain is the designed C > 1 path, still
-    runs."""
-    from repro_torch.kernels import cuda
-    cfg = configs.get(name).smoke(dtype=torch.float32, fused_decode="off")
-    params = lm.pack_params(cfg, lm.init_params(cfg, 0, device="cpu"))
+def test_unfused_decode_matches_reference(name):
+    """fused_decode="off": the decode step's attention runs the gather /
+    mask / softmax chain (on any device — the reference's XLA code has no
+    kernel); one prefill chunk and one decode step match the reference's
+    logits at this suite's tolerance."""
+    jcfg, cfg = _cfgs(name, {"fused_decode": "off"})
+    jp, tp = _params(jcfg, cfg, seed=2)
+    if cfg.quant == "xnor":
+        jp, tp = jlm.pack_params(jcfg, jp), lm.pack_params(cfg, tp)
     bs, c = cfg.block_size, cfg.prefill_chunk
     w = lm.paged_table_widths(cfg, 32, bs, c)["full"]
-    state = lm.paged_decode_state_spec(cfg, 1, n_blocks=1 + w,
-                                       block_size=bs, device="cpu")
-    table = {"full": torch.arange(1, 1 + w, dtype=torch.int32)[None]}
-    monkeypatch.setattr(cuda, "use_kernel", lambda *t: True)
-    toks = torch.arange(1, 1 + c, dtype=torch.int32)[None]
-    if cfg.quant != "xnor":
-        _, state = lm.prefill_chunk_step(cfg, params, toks, state, 0, c,
-                                         table, fresh=True)
-    with pytest.raises(NotImplementedError):
-        lm.paged_decode_step(cfg, params, toks[:, :1], state, table)
+    jstate = jlm.paged_decode_state_spec(jcfg, 1, 32, n_blocks=1 + w,
+                                         block_size=bs, abstract=False)
+    tstate = lm.paged_decode_state_spec(cfg, 1, n_blocks=1 + w,
+                                        block_size=bs, device="cpu")
+    table = np.arange(1, 1 + w, dtype=np.int32)[None]
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(1, c)).astype(np.int32)
+    jl, jstate = jlm.prefill_chunk_step(
+        jcfg, jp, jnp.asarray(toks), jstate, jnp.int32(0), jnp.int32(c),
+        {"full": jnp.asarray(table)}, fresh=jnp.asarray(True),
+        start=jnp.int32(0))
+    tl, tstate = lm.prefill_chunk_step(
+        cfg, tp, torch.from_numpy(toks), tstate, 0, c,
+        {"full": torch.from_numpy(table.copy())}, fresh=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    token = np.array([[int(np.argmax(np.asarray(jl)[0, -1, :cfg.vocab]))]],
+                     np.int32)
+    jl, _ = jlm.paged_decode_step(jcfg, jp, jnp.asarray(token), jstate,
+                                  {"full": jnp.asarray(table)})
+    tl, _ = lm.paged_decode_step(cfg, tp, torch.from_numpy(token), tstate,
+                                 {"full": torch.from_numpy(table.copy())})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
