@@ -6,15 +6,19 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch
-   and CUDA versions, and the build of the seven kernels from
+   and CUDA versions, and the build of the eight kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at the edge cases (ragged K, ±1
    activations, bf16, int8 pools, a wrapping window ring, G = 7; ragged
    M, N and Kw; buffer lengths 1 to 128·512 + 3, misaligned starts,
-   digest widths 64 to 256 and 96, counters that wrap 2^32).  Times come from
-   CUDA events over many launches, rotating through enough input copies to
-   exceed the 50 MB L2 cache where the path finds its data cold.
+   digest widths 64 to 256 and 96, counters that wrap 2^32; flash
+   attention at dh 8 to 256, bq != bk, BH 1 to 3, a sequence that is not
+   a multiple of the kernel's tile, causal and full, f32 and bf16, held
+   at ``FLASH_TOL``; the table shape in bf16 and in f32).
+   Times come from CUDA events over many launches, rotating through
+   enough input copies to exceed the 50 MB L2 cache where the path finds
+   its data cold.
 3. The serving slice: full-width, full-depth qwen2-7b+xnor in bf16, random
    weights from a seeded generator on the card, packed at load by the pack
    kernel, served by a 4-slot ServeEngine (s_max 128) over 8 requests of
@@ -41,6 +45,24 @@ Phases (any failure raises and the script exits non-zero):
    M = 4 and 32, bitwise against its plain path; and a 2-request
    full-width ServeEngine run with ``fused_decode="off"``, which must not
    launch the paged decode kernel.
+
+6. Long-context attention at qwen2-7b's geometry: 28 query heads over
+   K/V expanded from 4 KV heads, S = 32768, dh = 128, bf16, causal and
+   full, through ``flash_attention`` (its own entry; the model's prefill
+   does not call it, as in the reference); held against the one-shot
+   plain version on 2 heads within one bf16 ulp, timed against SDPA.
+7. The checkpoint layer on the card through one CimEngine, over the full
+   28-layer bf16 qwen2-7b tree (15.2 GB): an encrypted, write-verified
+   save; one leaf changed in place and a delta saved with a primed
+   DigestCache (exactly that leaf stored); ``check`` of both steps; one
+   byte of a member flipped inside a valid container (``check`` names
+   exactly that leaf), then flipped back; a bitwise ``restore``; and
+   ``restore_packed`` into a ServeEngine that answers 2 requests with the
+   same greedy tokens as an engine built from the in-memory tree.
+8. The paper's Monte-Carlo (5000 points, 3 rows) and the engine's bank
+   stack (8 banks x 512 rows) on the card, the card's evaluation held
+   against the CPU's on the same draws; Eq. (1) over the paper's N_O
+   sweep.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -757,6 +779,419 @@ def binary_layers(gpu: str, linears: dict) -> dict:
     return launches
 
 
+QWEN_ATTN = dict(heads=28, kv_heads=4, dh=128)   # qwen2-7b's attention
+
+
+def qwen_qkv(g, s: int):
+    """q (28, S, 128) and K/V expanded from 4 KV heads as
+    ``models/attention.py::_expand_kv`` repeats them, bf16."""
+    import torch
+    h, kv, dh = QWEN_ATTN["heads"], QWEN_ATTN["kv_heads"], QWEN_ATTN["dh"]
+
+    def randn(n):
+        return torch.randn((n, s, dh), generator=g, device="cuda").to(
+            torch.bfloat16)
+    q = randn(h)
+    k, v = (randn(kv).repeat_interleave(h // kv, dim=0) for _ in range(2))
+    return q, k, v
+
+
+def attention_flops(bh: int, s: int, dh: int, causal: bool) -> float:
+    """4 * dh flops per query-key pair the mask keeps."""
+    return 4.0 * dh * bh * (s * (s + 1) / 2 if causal else s * s)
+
+
+# Flash attention's holds.  The kernel and both plain versions compute in
+# f32 from upcast inputs and round once to the output dtype: f32 at the
+# reference suite's 2e-5; bf16 within one bf16 ulp of the expected value
+# (2^-7 of it) plus 1e-5 of f32 noise near zero.  With random inputs |o|
+# is about sqrt(e / position) (0.009 at 32k keys), so a looser absolute
+# limit would pass a kernel that drops most keys of the late rows.
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2 ** -7, 1e-5)}
+
+
+def hold_flash(got, want) -> float:
+    """Hold a flash output at :data:`FLASH_TOL` -> max abs error."""
+    import torch
+    rtol, atol = FLASH_TOL[str(got.dtype).removeprefix("torch.")]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    return (got.float() - want.float()).abs().max().item()
+
+
+def flash_checks(gpu: str) -> dict:
+    """Phase 2, flash attention against its plain version (the tiled
+    online-softmax recurrence) at the edges, then timed past L2 at the
+    table shape: BH = 28, S = 4096, dh = 128, bf16, causal."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import flash_attn as kflash
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    edges = [(1, 64, 8, 32, 32), (3, 128, 16, 16, 64), (1, 256, 32, 64, 16),
+             (3, 192, 128, 64, 32), (2, 80, 24, 16, 16), (1, 64, 256, 32, 32)]
+    for bh, s, dh, bq, bk in edges:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((bh, s, dh), generator=g, device=dev)
+                       .to(dtype) for _ in range(3))
+            for causal in (True, False):
+                kk = kflash.flash_attention(q, k, v, causal=causal, bq=bq,
+                                            bk=bk)
+                with cuda.plain_reference():
+                    pp = kflash.flash_attention(q, k, v, causal=causal,
+                                                bq=bq, bk=bk)
+                torch.cuda.synchronize()
+                assert kk.dtype == dtype
+                err[dtype] = max(err[dtype], hold_flash(kk, pp))
+    print(f"[flash_attention] edges {edges} (BH, S, dh, bq, bk) x causal/full"
+          f" held against the tiled plain version at {FLASH_TOL} (rtol, "
+          f"atol): max abs err f32 {err[torch.float32]}, bf16 "
+          f"{err[torch.bfloat16]}  [{gpu}]")
+
+    h, dh, s = QWEN_ATTN["heads"], QWEN_ATTN["dh"], 4096
+    nbytes = 4 * h * s * dh * 2
+    sets = copies(lambda: qwen_qkv(g, s), 3 * h * s * dh * 2)
+    kk = kflash.flash_attention(*sets[0], causal=True)
+    with cuda.plain_reference():
+        pp = kflash.flash_attention(*sets[0], causal=True)
+    torch.cuda.synchronize()
+    e = hold_flash(kk, pp)
+    # the same shape in f32, where a rounding to bf16 cannot hide an error
+    q32, k32, v32 = (t.float() for t in sets[0])
+    kk = kflash.flash_attention(q32, k32, v32, causal=True)
+    with cuda.plain_reference():
+        pp = kflash.flash_attention(q32, k32, v32, causal=True)
+    torch.cuda.synchronize()
+    e32 = hold_flash(kk, pp)
+    del kk, pp, q32, k32, v32
+    ms = time_ms(lambda *a: kflash.flash_attention(*a, causal=True), sets, 10,
+                 3)
+    with cuda.plain_reference():
+        plain = time_ms(lambda *a: kflash.flash_attention(*a, causal=True),
+                        sets[:2], 2, 2)
+    lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q[None], k[None], v[None], is_causal=True), sets, 10, 3)
+    b_ms, b_by = bound(nbytes, attention_flops(h, s, dh, True), "bf16")
+    print(f"[flash_attention] bf16 causal BH={h} S={s} dh={dh}, {len(sets)} "
+          f"input sets rotated: {ms} ms, plain {plain} ms, SDPA {lib} ms, "
+          f"bound {b_ms} ms ({b_by}); max abs err {e} (f32 at the same "
+          f"shape: {e32})  [{gpu}]")
+    return {"flash_attention": dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn.py:82", max_abs_err=e, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)}
+
+
+def long_context(gpu: str) -> dict:
+    """Phase 6: flash attention at qwen2-7b's geometry over 32768 tokens."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as kflash
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 5)
+    s = 32768
+    q, k, v = qwen_qkv(g, s)
+    h, dh = q.shape[0], q.shape[2]
+    torch.cuda.synchronize()
+
+    kflash.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    outs = {c: kflash.flash_attention(q, k, v, causal=c) for c in (True,
+                                                                  False)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kflash.flash_attention.launches
+    assert launches == 2, launches
+    print(f"[long] flash_attention bf16 BH={h} S={s} dh={dh}, causal and "
+          f"full: {wall} s wall; launches {launches}  [{gpu}]")
+
+    # held against the one-shot plain version (4.3 GB of scores a head)
+    err = 0.0
+    for causal, o in outs.items():
+        assert o.shape == q.shape and o.dtype == torch.bfloat16
+        assert torch.isfinite(o).all()
+        for i in (0, 1):
+            want = kflash.flash_attention_ref(q[i:i + 1], k[i:i + 1],
+                                              v[i:i + 1], causal)
+            err = max(err, hold_flash(o[i:i + 1], want))
+            del want
+            torch.cuda.empty_cache()
+    del outs
+    for causal in (True, False):
+        ms = time_ms(lambda *a: kflash.flash_attention(*a, causal=causal),
+                     [(q, k, v)], 1, 2)
+        lib = time_ms(lambda a, b, c: F.scaled_dot_product_attention(
+            a[None], b[None], c[None], is_causal=causal), [(q, k, v)], 1, 2)
+        flops = attention_flops(h, s, dh, causal)
+        b_ms, b_by = bound(4 * q.numel() * 2, flops, "bf16")
+        print(f"[long] {'causal' if causal else 'full'}: kernel {ms} ms "
+              f"({flops / ms / 1e9} TFLOP/s), SDPA {lib} ms, bound {b_ms} ms "
+              f"({b_by})  [{gpu}]")
+    print(f"[long] heads 0 and 1 held against the one-shot plain version "
+          f"at {FLASH_TOL['bfloat16']} (rtol, atol): max abs err {err}  "
+          f"[{gpu}]")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches}
+
+
+def flip_member_byte(npz: Path, member: str, index: int) -> None:
+    """XOR one byte of a member's array data and rewrite the member's CRC-32
+    in its local header and in the central directory: the container stays
+    valid, so only the parity digest can see the change.  Flipping the same
+    byte again undoes it."""
+    import struct
+    import zipfile
+    import zlib
+
+    with zipfile.ZipFile(npz) as zf:
+        info = zf.getinfo(member)
+        data = bytearray(zf.read(member))
+    pos = 10 + struct.unpack("<H", data[8:10])[0] + index   # past .npy header
+    data[pos] ^= 0xFF
+    crc = struct.pack("<I", zlib.crc32(data))
+    with open(npz, "r+b") as f:
+        f.seek(info.header_offset)
+        name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
+        f.seek(info.header_offset + 30 + name_len + extra_len + pos)
+        f.write(bytes([data[pos]]))
+        f.seek(info.header_offset + 14)
+        f.write(crc)
+        size = f.seek(0, 2)
+        tail_at = max(0, size - (1 << 20))
+        f.seek(tail_at)
+        tail = f.read()
+        name = member.encode()
+        i = tail.find(b"PK\x01\x02")
+        while i >= 0:
+            n = struct.unpack("<H", tail[i + 28:i + 30])[0]
+            if tail[i + 46:i + 46 + n] == name:
+                f.seek(tail_at + i + 16)
+                f.write(crc)
+                return
+            i = tail.find(b"PK\x01\x02", i + 4)
+    raise RuntimeError(f"{member} has no central directory entry in {npz}")
+
+
+def checkpoint_layer(gpu: str) -> dict:
+    """Phase 7: save, delta, check, tamper, restore and restore_packed of
+    the full bf16 qwen2-7b tree through one CimEngine on the card."""
+    import shutil
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import encrypt, engine, incremental, verify
+    from repro_torch.kernels import cipher as kcipher
+    from repro_torch.kernels import pack as kpack
+    from repro_torch.kernels import paged_attn as kpaged
+    from repro_torch.kernels import parity as kparity
+    from repro_torch.kernels import xnor_gemm as kxnor
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine, synthetic_trace
+
+    # the full 28-layer tree: 15.2 GB fits the card's host (96 GiB) and
+    # its disk (75 GB free) with room to spare; nothing is cut
+    cfg = configs.get("qwen2-7b+xnor")
+    directory = ROOT / "experiments" / "chip_smoke_ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    params = lm.init_params(cfg, SEED, device="cuda")
+    leaves = dict((verify.leaf_key(p), t)
+                  for p, t in verify.tree_flatten_with_path(params))
+    gb = sum(t.numel() * t.element_size() for t in leaves.values()) / 1e9
+    n_leaves = len(leaves)
+    changed, tampered = "seg0_attn/attn_wo", "seg0_attn/attn_bq"
+    trace = synthetic_trace(2, cfg.vocab, seed=SEED, prompt_lens=(16, 24),
+                            new_tokens=(8,))
+    torch.cuda.synchronize()
+
+    kernels = (kparity.parity_digest, kcipher.xor_cipher, kpack.pack,
+               kxnor.xnor_linear_fused, kpaged.paged_decode_attention)
+    for f in kernels:
+        f.launches = 0
+    eng = engine.CimEngine(device="cuda")
+    times = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    t_all = time.perf_counter()
+    try:
+        cache = incremental.DigestCache(engine=eng)
+        timed("prime", cache.digests, params)
+        timed("save", ckpt.save, str(directory), 1, params,
+              root_key=ROOT_KEY, engine=eng)
+        leaves[changed][0].neg_()                  # one leaf, in place
+        m2 = timed("save_delta", ckpt.save_delta, str(directory), 2, params,
+                   root_key=ROOT_KEY, engine=eng, cache=cache)
+        stored = [k for k, m in m2["leaves"].items() if m["stored_in"] == 2]
+        assert stored == [changed], stored
+        del cache
+        torch.cuda.empty_cache()
+        for step in (1, 2):
+            ok, bad = timed(f"check {step}", ckpt.check, str(directory), step,
+                            root_key=ROOT_KEY, engine=eng)
+            assert ok and not bad, (step, bad)
+
+        npz = directory / "ckpt_00000001.npz"
+        member = tampered.replace("/", "__") + ".npy"
+        flip_member_byte(npz, member, 4321)
+        ok, bad = timed("check tampered", ckpt.check, str(directory), 2,
+                        root_key=ROOT_KEY, engine=eng)
+        assert not ok and bad == [tampered], bad
+        flip_member_byte(npz, member, 4321)
+        assert ckpt.check(str(directory), 2, root_key=ROOT_KEY, engine=eng,
+                          leaves=[tampered]) == (True, [])
+
+        tree, step = timed("restore", ckpt.restore, str(directory), None,
+                           lm.abstract_params(cfg), root_key=ROOT_KEY,
+                           engine=eng)
+        assert step == 2
+        for p, t in verify.tree_flatten_with_path(tree):
+            want = leaves[verify.leaf_key(p)]
+            assert t.dtype == want.dtype and t.shape == want.shape
+            assert torch.equal(t.reshape(-1).view(torch.uint8),
+                               want.reshape(-1).view(torch.uint8)), p
+        del tree
+        torch.cuda.empty_cache()
+
+        packed, _ = timed("restore_packed", ckpt.restore_packed,
+                          str(directory), None, cfg, root_key=ROOT_KEY,
+                          engine=eng)
+        tokens = {}
+        for name, tree in (("restored", packed), ("in-memory", params)):
+            serve = ServeEngine(cfg, tree, slots=2, s_max=64, device="cuda")
+            for r in trace:
+                serve.submit(r)
+            report = serve.run()
+            tokens[name] = {rid: list(s.tokens)
+                            for rid, s in report.sessions.items()}
+            del serve
+            torch.cuda.empty_cache()
+        del packed
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+        launches = {f.__name__: f.launches for f in kernels}
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    assert tokens["restored"] == tokens["in-memory"], tokens
+    assert all(len(t) == 8 for t in tokens["restored"].values()), tokens
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched in the checkpoint phase"
+
+    # where the time goes: device time of the digest and cipher over the
+    # tree, and the host copies of its bytes, measured apart
+    events = []
+    for key, t in leaves.items():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        words = eng._words(t)
+        eng.digest(words)
+        ct = encrypt.encrypt_device(words, ROOT_KEY, key, eng)
+        end.record()
+        events.append((start, end))
+        del ct
+    torch.cuda.synchronize()
+    kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    big = leaves["seg0_attn/ffn_w1"]
+    t0 = time.perf_counter()
+    host = big.cpu()
+    d2h = big.numel() * 2 / (time.perf_counter() - t0) / 1e9
+    t0 = time.perf_counter()
+    host.cuda()
+    torch.cuda.synchronize()
+    h2d = big.numel() * 2 / (time.perf_counter() - t0) / 1e9
+    del host, params, leaves, big
+    torch.cuda.empty_cache()
+
+    rates = {name: gb * (2 if name == "checks" else 1) / t for name, t in (
+        ("save", times["save"]), ("checks", times["check 1"]
+                                  + times["check 2"]),
+        ("restore", times["restore"]), ("restore_packed",
+                                        times["restore_packed"]))}
+    print(f"[ckpt] {cfg.name} float tree, {n_leaves} leaves "
+          f"of {gb} GB, encrypted, through one CimEngine: seconds {times}; "
+          f"GB/s of tree {rates}; phase wall {wall} s  [{gpu}]")
+    print(f"[ckpt] delta stored exactly {stored}; check named exactly "
+          f"[{tampered!r}] after one byte of its member flipped inside a "
+          f"valid container; restore bitwise equal; restore_packed engine "
+          f"tokens equal the in-memory engine's: {tokens['restored']}  "
+          f"[{gpu}]")
+    print(f"[ckpt] where the time goes: digest + cipher kernels over the tree "
+          f"{kernel_s} s of device time; D2H {d2h} GB/s and H2D {h2d} GB/s "
+          f"(pageable, one 3.8 GB leaf), i.e. {gb / d2h} s and {gb / h2d} s "
+          f"for the tree; the rest of each pass is the disk and the zip "
+          f"(CRC) on the host  [{gpu}]")
+    print(f"[ckpt] engine stats {eng.stats.cycles} cycles, "
+          f"{eng.stats.bit_ops} bits in {eng.stats.calls} calls; "
+          f"launches {launches}")
+    return launches
+
+
+def monte_carlo(gpu: str) -> None:
+    """Phase 8: the paper's Monte-Carlo and the bank stack's, on the card,
+    held against the CPU's evaluation of the same draws."""
+    import torch
+
+    from repro_torch.core import engine, montecarlo, speedup
+
+    geo = engine.BankGeometry()
+    setups = (("paper", 5000, 3, 1), ("bank stack", 5000, geo.rows,
+                                      geo.banks))
+    for label, samples, rows, banks in setups:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 6)
+        montecarlo.run(g, samples=8, rows=rows, banks=banks)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = montecarlo.run(g, samples=samples, rows=rows, banks=banks)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        m = res.margins.reshape(-1, 2).double()
+        rate = res.error_rate.tolist()
+        print(f"[mc] {label}: {samples} samples x {banks} banks x {rows} rows "
+              f"in {dt * 1e3} ms; XOR error rate per input {rate}; margins "
+              f"(I01-REF1, REF2-I01) mean {m.mean(0).tolist()} A, std "
+              f"{m.std(0).tolist()} A  [{gpu}]")
+
+        d = montecarlo.draw(torch.Generator().manual_seed(SEED + 7), samples,
+                            rows, banks)
+        card, cpu = montecarlo.evaluate(d.to("cuda")), montecarlo.evaluate(d)
+        scale = cpu.i_sl.abs().max().item()
+        for name in ("i_sl", "v_cell", "v_ref", "margins"):
+            atol = 1e-6 * scale if name == "margins" else 0.0
+            torch.testing.assert_close(getattr(card, name).cpu(),
+                                       getattr(cpu, name), rtol=1e-6,
+                                       atol=atol)
+        for name in ("xor_out", "xnor_out", "error_rate"):
+            assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+        print(f"[mc] {label}: the card's evaluation equals the CPU's on the "
+              f"same draws (floats at rtol 1e-6, outputs and rates exactly)"
+              f"  [{gpu}]")
+    n_o = torch.tensor([64, 256, 1024, 4096, 16384, 65536],
+                       dtype=torch.float32, device="cuda")
+    print(f"[mc] Eq. (1) XNOR-Net speedup at N_O {n_o.int().tolist()}: "
+          f"1-cycle {speedup.xnornet_speedup(n_o).tolist()}, 3-cycle "
+          f"{speedup.xnornet_speedup(n_o / 3).tolist()}, XOR-Net "
+          f"{speedup.xornet_speedup(n_o).tolist()}; max rows at the nominal "
+          f"HRS/LRS {float(montecarlo.max_rows())}")
+
+
 LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")   # launch order per layer
 
 
@@ -992,14 +1427,21 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 products
+    torch.backends.cudnn.allow_tf32 = False         # stay f32 on the card
     rec = kernel_checks(gpu)
     rec.update(integer_kernel_checks(gpu, LINEAR_SHAPES))
+    rec.update(flash_checks(gpu))
     launches = serve_slice(gpu)
     launches.update(integer_chain(gpu))
     launches["xnor_gemm"] = binary_layers(gpu, LINEAR_SHAPES)["xnor_gemm"]
+    launches.update(long_context(gpu))
+    checkpoint_layer(gpu)
+    monte_carlo(gpu)
     kernels = []
     for key in ("pack", "xnor_linear_fused", "paged_decode_attention",
-                "xnor_gemm", "bulk_xor", "parity_digest", "xor_cipher"):
+                "xnor_gemm", "bulk_xor", "parity_digest", "xor_cipher",
+                "flash_attention"):
         r = dict(rec[key])
         r["launches"] = launches[key]
         kernels.append({k: r[k] for k in (

@@ -152,6 +152,11 @@ class CimEngine:
             return ops.as_words(buf)
         return ops.as_words(np.asarray(buf)).to(self.device)
 
+    def words(self, buf) -> torch.Tensor:
+        """The word stream of a tensor or a numpy array on the engine's
+        device (a tensor already there is viewed, not copied)."""
+        return self._words(buf).to(self.device)
+
     def verify_copy(self, a, b) -> torch.Tensor:
         """Paper Fig. 1(a): XOR source against copy; all-zero means intact.
 

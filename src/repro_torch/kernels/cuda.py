@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("pack", "xnor_linear", "paged_attn", "xnor_gemm", "bulk", "parity",
-           "cipher")
+           "cipher", "flash_attn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -50,6 +50,8 @@ ENTRY_POINTS = {
     "bulk_xor": ("bulk", [_P, _P, _P, _L, _I, _P]),
     "parity_digest": ("parity", [_P, _L, _L, _I, _P, _P]),
     "xor_cipher": ("cipher", [_P, _P, _L, _U, _U, _U, _P]),
+    "flash_attention": ("flash_attn", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                       _P]),
 }
 
 _plain = contextvars.ContextVar("plain_reference", default=False)

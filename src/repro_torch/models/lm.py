@@ -2,7 +2,7 @@
 per-segment blocks, the full-precision head.
 
 Public surface:
-  param_defs / init_params / pack_params
+  param_defs / abstract_params / init_params / pack_params
   paged_table_widths / paged_decode_state_spec
   paged_decode_step(cfg, params, token, state, tables, active)
   prefill_chunk_step(cfg, params, tokens, state, slot, n_valid, tables, ...)
@@ -29,6 +29,11 @@ def param_defs(cfg) -> dict:
     for i, (kind, n, d) in enumerate(blocks.segment_defs(cfg)):
         defs[f"seg{i}_{kind}"] = d
     return defs
+
+
+def abstract_params(cfg) -> dict:
+    """The parameter tree as ``meta`` tensors (shapes and dtypes only)."""
+    return pdefs.abstract(param_defs(cfg))
 
 
 def init_params(cfg, seed: int = 0, *, device="cuda") -> dict:

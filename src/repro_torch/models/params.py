@@ -39,6 +39,13 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def abstract(defs) -> dict:
+    """The tree's shapes and dtypes as tensors on the ``meta`` device: a
+    structure to restore into that allocates nothing."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)
+
+
 def init(defs, generator: torch.Generator, device) -> dict:
     """Draw every parameter: normal * (1/sqrt(fan_in)) by default, 1.0 for
     embeddings and vectors, as the JAX package scales them.  Leaves are

@@ -9,7 +9,7 @@ Tolerances: bitwise for sign planes and for ±1 activations (alpha = 1
 exactly); 2e-5 for f32; for bf16 activations 2^-8 relative, because the
 kernels keep alpha in f32 while the plain versions round it through bf16
 (half an ulp, 2^-9 relative); attention at the reference suite's f32 2e-5
-and bf16 3e-2.  The integer kernels (``xnor_gemm``, ``bulk_xor``,
+and bf16 3e-2 (flash attention too).  The integer kernels (``xnor_gemm``, ``bulk_xor``,
 ``parity_digest``, ``xor_cipher``) are held bitwise.
 """
 
@@ -21,6 +21,7 @@ from repro_torch.core import xnor_layers
 from repro_torch.kernels import bulk as kbulk
 from repro_torch.kernels import cipher as kcipher
 from repro_torch.kernels import cuda
+from repro_torch.kernels import flash_attn as kflash
 from repro_torch.kernels import pack as kpack
 from repro_torch.kernels import paged_attn as kpaged
 from repro_torch.kernels import parity as kparity
@@ -181,3 +182,68 @@ def test_cuda_xor_cipher(gpu, n, counter):
         assert torch.equal(kk, pp)
         assert torch.equal(kcipher.xor_cipher(kk, 0x9E3779B9, 0x0BADF00D,
                                               counter), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,dh,bq,bk", [
+    (2, 64, 16, 32, 32), (1, 128, 32, 32, 32), (3, 256, 8, 32, 32),
+    (2, 128, 16, 16, 64), (2, 128, 16, 64, 16), (2, 128, 16, 128, 32),
+    (1, 80, 24, 16, 16), (2, 192, 128, 64, 64), (1, 64, 256, 32, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_flash_attention(gpu, bh, s, dh, bq, bk, causal, dtype, tol):
+    g = torch.Generator(device=gpu)
+    g.manual_seed(bh * 1000 + s + dh)
+    q, k, v = (torch.randn((bh, s, dh), generator=g, device=gpu).to(dtype)
+               for _ in range(3))
+    kk, pp = _kernel_and_plain(kflash.flash_attention, q, k, v,
+                               causal=causal, bq=bq, bk=bk)
+    assert kk.dtype == dtype and kk.shape == (bh, s, dh)
+    torch.testing.assert_close(kk.float(), pp.float(), rtol=tol, atol=tol)
+    oracle = kflash.flash_attention_ref(q, k, v, causal)
+    torch.testing.assert_close(kk.float(), oracle.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_unsupported_dh(gpu):
+    q = torch.zeros((1, 64, 12), device=gpu)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kflash.flash_attention(q, q, q, bq=32, bk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("root_key", [None, "card-key"])
+def test_cuda_checkpoint_defaults_to_the_card(gpu, tmp_path, root_key):
+    """With no ``engine=`` a checkpoint of a tree on the card digests (and
+    ciphers) it through the card's kernels, and writes the same manifest
+    and members as the host path."""
+    import zipfile
+
+    from repro_torch.checkpoint import ckpt
+
+    g = torch.Generator(device=gpu)
+    g.manual_seed(11)
+    tree = {"w": torch.randn((64, 33), generator=g, device=gpu)
+            .to(torch.bfloat16),
+            "b": [torch.randn((7,), generator=g, device=gpu),
+                  torch.arange(5, device=gpu, dtype=torch.int32)]}
+    kparity.parity_digest.launches = 0
+    kcipher.xor_cipher.launches = 0
+    card = ckpt.save(str(tmp_path / "card"), 1, tree, root_key=root_key)
+    assert kparity.parity_digest.launches >= 3
+    assert (kcipher.xor_cipher.launches >= 3) == (root_key is not None)
+    host = ckpt.save(str(tmp_path / "host"), 1, tree, root_key=root_key,
+                     device="cpu")
+    assert card == host
+    members = []
+    for d in ("card", "host"):
+        with zipfile.ZipFile(tmp_path / d / "ckpt_00000001.npz") as z:
+            members.append([(n, z.read(n)) for n in z.namelist()])
+    assert members[0] == members[1]
+    assert ckpt.check(str(tmp_path / "host"), 1, root_key=root_key) == \
+        (True, [])
+    got, _ = ckpt.restore(str(tmp_path / "host"), 1, tree, root_key=root_key)
+    for a, b in zip((got["w"], *got["b"]), (tree["w"], *tree["b"])):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)

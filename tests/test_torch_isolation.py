@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``, and every
+``chip_smoke.py``, imports ``jax``, the JAX package ``repro``, or
+``msgpack`` and ``ml_dtypes`` (the card's machine has neither), and every
 module imports without ``nvcc`` or a GPU (kernels build at first launch,
 never at import)."""
 
@@ -12,7 +13,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "repro")
+BANNED = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 def _banned(name: str) -> bool:
@@ -43,7 +44,7 @@ def test_every_module_imports_with_jax_blocked():
         .removesuffix(".__init__") for p in PKG.rglob("*.py"))
     code = "\n".join([
         "import importlib, importlib.util, sys",
-        "for b in ('jax', 'jaxlib', 'repro'):",
+        f"for b in {BANNED!r}:",
         "    sys.modules[b] = None",
         f"for m in {mods!r}:",
         "    importlib.import_module(m)",
