@@ -44,8 +44,9 @@ ENTRY_POINTS = {
     "xnor_pack": ("pack", [_P, _I, _P, _P, _I, _I, _I, _P]),
     "xnor_linear_fused": ("xnor_linear", [_P, _I, _P, _P, _P, _I, _I, _I, _I,
                                           _P]),
-    "paged_decode": ("paged_attn", [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _F, _F, _P]),
+    "paged_decode": ("paged_attn", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+                                    _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _F, _F, _P]),
     "xnor_gemm": ("xnor_gemm", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "bulk_xor": ("bulk", [_P, _P, _P, _L, _I, _P]),
     "parity_digest": ("parity", [_P, _L, _L, _I, _P, _P]),

@@ -8,7 +8,9 @@ One streaming pass over key tiles keeps, per query row,
   acc  the running sum of exp(score - m) @ V,
 
 with the correction ``exp(m_prev - m_new)`` rescaling the stale l and acc
-whenever a tile raises the max.  :func:`finish` normalises; ``acc / l``
+whenever a tile raises the max.  :func:`merge` combines the states of
+disjoint key ranges (the split table walk of ``csrc/paged_attn.cu``).
+:func:`finish` normalises; ``acc / l``
 equals masked softmax(scores) @ V in real arithmetic, and differs from the
 one-shot softmax only in rounding.
 
@@ -48,6 +50,20 @@ def update(s: torch.Tensor, v: torch.Tensor, m: torch.Tensor,
     l = l * corr + p.sum(dim=-1, keepdim=True)
     acc = acc * corr + torch.matmul(p, v)
     return m_new, l, acc
+
+
+def merge(parts):
+    """Combine partial states ``[(m, l, acc), ...]`` of disjoint key ranges
+    into the state of their union: ``M = max m_i``, and each part weighs
+    ``exp(m_i - M)``.  A part that saw no live key (``init``'s m = NEG_INF,
+    l = 0, acc = 0) weighs nothing once any part has one; with none, the
+    result is ``init``'s state again."""
+    ms = torch.stack([p[0] for p in parts])
+    m = ms.amax(dim=0)
+    wgt = torch.exp(ms - m)
+    l = (torch.stack([p[1] for p in parts]) * wgt).sum(dim=0)
+    acc = (torch.stack([p[2] for p in parts]) * wgt).sum(dim=0)
+    return m, l, acc
 
 
 def finish(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
