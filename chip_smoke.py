@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
    and CUDA versions, and the build of the eight kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
    the registers, static shared memory and spills ptxas reports for flash
-   attention and paged decode, and the HGMMA (wgmma) and UTMALDG (TMA
-   load) instructions in the built flash library (``cuobjdump -sass``).
+   attention, paged decode and the fused XNOR linear, and the HGMMA
+   (wgmma) and UTMALDG (TMA load) instructions in the built flash library
+   (``cuobjdump -sass``).
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at the edge cases (ragged K, ±1
    activations, bf16, int8 pools, a wrapping window ring, G = 7; ragged
@@ -21,9 +22,12 @@ Phases (any failure raises and the script exits non-zero):
    at ``FLASH_TOL``; the table shape in bf16 and in f32; paged decode at
    one bf16 ulp too, and at long context: qwen2-7b's decode geometry over
    a 2048-column table, 32k keys a slot, printed on its own line).
-   Times come from CUDA events over many launches, rotating through
-   enough input copies to exceed the 50 MB L2 cache where the path finds
-   its data cold.
+   The fused XNOR linear at each qwen2-7b linear shape, M = 4 and 32, held
+   bitwise against its plain version summed in the kernel's order, and one
+   decode step's 196 fused linears (7 a layer x 28) timed as one CUDA
+   graph beside their byte bound.  Times come from CUDA events over many
+   launches, rotating through enough input copies to exceed the 50 MB L2
+   cache where the path finds its data cold.
 3. The serving slice: full-width, full-depth qwen2-7b+xnor in bf16, random
    weights from a seeded generator on the card, packed at load by the pack
    kernel, served by a 4-slot ServeEngine (s_max 128) over 8 requests of
@@ -117,8 +121,8 @@ def ptxas_summary(log: str, source: str) -> list[str]:
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)
-            short = re.search(r"(flash_wgmma|flash_f32|paged_split)_kernel"
-                              r"(I\w+?EE)?", name)
+            short = re.search(r"(flash_wgmma|flash_f32|paged_split|"
+                              r"xnor_linear)_kernel(I\w+?EE)?", name)
             name = short.group(0) if short else name
         elif "spill" in line:
             spill = line.strip()
@@ -249,8 +253,10 @@ def kernel_checks(gpu: str) -> dict:
     print(f"[pack] bf16 ({n}, {k}): {ms} ms, plain {plain} ms, bound "
           f"{b_ms} ms ({b_by}); alpha max abs err {err}  [{gpu}]")
 
-    # -- fused XNOR linear ---------------------------------------------------
-    err = 0.0
+    # -- fused XNOR linear: each qwen2-7b shape at M = 4 (decode) and 32 (a
+    # prefill chunk); bitwise against the plain version summed in the
+    # kernel's order, within the reference's tolerances of the plain one --
+    err, shapes = 0.0, {}
     for name, (n, k) in linears.items():
         wp = xnor_layers.pack_weights(randn(n, k, dtype=torch.bfloat16))
         pb, beta = wp
@@ -261,9 +267,15 @@ def kernel_checks(gpu: str) -> dict:
             assert torch.equal(kk, pp), f"±1 dots differ at {name} M={m}"
             xf = randn(m, k)
             kk, pp = both(kxnor.xnor_linear_fused, xf, pb, beta, k)
+            assert torch.equal(
+                kk, kxnor.linear_kernel_order(xf, pb, beta, k)), \
+                f"f32 differs from the kernel-order plain one, {name} M={m}"
             torch.testing.assert_close(kk, pp, rtol=2e-5, atol=2e-5)
             xb = xf.to(torch.bfloat16)
             kk, pp = both(kxnor.xnor_linear_fused, xb, pb, beta, k)
+            assert torch.equal(
+                kk, kxnor.linear_kernel_order(xb, pb, beta, k)), \
+                f"bf16 differs from the kernel-order plain one, {name} M={m}"
             # kernel alpha f32 vs plain alpha rounded to bf16: <= 2^-9 rel
             torch.testing.assert_close(kk, pp, rtol=2 ** -8, atol=1e-6)
             e = (kk - pp).abs().max().item()
@@ -279,10 +291,15 @@ def kernel_checks(gpu: str) -> dict:
                 lambda: (xb, randn(n, k, dtype=torch.bfloat16)), n * k * 2),
                 200)
             b_ms, b_by = bound(nbytes, 2 * m * n * k, "int8")
+            plan = kxnor.linear_plan(m, n, k)
             print(f"[xnor_linear_fused] {name} M={m} N={n} K={k}: {ms} ms, "
                   f"plain {plain} ms, bound {b_ms} ms ({b_by}), dense bf16 "
-                  f"F.linear of the same shape {gemm} ms; max abs err {e}"
-                  f"  [{gpu}]")
+                  f"F.linear of the same shape {gemm} ms; max abs err {e}; "
+                  f"plan {plan.grid[0] * plan.grid[1]} blocks, split "
+                  f"{plan.split}, cluster {plan.cluster}  [{gpu}]")
+            shapes[f"{name} M={m}"] = dict(ms=ms, plain_ms=plain,
+                                           bound_ms=b_ms, bound_by=b_by,
+                                           max_abs_err=e)
             if name == "w1/w3" and m == 4:
                 rec["xnor_linear_fused"] = dict(
                     name="xnor_linear_fused", route="cuda",
@@ -291,11 +308,24 @@ def kernel_checks(gpu: str) -> dict:
                     max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
             err = max(err, e)
+            del sets
+    print(f"[xnor_linear_fused shapes] {json.dumps(shapes)}")
     # a ragged K (not a word multiple)
     w = randn(9, 70)
     pb, beta = xnor_layers.pack_weights(w)
-    kk, pp = both(kxnor.xnor_linear_fused, randn(5, 70), pb, beta, 70)
+    x = randn(5, 70)
+    kk, pp = both(kxnor.xnor_linear_fused, x, pb, beta, 70)
     torch.testing.assert_close(kk, pp, rtol=2e-5, atol=2e-5)
+    assert torch.equal(kk, kxnor.linear_kernel_order(x, pb, beta, 70))
+    # a K too wide for one block: split across the cluster, ragged N, two
+    # row passes, f32
+    assert kxnor.linear_plan(33, 70, 40000, 4).split > 1
+    pb, beta = xnor_layers.pack_weights(randn(70, 40000))
+    x = randn(33, 40000)
+    kk, pp = both(kxnor.xnor_linear_fused, x, pb, beta, 40000)
+    torch.testing.assert_close(kk, pp, rtol=2e-5, atol=2e-5)
+    assert torch.equal(kk, kxnor.linear_kernel_order(x, pb, beta, 40000))
+    decode_step_linears(gpu, randn)
 
     # -- paged decode attention ----------------------------------------------
     B, KV, G, dh, bs, W = 4, 4, 7, 128, 16, 8
@@ -369,6 +399,35 @@ def kernel_checks(gpu: str) -> dict:
           f"ms, SDPA on pre-gathered K/V {lib} ms, bound {b_ms} ms ({b_by});"
           f" max abs err {err}  [{gpu}]")
     return rec
+
+
+def decode_step_linears(gpu: str, randn) -> None:
+    """One decode step's fused linears: a layer's seven launches at M = 4
+    in ``LINEARS`` order, 28 layers of their own weights and activations
+    (817 MB of planes, past L2), captured in one CUDA graph; printed
+    beside the step's byte bound."""
+    import torch
+
+    from repro_torch.core import xnor_layers
+    from repro_torch.kernels import xnor_gemm as kxnor
+
+    shape = {"wq": "wq/wo", "wk": "wk/wv", "wv": "wk/wv", "wo": "wq/wo",
+             "w1": "w1/w3", "w3": "w1/w3", "w2": "w2"}
+    calls, nbytes = [], 0
+    for _ in range(28):
+        for lin in LINEARS:
+            n, k = LINEAR_SHAPES[shape[lin]]
+            pb, beta = xnor_layers.pack_weights(
+                randn(n, k, dtype=torch.bfloat16))
+            calls.append((randn(4, k, dtype=torch.bfloat16), pb, beta, k))
+            nbytes += 4 * k * 2 + pb.numel() * 4 + n * 4 + 4 * n * 4
+    step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[xnor_linear_fused decode step] {len(calls)} launches (7 a layer "
+          f"x 28, M = 4) in one CUDA graph: {step} ms, bound {b_ms} ms "
+          f"({step / b_ms} x)  [{gpu}]")
+    del calls
+    torch.cuda.empty_cache()
 
 
 def paged_long(gpu: str) -> dict:
@@ -506,7 +565,15 @@ def integer_kernel_checks(gpu: str, linears: dict) -> dict:
         if label == "w1/w3 M=4":
             rec["xnor_gemm"] = r
 
-    # -- edges of the streaming kernels: lengths, alignment, widths, wrap --
+    # -- edges of the streaming kernels: lengths, alignment, widths, wrap;
+    # bulk_xor at its block (256 quads) and peel edges, a and b at each
+    # offset mod 16 bytes alike and apart --
+    for n in (2, 3, 4, 5, 1023, 1024, 1025, 1027, 1031, 256 * 4 * 3 + 7):
+        a, b = words(n + 3), words(n + 3)
+        pairs = [(a[i:i + n], b[i:i + n]) for i in range(4)]
+        for x, y in pairs + [(a[1:1 + n], b[2:2 + n]), (a[:n], b[3:3 + n])]:
+            for inv in (False, True):
+                held(kbulk.bulk_xor, x, y, inv)
     for n in (1, 127, 128, 129, 128 * 512 + 3):
         a, b = words(n + 1), words(n + 1)
         for x, y in ((a[:n], b[:n]), (a[1:], b[1:])):
@@ -1312,41 +1379,6 @@ def monte_carlo(gpu: str) -> None:
 LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")   # launch order per layer
 
 
-def alpha_kernel_order(x):
-    """alpha = sum|x| / K summed as ``csrc/xnor_linear.cu`` sums it: each of
-    a warp's 32 lanes adds its own elements in sequence (16-byte loads when
-    K and the row allow, else one element per 32-wide word), the lanes'
-    sums meet in an xor butterfly, and the total is divided by K."""
-    import torch
-    import torch.nn.functional as F
-    m, k = x.shape
-    a = x.float().abs()
-    e = 16 // x.element_size()
-    if k % (32 * e) == 0 and x.data_ptr() % 16 == 0:
-        seq = a.reshape(m, k // (32 * e), 32, e).permute(0, 2, 1, 3)
-    else:
-        kw = -(-k // 32)
-        seq = F.pad(a, (0, kw * 32 - k)).reshape(m, kw, 32).permute(0, 2, 1)
-    seq = seq.reshape(m, 32, -1)
-    acc = torch.zeros((m, 32), dtype=torch.float32, device=x.device)
-    for j in range(seq.shape[-1]):
-        acc = acc + seq[..., j]
-    lanes = torch.arange(32, device=x.device)
-    for o in (16, 8, 4, 2, 1):
-        acc = acc + acc[:, lanes ^ o]
-    return acc[:, 0] / torch.full((m,), float(k), device=x.device)
-
-
-def linear_kernel_order(x, pb, beta, valid_k):
-    """The plain fused linear with the kernel's alpha (f32, its summation
-    order) in place of the reference's (``x.dtype``, torch's order)."""
-    from repro_torch.core import bitpack
-    from repro_torch.kernels import ref
-    dots = ref.xnor_gemm(bitpack.pack_bits(bitpack.pad_to_word(x)), pb,
-                         valid_k).float()
-    return dots * alpha_kernel_order(x)[:, None] * beta[None, :]
-
-
 def first_flip(xs_a, xs_b):
     """Walk two runs' fused-linear inputs launch by launch: the largest
     relative L2 gap up to and including the first launch whose sign bits
@@ -1398,6 +1430,7 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
 
     from repro_torch.kernels import cuda, ops, ref
     from repro_torch.kernels import paged_attn as kpaged
+    from repro_torch.kernels.xnor_gemm import linear_kernel_order
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import lm
 
@@ -1544,7 +1577,7 @@ def main() -> int:
     for line in cuda.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
-    for source in ("flash_attn", "paged_attn"):
+    for source in ("flash_attn", "paged_attn", "xnor_linear"):
         for row in ptxas_summary(cuda.build_log(), source):
             print(f"[ptxas] {source}.cu {row}")
     print(f"[sass] flash_attn: {sass_counts(cuda.build()['flash_attn'])}")

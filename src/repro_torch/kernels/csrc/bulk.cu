@@ -6,16 +6,23 @@
 //
 // Computes out[i] = a[i] ^ b[i], or ~(a[i] ^ b[i]) with invert (the
 // complementary rail), for i < n words.  n is any length: there is no
-// padding to (R, 128) tiles; the ragged tail is the loop's own bound.
+// padding to (R, 128) tiles; ragged ends are masked in the kernel.
 //
 // Bound on this card: bytes.  Two reads and one write, 12 bytes a word —
-// a 3.8 GB leaf (950 M words) moves 11.4 GB, 3.4 ms at 3.35 TB/s; one
-// logic op per word is nothing beside that.  Design: a grid-stride loop
-// sized to keep 8 blocks on every SM; when all three pointers are 16-byte
-// aligned each lane moves four words per step with 16-byte loads and
-// stores (a warp reads 512 contiguous bytes of each operand), and the
-// first n % 4 threads of the grid take the scalar tail; otherwise one
-// word per lane per step.  No shared memory, no reduction.
+// the 719 MB layer-stacked wq leaf (179.8 M words) moves 2.16 GB, 0.644 ms
+// at 3.35 TB/s; one logic op per word is nothing beside that.  Design:
+// one 16-byte quad of each operand per thread and a grid sized to the
+// work, as PyTorch's elementwise kernels do — no grid-stride loop.  Timed
+// against variant builds at that leaf (PERF.md, PR 15): a grid-stride
+// loop over 8 blocks an SM (this kernel's first design) or 4 reached
+// 87-89 % of the byte bound, one chunk a block 91-93 %, and of those one
+// quad a thread with plain loads and stores was the fastest; more quads in
+// flight a thread, or streaming cache hints, did not help.  When a, b and
+// out share their offset mod 16 bytes, the words before the first 16-byte
+// boundary are peeled off and the rest takes the quad path (the wrapper
+// allocates out at a's offset when a and b share one); other alignments
+// take one word a thread.  The n % 4 words past the last quad go to the
+// first threads of block 0.
 #include "common.cuh"
 
 namespace {
@@ -27,40 +34,58 @@ __device__ __forceinline__ uint32_t op(uint32_t x, uint32_t y) {
   return INVERT ? ~(x ^ y) : (x ^ y);
 }
 
-template <bool INVERT, bool VEC>
+// Quads [0, n4) from word `head` on; words [0, head) and the ragged tail
+// past the last quad on the first threads of block 0.
+template <bool INVERT>
 __global__ void __launch_bounds__(kThreads)
-    bulk_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                uint32_t* __restrict__ out, long long n) {
-  const long long tid =
+    bulk_quads(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+               uint32_t* __restrict__ out, long long n, int head,
+               long long n4) {
+  const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  if constexpr (VEC) {
-    const long long n4 = n >> 2;
-    const uint4* a4 = reinterpret_cast<const uint4*>(a);
-    const uint4* b4 = reinterpret_cast<const uint4*>(b);
-    uint4* o4 = reinterpret_cast<uint4*>(out);
-    for (long long i = tid; i < n4; i += stride) {
-      const uint4 x = a4[i];
-      const uint4 y = b4[i];
-      o4[i] = make_uint4(op<INVERT>(x.x, y.x), op<INVERT>(x.y, y.y),
-                         op<INVERT>(x.z, y.z), op<INVERT>(x.w, y.w));
-    }
-    const long long t = (n4 << 2) + tid;  // the n % 4 tail words
-    if (t < n) out[t] = op<INVERT>(a[t], b[t]);
-  } else {
-    for (long long i = tid; i < n; i += stride) out[i] = op<INVERT>(a[i], b[i]);
+  if (i < n4) {
+    const uint4 x = reinterpret_cast<const uint4*>(a + head)[i];
+    const uint4 y = reinterpret_cast<const uint4*>(b + head)[i];
+    reinterpret_cast<uint4*>(out + head)[i] =
+        make_uint4(op<INVERT>(x.x, y.x), op<INVERT>(x.y, y.y),
+                   op<INVERT>(x.z, y.z), op<INVERT>(x.w, y.w));
   }
+  if (blockIdx.x == 0) {
+    const int t = threadIdx.x;
+    const long long tail = head + (n4 << 2) + t;
+    if (t < head) out[t] = op<INVERT>(a[t], b[t]);
+    if (tail < n) out[tail] = op<INVERT>(a[tail], b[tail]);
+  }
+}
+
+// Buffers whose offsets differ mod 16 bytes: one word a thread.
+template <bool INVERT>
+__global__ void __launch_bounds__(kThreads)
+    bulk_words(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+               uint32_t* __restrict__ out, long long n) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n) out[i] = op<INVERT>(a[i], b[i]);
+}
+
+unsigned blocks(long long items) {
+  return static_cast<unsigned>(items > 0 ? (items + kThreads - 1) / kThreads
+                                         : 1);
 }
 
 template <bool INVERT>
 int launch(const uint32_t* a, const uint32_t* b, uint32_t* out, long long n,
            cudaStream_t s) {
-  if (xnor::aligned16(a) && xnor::aligned16(b) && xnor::aligned16(out)) {
-    const int grid = xnor::stream_blocks(n >> 2, kThreads);
-    bulk_kernel<INVERT, true><<<grid, kThreads, 0, s>>>(a, b, out, n);
+  const uintptr_t off = reinterpret_cast<uintptr_t>(a) & 15u;
+  if ((reinterpret_cast<uintptr_t>(b) & 15u) == off &&
+      (reinterpret_cast<uintptr_t>(out) & 15u) == off) {
+    const long long peel = static_cast<long long>((16 - off) % 16 / 4);
+    const int head = static_cast<int>(n < peel ? n : peel);
+    const long long n4 = (n - head) >> 2;
+    bulk_quads<INVERT><<<blocks(n4), kThreads, 0, s>>>(a, b, out, n, head,
+                                                        n4);
   } else {
-    const int grid = xnor::stream_blocks(n, kThreads);
-    bulk_kernel<INVERT, false><<<grid, kThreads, 0, s>>>(a, b, out, n);
+    bulk_words<INVERT><<<blocks(n), kThreads, 0, s>>>(a, b, out, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

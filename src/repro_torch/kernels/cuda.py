@@ -43,7 +43,7 @@ _L, _U = ctypes.c_longlong, ctypes.c_uint
 ENTRY_POINTS = {
     "xnor_pack": ("pack", [_P, _I, _P, _P, _I, _I, _I, _P]),
     "xnor_linear_fused": ("xnor_linear", [_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                          _P]),
+                                          _I, _I, _I, _I, _I, _P]),
     "paged_decode": ("paged_attn", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _F, _F, _P]),

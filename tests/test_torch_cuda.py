@@ -6,13 +6,14 @@ the reference package, so it runs on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: bitwise for sign planes and for ±1 activations (alpha = 1
-exactly); 2e-5 for f32; for bf16 activations 2^-8 relative, because the
-kernels keep alpha in f32 while the plain versions round it through bf16
-(half an ulp, 2^-9 relative); attention (paged decode and flash) at the
-reference suite's f32 2e-5, and in bf16 within one bf16 ulp (rtol 2^-7,
-atol 1e-5): the kernels and the plain versions compute in f32 and round
-once to bf16, and a looser limit would be as large as |o| itself at long
-context.  The integer kernels (``xnor_gemm``, ``bulk_xor``,
+exactly), and the fused linear bitwise against its plain version summed in
+the kernel's order; 2e-5 for f32; for bf16 activations 2^-8 relative,
+because the kernels keep alpha in f32 while the plain versions round it
+through bf16 (half an ulp, 2^-9 relative); attention (paged decode and
+flash) at the reference suite's f32 2e-5, and in bf16 within one bf16 ulp
+(rtol 2^-7, atol 1e-5): the kernels and the plain versions compute in f32
+and round once to bf16, and a looser limit would be as large as |o| itself
+at long context. The integer kernels (``xnor_gemm``, ``bulk_xor``,
 ``parity_digest``, ``xor_cipher``) are held bitwise.
 """
 
@@ -79,23 +80,62 @@ def test_cuda_pack(gpu, k, dtype):
     torch.testing.assert_close(ka, pa, rtol=tol, atol=0, equal_nan=True)
 
 
+QWEN2_7B_LINEARS = [(3584, 3584), (512, 3584), (18944, 3584),
+                    (3584, 18944)]                       # (N, K)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(4, 3584, 512), (32, 18944, 256),
-                                   (5, 70, 9)])
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for n, k in QWEN2_7B_LINEARS
+                                   for m in (1, 4, 5, 8, 32, 33)]
+                         + [(5, 70, 9)])
 def test_cuda_xnor_linear_fused(gpu, m, k, n):
-    w = torch.randn((n, k), device=gpu)
+    """Bitwise against the plain version summed in the kernel's order
+    (``xnor_gemm.linear_kernel_order``) in f32 and bf16, bitwise on ±1
+    activations, and within the reference's tolerances of the plain
+    version; at each qwen2-7b linear shape and a ragged one."""
+    g = torch.Generator(device=gpu)
+    g.manual_seed(m * 100003 + k + n)
+    w = torch.randn((n, k), generator=g, device=gpu)
     pb, beta = xnor_layers.pack_weights(w)
-    pm1 = torch.where(torch.randn((m, k), device=gpu) >= 0, 1.0, -1.0)
+    pm1 = torch.where(torch.randn((m, k), generator=g, device=gpu) >= 0,
+                      1.0, -1.0)
     kk, pp = _kernel_and_plain(kxnor.xnor_linear_fused, pm1, pb, beta, k)
     assert torch.equal(kk, pp)              # alpha = 1 exactly: exact dots
-    x = torch.randn((m, k), device=gpu)
+    x = torch.randn((m, k), generator=g, device=gpu)
     kk, pp = _kernel_and_plain(kxnor.xnor_linear_fused, x, pb, beta, k)
+    assert torch.equal(kk, kxnor.linear_kernel_order(x, pb, beta, k))
     torch.testing.assert_close(kk, pp, rtol=2e-5, atol=2e-5)
     # bf16: the kernel's alpha is f32, the plain one is rounded to bf16 —
     # a relative difference of at most 2^-9 in every output
     xb = x.to(torch.bfloat16)
     kk, pp = _kernel_and_plain(kxnor.xnor_linear_fused, xb, pb, beta, k)
+    assert torch.equal(kk, kxnor.linear_kernel_order(xb, pb, beta, k))
     torch.testing.assert_close(kk, pp, rtol=2 ** -8, atol=1e-6)
+    # rows one element off 16-byte alignment read x without TMA
+    off = torch.cat([xb.new_zeros(1), xb.reshape(-1)])[1:].reshape(m, k)
+    assert torch.equal(kxnor.xnor_linear_fused(off, pb, beta, k),
+                       kxnor.linear_kernel_order(off, pb, beta, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,dtype", [(32, 60000, 64, torch.bfloat16),
+                                         (4, 150000, 40, torch.bfloat16),
+                                         (33, 40000, 70, torch.float32),
+                                         (8, 120000, 33, torch.float32)])
+def test_cuda_xnor_linear_fused_split_k(gpu, m, k, n, dtype):
+    """K too wide for one block's shared memory: the plan splits it across
+    the blocks of a cluster, whose integer partials meet in the tile's
+    first block; still bitwise against the kernel-order plain version."""
+    assert kxnor.linear_plan(m, n, k, dtype.itemsize).split > 1
+    g = torch.Generator(device=gpu)
+    g.manual_seed(k + n)
+    pb, beta = xnor_layers.pack_weights(
+        torch.randn((n, k), generator=g, device=gpu))
+    x = torch.randn((m, k), generator=g, device=gpu).to(dtype)
+    kk, pp = _kernel_and_plain(kxnor.xnor_linear_fused, x, pb, beta, k)
+    assert torch.equal(kk, kxnor.linear_kernel_order(x, pb, beta, k))
+    tol = (2e-5, 2e-5) if dtype == torch.float32 else (2 ** -8, 1e-6)
+    torch.testing.assert_close(kk, pp, rtol=tol[0], atol=tol[1])
 
 
 @pytest.mark.cuda
@@ -201,14 +241,26 @@ def test_cuda_xnor_gemm(gpu, m, n, kw, valid_k):
     assert torch.equal(kk2, pp)
 
 
+# the bulk kernel's edges: a block moves 256 quads; 1 to 3 words may be
+# peeled before the first 16-byte boundary and 1 to 3 follow the last quad
+BULK_LENGTHS = LENGTHS + [2, 3, 4, 5, 1023, 1024, 1025, 1027, 1028, 1031,
+                          256 * 4 * 3 + 7]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("n", BULK_LENGTHS)
 @pytest.mark.parametrize("invert", [False, True])
 def test_cuda_bulk_xor(gpu, n, invert):
-    a, b = _words(n + 1, gpu, 1), _words(n + 1, gpu, 2)
-    for x, y in ((a[:n], b[:n]), (a[1:], b[1:])):     # aligned, then not
+    a, b = _words(n + 3, gpu, 1), _words(n + 3, gpu, 2)
+    # aligned; each offset of a and b alike (the peeled quad path); the two
+    # at different offsets (one word a thread)
+    pairs = [(a[i:i + n], b[i:i + n]) for i in range(4)]
+    pairs += [(a[1:1 + n], b[2:2 + n]), (a[:n], b[3:3 + n])]
+    for x, y in pairs:
         kk, pp = _kernel_and_plain(kbulk.bulk_xor, x, y, invert)
         assert torch.equal(kk, pp)
+        if x.data_ptr() % 16 == y.data_ptr() % 16:      # out at a's offset
+            assert kk.data_ptr() % 16 == x.data_ptr() % 16
 
 
 @pytest.mark.cuda
