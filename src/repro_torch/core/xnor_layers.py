@@ -91,7 +91,7 @@ def xnor_linear_prepacked(x: torch.Tensor, pb: torch.Tensor,
         raise ValueError(
             f"activation width {k} != packed weight's true K {valid_k}")
     x2 = x.reshape(-1, k)
-    if ops.fused_mode(mode) == "kernel":
+    if ops.fused_mode(mode, x.device) == "kernel":
         y = ops.xnor_linear_fused(x2, pb, beta, valid_k)
         return y.reshape(*lead, pb.shape[0]).to(x.dtype)
     alpha = bitpack.mean_abs(x2).to(x.dtype)

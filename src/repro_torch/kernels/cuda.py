@@ -48,6 +48,7 @@ ENTRY_POINTS = {
                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _F, _F, _P]),
     "xnor_gemm": ("xnor_gemm", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "xnor_gemm_plan": ("xnor_gemm", [_I, _I, _I, _P]),
     "bulk_xor": ("bulk", [_P, _P, _P, _L, _I, _P]),
     "parity_digest": ("parity", [_P, _L, _L, _I, _P, _P]),
     "xor_cipher": ("cipher", [_P, _P, _L, _U, _U, _U, _P]),

@@ -27,7 +27,7 @@ from repro_torch.kernels import parity as _parity
 from repro_torch.kernels import xnor_gemm as _xnor_gemm
 
 
-def fused_mode(mode: str = "auto") -> str:
+def fused_mode(mode: str = "auto", device="cuda") -> str:
     """Resolve the decode-path fusion setting to ``"kernel"`` or ``"ref"``.
 
     ``"kernel"`` routes the binarized linears and decode attention through
@@ -36,8 +36,14 @@ def fused_mode(mode: str = "auto") -> str:
     :func:`xnor_matmul` (the ``xnor_gemm`` kernel) -> scale for the
     linears, and the gather / mask / softmax chain in plain PyTorch for
     decode attention (the reference's XLA code, no kernel of its own).
+    ``"auto"`` picks the kernels exactly when ``device`` is a card, as the
+    reference picks them exactly on a TPU: on the CPU both packages run the
+    unfused chain, whose bf16 roundings (P rounded before P.V) the fused
+    ops do not share.
     """
-    if mode in ("auto", "on", "kernel", "fused"):
+    if mode == "auto":
+        return "kernel" if torch.device(device).type == "cuda" else "ref"
+    if mode in ("on", "kernel", "fused"):
         return "kernel"
     if mode in ("off", "ref", "unfused"):
         return "ref"

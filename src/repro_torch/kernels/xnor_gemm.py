@@ -8,7 +8,9 @@ product and scales in one launch, the serving path).  CPU tensors run the
 plain versions of :mod:`repro_torch.kernels.ref`; CUDA tensors launch the
 kernels.  :func:`linear_plan` is the fused kernel's launch plan, from the
 shapes alone; :func:`linear_kernel_order` is the fused linear summed in the
-kernel's order, which the kernel equals bitwise.
+kernel's order, which the kernel equals bitwise.  :func:`gemm_plan` is the
+packed GEMM's plan, which ``csrc/xnor_gemm.cu`` computes from the same
+shapes.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ MAX_CLUSTER = 8            # blocks of a cluster (the portable limit)
 COLS = 32                  # output columns a block: one per lane
 RESIDENT = 4 * 132         # 8-warp blocks an H100 keeps resident at once
 RANGE_BYTES = 2048         # bytes of an activation row one pack task reads
+GEMM_TARGET_WARPS = 132 * 16   # warps that keep the card's memory busy
 
 
 class LinearPlan(typing.NamedTuple):
@@ -181,12 +184,61 @@ def linear_kernel_order(x: torch.Tensor, pb: torch.Tensor, beta: torch.Tensor,
     return dots * alpha_kernel_order(x)[:, None] * beta[None, :]
 
 
+class GemmPlan(typing.NamedTuple):
+    """The packed GEMM's launch plan (``gemm_plan`` in
+    ``csrc/xnor_gemm.cu``).  A warp owns 16 weight columns and ``nt``
+    8-row n-tiles of activations; ``ks`` warps split K (16-word steps,
+    round robin) and ``ct`` column tiles make a block of ``ks * ct``
+    warps; the grid is ``row_tiles * col_blocks`` blocks in one
+    dimension."""
+
+    nt: int                # 8-row n-tiles a warp: 1, 2, 4 or 8
+    ks: int                # warps splitting K: 1 to 8, or 16 at nt = 1
+    ct: int                # 16-column tiles a block
+    row_tiles: int         # ceil(M / (8 nt))
+    col_blocks: int        # ceil(ceil(N / 16) / ct)
+
+    @property
+    def warps(self) -> int:
+        return self.ks * self.ct
+
+    @property
+    def blocks(self) -> int:
+        return self.row_tiles * self.col_blocks
+
+
+def gemm_plan(m: int, n: int, kw: int) -> GemmPlan:
+    """-> the plan of one ``xnor_gemm`` launch on (M, Kw) x (N, Kw) planes.
+
+    Rows: up to 64 a block (8 to 64 by M), so the weights are read once for
+    every M <= 64.  K splits across 2, 4 or 8 warps of a block (16 at one
+    n-tile a warp) while the warps stay within ``GEMM_TARGET_WARPS`` (16 an
+    SM; twice that at one n-tile, whose warps hold fewer bytes in flight)
+    and each keeps a 16-word step of K at least.  Shapes only."""
+    cuda.check(m >= 1 and n >= 1 and kw >= 0,
+               f"gemm_plan needs M, N >= 1 and Kw >= 0, got {m}, {n}, {kw}")
+    nt = 1 if m <= 8 else 2 if m <= 16 else 4 if m <= 32 else 8
+    row_tiles = -(-m // (8 * nt))
+    tiles = -(-n // 16)
+    steps = -(-kw // 16)
+    target = GEMM_TARGET_WARPS * (2 if nt == 1 else 1)
+    max_ks = 16 if nt == 1 else 8
+    ks = 1
+    while ks < max_ks and 2 * ks <= steps and \
+            tiles * row_tiles * 2 * ks <= target:
+        ks *= 2
+    ct = 1 if ks >= 4 else 4 // ks
+    return GemmPlan(nt, ks, ct, row_tiles, -(-tiles // ct))
+
+
 def xnor_gemm(pa: torch.Tensor, pb: torch.Tensor,
               valid_k: int) -> torch.Tensor:
     """(M, Kw) x (N, Kw) int32 planes -> (M, N) int32 ``valid_k - 2*popc``.
 
     The kernel walks the true Kw words and masks ragged M, N and Kw
-    itself: no operand is padded or copied."""
+    itself: no operand is padded or copied.  One launch of the plan
+    :func:`gemm_plan` gives these shapes; any Kw, and any M and N whose
+    plan has fewer than 2^31 blocks."""
     cuda.check(pa.ndim == 2 and pb.ndim == 2 and pa.shape[1] == pb.shape[1],
                f"xnor_gemm needs (M, Kw) x (N, Kw), got {tuple(pa.shape)} "
                f"x {tuple(pb.shape)}")
@@ -198,12 +250,13 @@ def xnor_gemm(pa: torch.Tensor, pb: torch.Tensor,
                "xnor_gemm needs contiguous planes")
     m, kw = pa.shape
     n = pb.shape[0]
-    cuda.check(8 * kw * 4 <= 227 * 1024 and -(-m // 8) <= 65535,
-               f"xnor_gemm takes Kw <= 7264 and M <= 524280, got Kw={kw}, "
-               f"M={m}")
-    out = torch.empty((m, n), dtype=torch.int32, device=pa.device)
     if m == 0 or n == 0:
-        return out
+        return torch.empty((m, n), dtype=torch.int32, device=pa.device)
+    cuda.check(m < 2 ** 31 and n < 2 ** 31 and kw < 2 ** 31
+               and gemm_plan(m, n, kw).blocks < 2 ** 31,
+               f"xnor_gemm takes shapes whose plan has fewer than 2^31 "
+               f"blocks, got M={m}, N={n}, Kw={kw}")
+    out = torch.empty((m, n), dtype=torch.int32, device=pa.device)
     with torch.cuda.device(pa.device):
         cuda.launch("xnor_gemm", pa.data_ptr(), pb.data_ptr(),
                     out.data_ptr(), m, n, kw, valid_k, cuda.stream(pa))

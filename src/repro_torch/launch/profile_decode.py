@@ -7,7 +7,8 @@ admits ``--slots`` requests, runs until every slot is decoding, then times
 that ends in a synchronize) and ``--steps`` more under ``torch.profiler``
 (device time by kernel).  Prints the median step wall time, the device
 busy time per step, their ratio (the device's busy share; the rest is
-idle, waiting for the host), and the kernels by device time.
+idle, waiting for the host), the kernel launches per step, and the
+kernels by device time.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
       --arch qwen2-7b+xnor
@@ -85,6 +86,8 @@ def main(argv=None) -> int:
     if dev:
         print(f"  device busy per step (profiled): {busy_ms} ms -> busy "
               f"share {busy_ms / (wall * 1e3)}")
+        print(f"  device launches per step (profiled): "
+              f"{sum(t[2] for t in dev) / args.steps}")
         for key, us, n in dev[:12]:
             print(f"    {us / 1e3 / args.steps:10.4f} ms/step "
                   f"{n // args.steps:6d} launches/step  {key[:90]}")

@@ -107,14 +107,14 @@ def paged_attention(cfg, p: dict, x: torch.Tensor, cache: PagedKVCache,
 
     Token at absolute position q lives at block ``table[b, (q // bs) % W]``,
     offset ``q % bs``; ``valid`` (B, C) routes padding / dead-slot writes
-    to the trash block 0.  C == 1 under the fused mode runs the paged
-    decode kernel; C > 1, and C == 1 with ``fused_decode="off"``, run the
+    to the trash block 0.  C == 1 under the fused mode (the default on the
+    card) runs the paged decode kernel; C > 1, and C == 1 otherwise, run the
     gather / mask / softmax chain — the reference's XLA code, which has no
     kernel of its own, so plain PyTorch is its port on any device.
     Returns out (B, C, d); the pool is updated in place.
     """
     b, c, _ = x.shape
-    fused = ops.fused_mode(cfg.fused_decode) == "kernel"
+    fused = ops.fused_mode(cfg.fused_decode, x.device) == "kernel"
     bs = cache.k.shape[2]
     w = table.shape[1]
     cap = w * bs

@@ -69,9 +69,13 @@ class AttnBlock(PagedLayout):
     @classmethod
     def _attn_ffn(cls, cfg, p, x, state, table, pos, valid):
         h = layers.rms_norm(x, p["ln1"])
-        x = x + attn_mod.paged_attention(cfg, _sub(p, "attn_"), h, state,
-                                         table, pos, valid=valid)
-        h = layers.rms_norm(x, p["ln2"])
+        a = attn_mod.paged_attention(cfg, _sub(p, "attn_"), h, state, table,
+                                     pos, valid=valid)
+        # ln2 reads the residual sum in f32, unrounded: XLA folds the bf16
+        # rounding of x + a into the norm's cast to f32 (it allows excess
+        # precision), while the residual stream itself stays rounded
+        h = layers.rms_norm(x.float() + a, p["ln2"], dtype=x.dtype)
+        x = x + a
         return x + layers.ffn(cfg, _sub(p, "ffn_"), h)
 
     @classmethod

@@ -9,11 +9,12 @@ from repro_torch.core import xnor_layers
 from repro_torch.models.params import ParamDef
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             dtype: torch.dtype | None = None) -> torch.Tensor:
+    """RMSNorm in f32, rounded to ``dtype`` (``x.dtype`` by default)."""
     x32 = x.float()
     var = (x32 * x32).sum(-1, keepdim=True) * (1.0 / x.shape[-1])
-    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(dtype or x.dtype)
 
 
 def linear(x: torch.Tensor, w, quant: str = "none",
@@ -65,9 +66,18 @@ def ffn_defs(cfg, n: int) -> dict:
     }
 
 
+def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu(g) * u`` as the reference computes it.  Its silu
+    lowers to negate, exp, add 1, divide 1 by the sum and multiply by g,
+    each step rounded to g's dtype (``torch.sigmoid`` rounds once from
+    f32).  Subnormals are the platform's: XLA's CPU and the TPU flush them
+    to zero, torch keeps them unless ``torch.set_flush_denormal`` is on."""
+    return g * torch.exp(-g).add_(1).reciprocal_() * u
+
+
 def ffn(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     g = linear(x, p["w1"], cfg.quant)
-    h = g * torch.sigmoid(g) * linear(x, p["w3"], cfg.quant)
+    h = silu_mul(g, linear(x, p["w3"], cfg.quant))
     return linear(h, p["w2"], cfg.quant)
 
 

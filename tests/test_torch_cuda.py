@@ -223,22 +223,56 @@ def _words(n, gpu, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,kw,valid_k", [(64, 32, 8, 256),
-                                            (256, 512, 16, 512),
-                                            (4, 18944, 112, 3584),
-                                            (32, 3584, 592, 18944),
-                                            (5, 9, 3, 70), (17, 40, 7, 200)])
+@pytest.mark.parametrize("m,n,kw,valid_k", [
+    (64, 32, 8, 256), (256, 512, 16, 512), (4, 18944, 112, 3584),
+    (32, 3584, 592, 18944), (5, 9, 3, 70), (17, 40, 7, 200),
+    # each row-tile width at one qwen2-7b shape (wq/wo), ragged ones too
+    (1, 3584, 112, 3584), (8, 3584, 112, 3584), (9, 3584, 112, 3584),
+    (16, 3584, 112, 3584), (17, 3584, 112, 3584), (33, 3584, 112, 3584),
+    # K past the first design's shared memory (Kw > 7264), ragged Kw
+    (3, 40, 9375, 300000), (20, 33, 7265, 232480),
+    # M past the first design's grid rows (M > 524280)
+    (600000, 17, 8, 256)])
 def test_cuda_xnor_gemm(gpu, m, n, kw, valid_k):
-    xa = torch.randn((m, valid_k), device=gpu)
-    xb = torch.randn((n, valid_k), device=gpu)
-    pa, _ = kpack.pack(xa)
-    pb, _ = kpack.pack(xb)
+    if m * valid_k <= 2 ** 26:
+        pa, _ = kpack.pack(torch.randn((m, valid_k), device=gpu))
+        pb, _ = kpack.pack(torch.randn((n, valid_k), device=gpu))
+    else:  # random words: every bit is live (valid_k = 32 Kw)
+        assert valid_k == 32 * kw
+        pa = _words(m * kw, gpu, seed=1).reshape(m, kw)
+        pb = _words(n * kw, gpu, seed=2).reshape(n, kw)
     kk, pp = _kernel_and_plain(kxnor.xnor_gemm, pa, pb, valid_k)
     assert kk.dtype == torch.int32 and torch.equal(kk, pp)
-    # a misaligned operand (one word in) takes the one-word path
+    # a misaligned operand (one word in) takes the one-word path, on
+    # either side
     big = torch.cat([pa.new_zeros(1), pa.reshape(-1)])[1:].reshape(m, kw)
     kk2, _ = _kernel_and_plain(kxnor.xnor_gemm, big, pb, valid_k)
     assert torch.equal(kk2, pp)
+    big = torch.cat([pb.new_zeros(1), pb.reshape(-1)])[1:].reshape(n, kw)
+    kk2, _ = _kernel_and_plain(kxnor.xnor_gemm, pa, big, valid_k)
+    assert torch.equal(kk2, pp)
+
+
+@pytest.mark.cuda
+def test_cuda_xnor_gemm_plan_matches_launch(gpu):
+    """The launch plan the wrapper checks is the one the kernel runs
+    (``xnor_gemm_plan``, the C side's own plan), and a 16-way split-K
+    plan (every K slice adds into slice 0's warps) gives the plain
+    version's counts."""
+    import ctypes
+    for m in (1, 4, 8, 9, 16, 17, 32, 33, 64, 65, 256, 600000):
+        for n, kw in ((3584, 112), (512, 112), (18944, 112), (3584, 592),
+                      (32, 8), (512, 16), (9, 3), (40, 9375)):
+            got = (ctypes.c_int * 5)()
+            cuda.launch("xnor_gemm_plan", m, n, kw, ctypes.addressof(got))
+            assert tuple(got) == tuple(kxnor.gemm_plan(m, n, kw)), (m, n, kw)
+    assert kxnor.gemm_plan(4, 3584, 592).ks == 16
+    assert kxnor.gemm_plan(32, 18944, 112).ks == 1
+    assert kxnor.gemm_plan(600000, 17, 8).row_tiles == 9375
+    pa = _words(4 * 592, gpu, seed=3).reshape(4, 592)
+    pb = _words(3584 * 592, gpu, seed=4).reshape(3584, 592)
+    kk, pp = _kernel_and_plain(kxnor.xnor_gemm, pa, pb, 32 * 592)
+    assert torch.equal(kk, pp)
 
 
 # the bulk kernel's edges: a block moves 256 quads; 1 to 3 words may be

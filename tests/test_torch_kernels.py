@@ -283,6 +283,16 @@ def test_fused_mode():
         ops.fused_mode("bogus")
 
 
+@pytest.mark.parametrize("device,want", [("cuda", "kernel"), ("cpu", "ref"),
+                                         (torch.device("cpu"), "ref")])
+def test_fused_mode_auto_follows_device(device, want):
+    """"auto" takes the kernels exactly on the card, as the reference's
+    takes them exactly on a TPU; an explicit mode holds on any device."""
+    assert ops.fused_mode("auto", device) == want
+    assert ops.fused_mode("on", device) == "kernel"
+    assert ops.fused_mode("off", device) == "ref"
+
+
 # ---------------------------------------------------------------------------
 # paged decode (cases of tests/test_paged_kernel.py)
 # ---------------------------------------------------------------------------

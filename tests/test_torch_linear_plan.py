@@ -10,6 +10,13 @@ of a row) belongs to exactly one warp of its cluster, and the plan stays
 inside the card's limits: a cluster of at most 8 blocks, 227 KB of shared
 memory, the grid's dimensions.  The wrapper refuses shapes outside them.
 
+``xnor_gemm.gemm_plan`` is the packed GEMM's plan (``csrc/xnor_gemm.cu``
+computes the same from the same shapes): every (8-row n-tile, 16-column
+tile, 16-word step of K) belongs to exactly one warp, a K split leaves
+no warp without a step, and the wrapper launches any Kw and any M whose
+plan has fewer than 2^31 blocks (the first design refused Kw > 7264 and
+M > 524280), refusing the rest before it allocates.
+
 ``xnor_gemm.linear_kernel_order`` is what the kernel is held to bitwise on
 the card (alpha in f32, summed in the kernel's order).  Here it is held
 against the JAX package's ``repro.kernels.ref.xnor_linear_fused`` and
@@ -18,6 +25,8 @@ kernel body run on the CPU, as the JAX suite runs it): bitwise on dyadic
 inputs, whose sums are exact in any order, and within 2e-5 on Gaussian f32;
 in bf16 within 2^-8 relative (the reference keeps alpha in bf16).
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -92,6 +101,106 @@ def test_wrapper_refuses_shapes_outside_the_plan(monkeypatch):
     pb = torch.zeros((64, bitpack.packed_width(k)), dtype=torch.int32)
     with pytest.raises(ValueError, match="shared memory"):
         kx.xnor_linear_fused(x, pb, torch.ones(64), k)
+
+
+def _gemm_warps(plan, m, n, kw):
+    """Yield (n-tiles, 16-column tile, steps) of every warp of every block,
+    as ``csrc/xnor_gemm.cu`` computes them from its indices."""
+    steps = -(-kw // 16)
+    for b in range(plan.blocks):
+        cb, rt = b % plan.col_blocks, b // plan.col_blocks
+        for warp in range(plan.warps):
+            kslice, ctile = warp // plan.ct, warp % plan.ct
+            col_tile = cb * plan.ct + ctile
+            tiles = range(rt * plan.nt, min(-(-m // 8), (rt + 1) * plan.nt))
+            if col_tile * 16 < n:
+                yield tiles, col_tile, range(kslice, steps, plan.ks)
+
+
+GEMM_M = [1, 4, 8, 9, 16, 17, 32, 33, 64, 65, 256]
+
+
+@pytest.mark.parametrize("m", GEMM_M)
+@pytest.mark.parametrize("label,n,k", SHAPES + [("quickstart", 32, 256),
+                                                ("xnor-cnn", 512, 512)])
+def test_gemm_plan_covers_every_output_and_step_once(label, n, k, m):
+    kw = bitpack.packed_width(k)
+    plan = kx.gemm_plan(m, n, kw)
+    steps = -(-kw // 16)
+    assert plan.nt in (1, 2, 4, 8) and plan.ks in (1, 2, 4, 8, 16)
+    assert plan.ks < 16 or plan.nt == 1
+    assert plan.warps in (4, 8, 16) and plan.row_tiles * 8 * plan.nt >= m
+    assert plan.ks <= max(1, steps)            # a step a warp at least
+    assert plan.ks == 1 or (-(-n // 16) * plan.row_tiles * plan.ks
+                            <= kx.GEMM_TARGET_WARPS * (2 if m <= 8 else 1))
+    seen = np.zeros((-(-m // 8), -(-n // 16), steps), dtype=np.int32)
+    for tiles, col_tile, ks in _gemm_warps(plan, m, n, kw):
+        for t in tiles:
+            seen[t, col_tile, list(ks)] += 1
+    assert (seen == 1).all(), label
+
+
+def test_gemm_plan_weights_read_once_up_to_64_rows():
+    """One row tile, so one read of the weights, for every M <= 64; at
+    decode the long-K, few-column w2 splits K 16 ways, the wide w1/w3 two
+    ways; at a prefill chunk w1/w3 does not split."""
+    for m in range(1, 65):
+        assert kx.gemm_plan(m, 18944, 112).row_tiles == 1
+    assert kx.gemm_plan(65, 18944, 112).row_tiles == 2
+    assert kx.gemm_plan(4, 3584, 592) == kx.GemmPlan(1, 16, 1, 1, 224)
+    assert kx.gemm_plan(4, 18944, 112) == kx.GemmPlan(1, 2, 2, 1, 592)
+    assert kx.gemm_plan(32, 18944, 112) == kx.GemmPlan(4, 1, 4, 1, 296)
+    assert kx.gemm_plan(32, 3584, 592) == kx.GemmPlan(4, 8, 1, 1, 224)
+
+
+def _fake_card(monkeypatch, launched):
+    monkeypatch.setattr(cuda, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(cuda, "launch", lambda *a: launched.append(a))
+    monkeypatch.setattr(cuda, "stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+
+
+@pytest.mark.parametrize("m,n,kw", [(3, 40, 9375), (20, 33, 7265),
+                                    (600_000, 17, 8), (524_281, 1, 1)])
+def test_gemm_wrapper_takes_wide_k_and_tall_m(monkeypatch, m, n, kw):
+    """Shapes past the first design's limits (Kw > 7264, M > 524280)
+    launch (meta tensors: nothing is allocated)."""
+    launched = []
+    _fake_card(monkeypatch, launched)
+    pa = torch.empty((m, kw), dtype=torch.int32, device="meta")
+    pb = torch.empty((n, kw), dtype=torch.int32, device="meta")
+    before = kx.xnor_gemm.launches
+    out = kx.xnor_gemm(pa, pb, 32 * kw)
+    assert out.shape == (m, n) and kx.xnor_gemm.launches == before + 1
+    (name, *args), = launched
+    assert name == "xnor_gemm" and args[3:7] == [m, n, kw, 32 * kw]
+
+
+def test_gemm_wrapper_refuses_a_grid_past_2_31_blocks(monkeypatch):
+    launched = []
+    _fake_card(monkeypatch, launched)
+    m, n = 2 ** 31 - 1, 2 ** 20
+    assert kx.gemm_plan(m, n, 1).blocks >= 2 ** 31
+    pa = torch.empty((m, 1), dtype=torch.int32, device="meta")
+    pb = torch.empty((n, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="2\\^31 blocks"):
+        kx.xnor_gemm(pa, pb, 32)
+    assert not launched
+
+
+def test_gemm_plain_at_wide_k_matches_reference():
+    """The plain version (what the card's kernel is held to) at Kw past
+    the first design's limit, against the JAX package's ``ref.xnor_gemm``."""
+    rng = np.random.default_rng(0)
+    kw = 7265
+    pa = rng.integers(0, 2 ** 32, size=(3, kw), dtype=np.uint32)
+    pb = rng.integers(0, 2 ** 32, size=(5, kw), dtype=np.uint32)
+    got = kx.xnor_gemm(bitpack.from_numpy_u32(pa), bitpack.from_numpy_u32(pb),
+                       32 * kw)
+    want = np.asarray(jref.xnor_gemm(jnp.asarray(pa), jnp.asarray(pb),
+                                     32 * kw))
+    assert np.array_equal(got.numpy(), want)
 
 
 def _dyadic(rng, shape):
