@@ -4,14 +4,16 @@
     python3 chip_smoke.py                    # the run below
     python3 chip_smoke.py --path-readings    # the readings behind the
                                              # limits of check_paths
+    python3 chip_smoke.py --paged-plans      # paged decode at W 2048, the
+                                             # fixed split plan against a
+                                             # batch-sized one, B 1 to 32
 
 Phases (any failure raises and the script exits non-zero):
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, and the build of the eight kernels from
-   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel,
-   with the first design of ``xnor_gemm``, ``xnor_gemm_rowtile.cu``, as a
-   yardstick beside them); the registers, static shared memory and spills
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
+   the registers, static shared memory and spills
    ptxas reports for flash attention, paged decode, the fused XNOR linear
    and ``xnor_gemm``, and the HGMMA (wgmma) and UTMALDG (TMA load)
    instructions in the built flash library (``cuobjdump -sass``).
@@ -27,8 +29,8 @@ Phases (any failure raises and the script exits non-zero):
    a 2048-column table, 32k keys a slot, printed on its own line).
    ``xnor_gemm`` at each of its shapes held bitwise (planes offset by a
    word on either side; the C plan against ``gemm_plan``) and timed beside
-   its first design and its plain version, and held past the first
-   design's limits (Kw > 7264, M > 524280).
+   its plain version, and held at long K and tall M (Kw > 7264,
+   M > 524280).
    The fused XNOR linear at each qwen2-7b linear shape, M = 4 and 32, held
    bitwise against its plain version summed in the kernel's order, and one
    decode step's 196 fused linears (7 a layer x 28) timed as one CUDA
@@ -47,6 +49,16 @@ Phases (any failure raises and the script exits non-zero):
    ``check_paths``), in bf16 and in f32 (two seeds) at the same width and
    depth; a control, paged decode giving its plain version's output one
    ulp up at every element, must fail the bf16 check.
+3b. The rest of the serving tier on phase 3's model and
+   trace (``serving_tier``): a 2-replica Router with the kill drill
+   against one engine at temperature 0.8, encrypted migration wires and
+   the integrity scrubber with a flipped-word control; cross-slot
+   migration; the slot-dense layout and ``generate_static`` against the
+   paged engine in f32.  Its five kernels are held against their plain
+   versions at every shape the phase gives them (``LaunchHolds``: every
+   paged decode launch, the first 28 of each shape of the others), but
+   for one timed run each of the engine and the Router, which must repeat
+   the held runs' tokens at shapes that were held.
 4. The integer chain at checkpoint scale: the same seeded 7.6 B-parameter
    bf16 tree (15.2 GB), leaf by leaf through one CimEngine — digest,
    encrypt, decrypt, verify_copy of the decrypted leaf against the
@@ -89,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -505,48 +518,67 @@ def paged_long(gpu: str) -> dict:
                 max_abs_err=err)
 
 
-LEAF_WORDS = 28 * 3584 * 3584 // 2   # a layer-stacked wq leaf, bf16 words
-FIRST_GEMM = "xnor_gemm_rowtile"     # the first design, the yardstick
-
-
-def start_first_design_build():
-    """Start nvcc on ``csrc/xnor_gemm_rowtile.cu`` (the first design of
-    ``xnor_gemm``, outside the port's build) beside the port's own builds;
-    -> the running process and the library it writes."""
-    from repro_torch.kernels import cuda
-    cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = cuda.BUILD_DIR / f"lib{FIRST_GEMM}.so"
-    cmd = [cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC), "-o",
-           str(lib), str(cuda.CSRC / f"{FIRST_GEMM}.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), lib
-
-
-_FIRST = {}
-
-
-def first_design_gemm():
-    """The first design's ``xnor_gemm`` entry point as a function of
-    (pa, pb, valid_k), like the wrapper but with no checks or count."""
-    import ctypes
-
+def paged_plans(gpu: str, batches=(1, 4, 16, 32)) -> None:
+    """``--paged-plans``: paged decode at W = 2048 (qwen2-7b's decode
+    geometry, bf16) at each batch, with the split plan sized for
+    ``PLAN_SLOTS`` slots whatever the batch (the port's) and with a plan
+    sized for the launch's batch (before the plan was fixed), each held
+    against the plain version at one bf16 ulp, timed and printed beside
+    the byte bound.  Slots sit at positions 32767, 24575, 16383, 8191 in
+    turn."""
     import torch
 
     from repro_torch.kernels import cuda
-    f = ctypes.CDLL(str(_FIRST["lib"])).xnor_gemm
-    f.argtypes = cuda.ENTRY_POINTS["xnor_gemm"][1]
-    f.restype = ctypes.c_int
+    from repro_torch.kernels import paged_attn as kpaged
 
-    def run(pa, pb, valid_k):
-        out = torch.empty((pa.shape[0], pb.shape[0]), dtype=torch.int32,
-                          device=pa.device)
-        err = f(pa.data_ptr(), pb.data_ptr(), out.data_ptr(), pa.shape[0],
-                pb.shape[0], pa.shape[1], valid_k, cuda.stream(pa))
-        assert err == 0, f"{FIRST_GEMM} failed to launch: cudaError {err}"
-        return out
-    return run
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+    KV, G, dh, bs, W = 4, 7, 128, 16, 2048
+    scale = dh ** -0.5
+    rtol, atol = FLASH_TOL["bfloat16"]
+    fixed = kpaged.PLAN_SLOTS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in batches:
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        q = randn(b, KV, G, dh)
+        ck, cv = randn(1 + b * W, KV, bs, dh), randn(1 + b * W, KV, bs, dh)
+        table = (torch.randperm(b * W, generator=g, device=dev) + 1
+                 ).reshape(b, W).to(torch.int32)
+        pos = torch.tensor([32767 - 8192 * (i % 4) for i in range(b)],
+                           dtype=torch.int32, device=dev)
+        args = (q, ck, cv, table, pos)
+        with cuda.plain_reference():
+            pp = kpaged.paged_decode_attention(*args, scale=scale)
+        live = int((pos // bs + 1).sum())
+        nbytes = (q.numel() * 2 * 2 + live * KV * 2 * bs * dh * 2
+                  + table.numel() * 4 + b * 4)
+        b_ms, b_by = bound(nbytes, 4 * KV * G * dh * int((pos + 1).sum()),
+                           "bf16")
+        row = {}
+        for label, slots in (("fixed", fixed), ("batch", b)):
+            kpaged.PLAN_SLOTS = slots
+            try:
+                kk = kpaged.paged_decode_attention(*args, scale=scale)
+                torch.testing.assert_close(kk.float(), pp.float(),
+                                           rtol=rtol, atol=atol)
+                ms = time_ms(lambda *a: kpaged.paged_decode_attention(
+                    *a, scale=scale), [args], 20)
+                row[label] = (kpaged.split_plan(W, KV, sms), ms)
+            finally:
+                kpaged.PLAN_SLOTS = fixed
+        print(f"[paged plans] bf16 B={b} KV={KV} G={G} dh={dh} bs={bs} W={W}"
+              f": plan (n_split, cols) {row['fixed'][0]} for {fixed} slots "
+              f"{row['fixed'][1]} ms; plan for the batch {row['batch'][0]} "
+              f"{row['batch'][1]} ms; bound {b_ms} ms ({b_by})  [{gpu}]",
+              flush=True)
+        del q, ck, cv, args, pp, kk
+        torch.cuda.empty_cache()
 
 
+LEAF_WORDS = 28 * 3584 * 3584 // 2   # a layer-stacked wq leaf, bf16 words
 def c_gemm_plan(m: int, n: int, kw: int) -> list:
     """The plan ``csrc/xnor_gemm.cu`` launches for these shapes."""
     import ctypes
@@ -599,9 +631,7 @@ def integer_kernel_checks(gpu: str, linears: dict) -> dict:
                     library_ms=lib)
 
     rec = {}
-    # -- xnor_gemm: quickstart, XNOR-CNN, every qwen2-7b linear, ragged;
-    # timed beside the first design (csrc/xnor_gemm_rowtile.cu) ---------
-    first = first_design_gemm()
+    # -- xnor_gemm: quickstart, XNOR-CNN, every qwen2-7b linear, ragged --
     shapes = [("quickstart", 64, 32, 256), ("xnor-cnn", 256, 512, 512),
               ("ragged 5x9x70", 5, 9, 70), ("ragged 17x40x200", 17, 40, 200)]
     shapes += [(f"{name} M={m}", m, n, k) for name, (n, k) in linears.items()
@@ -617,27 +647,25 @@ def integer_kernel_checks(gpu: str, linears: dict) -> dict:
         assert torch.equal(held(kxnor.xnor_gemm, off, pb, k), out), label
         offb = torch.cat([pb.new_zeros(1), pb.reshape(-1)])[1:].reshape(n, kw)
         assert torch.equal(held(kxnor.xnor_gemm, pa, offb, k), out), label
-        assert torch.equal(first(pa, pb, k), out), label
         sets = copies(lambda: (planes(m, k), planes(n, k), k), n * kw * 4)
         ms = time_ms(kxnor.xnor_gemm, sets, 200)
-        first_ms = time_ms(first, sets, 200)
         with cuda.plain_reference():
             plain = time_ms(kxnor.xnor_gemm, sets[:2], 2, 2)
         r = row("xnor_gemm", "xnor_gemm.cu", "src/repro/kernels/xnor_gemm.py:80",
                 ms, plain, (m + n) * kw * 4 + m * n * 4, 2 * m * n * k, "int8",
                 None)
         print(f"[xnor_gemm] {label} ({m}, {kw}) x ({n}, {kw}), K={k}: {ms} "
-              f"ms, first design {first_ms} ms, plain {plain} ms, bound "
+              f"ms, plain {plain} ms, bound "
               f"{r['bound_ms']} ms ({r['bound_by']}); plan "
               f"{tuple(kxnor.gemm_plan(m, n, kw))}  [{gpu}]")
-        per_shape[label] = dict(ms=ms, first_design_ms=first_ms,
-                                plain_ms=plain, bound_ms=r["bound_ms"])
+        per_shape[label] = dict(ms=ms, plain_ms=plain,
+                                bound_ms=r["bound_ms"])
         if label == "w1/w3 M=4":
             rec["xnor_gemm"] = r
         del sets
     print(f"[xnor_gemm shapes] {json.dumps(per_shape)}")
-    # past the first design's limits: Kw > 7264 (its shared memory) and M >
-    # 524280 (its grid rows); a K split 16 ways; held, not timed
+    # long K and tall M: Kw > 7264 and M > 524280; a K split 16 ways; held,
+    # not timed
     for m, n, kw in ((3, 40, 9375), (20, 33, 7265), (600_000, 17, 8),
                      (4, 3584, 592)):
         pa = words(m * kw).reshape(m, kw)
@@ -645,7 +673,7 @@ def integer_kernel_checks(gpu: str, linears: dict) -> dict:
         out = held(kxnor.xnor_gemm, pa, pb, 32 * kw)
         off = torch.cat([pa.new_zeros(1), pa.reshape(-1)])[1:].reshape(m, kw)
         assert torch.equal(held(kxnor.xnor_gemm, off, pb, 32 * kw), out)
-        print(f"[xnor_gemm] held bitwise past the first design's limits: "
+        print(f"[xnor_gemm] held bitwise at long K / tall M: "
               f"M={m}, N={n}, Kw={kw}, plan "
               f"{tuple(kxnor.gemm_plan(m, n, kw))}")
     torch.cuda.empty_cache()
@@ -710,9 +738,26 @@ def integer_kernel_checks(gpu: str, linears: dict) -> dict:
     return rec
 
 
+def slice_trace(vocab: int) -> list:
+    """The serving phases' trace: 8 requests of 8-64 prompt tokens and
+    8-16 new tokens, half opening with a shared 32-token prefix."""
+    import numpy as np
+
+    from repro_torch.serve import Request, synthetic_trace
+
+    base = synthetic_trace(8, vocab, seed=SEED, prompt_lens=(8, 16, 24, 32),
+                           new_tokens=(8, 12, 16))
+    prefix = np.random.default_rng([SEED, 0xC1A]).integers(
+        0, vocab, size=32).astype(np.int32)
+    trace = [Request(r.rid, np.concatenate([prefix, r.prompt])
+                     if r.rid % 2 == 0 else r.prompt, r.max_new_tokens)
+             for r in base]
+    assert all(8 <= len(r.prompt) <= 64 for r in trace)
+    return trace
+
+
 def serve_slice(gpu: str) -> dict:
     """Phase 3: full qwen2-7b+xnor through the port's ServeEngine."""
-    import numpy as np
     import torch
 
     import repro_torch.configs as configs
@@ -720,7 +765,7 @@ def serve_slice(gpu: str) -> dict:
     from repro_torch.kernels import paged_attn as kpaged
     from repro_torch.kernels import xnor_gemm as kxnor
     from repro_torch.models import lm
-    from repro_torch.serve import Request, ServeEngine, synthetic_trace
+    from repro_torch.serve import ServeEngine
 
     cfg = configs.get("qwen2-7b+xnor")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -732,16 +777,7 @@ def serve_slice(gpu: str) -> dict:
     print(f"[slice] init {cfg.name}: {lm.pdefs.count(lm.param_defs(cfg))} "
           f"params in {time.perf_counter() - t0} s")
 
-    base = synthetic_trace(8, cfg.vocab, seed=SEED,
-                           prompt_lens=(8, 16, 24, 32),
-                           new_tokens=(8, 12, 16))
-    prefix = np.random.default_rng([SEED, 0xC1A]).integers(
-        0, cfg.vocab, size=32).astype(np.int32)
-    trace = [Request(r.rid, np.concatenate([prefix, r.prompt])
-                     if r.rid % 2 == 0 else r.prompt, r.max_new_tokens)
-             for r in base]
-    assert all(8 <= len(r.prompt) <= 64 for r in trace)
-
+    trace = slice_trace(cfg.vocab)
     kernels = (kpack.pack, kxnor.xnor_linear_fused,
                kpaged.paged_decode_attention)
     for f in kernels:
@@ -807,6 +843,404 @@ def serve_slice(gpu: str) -> dict:
         check_paths(cfg32, params32, toks, nxt, gpu, seed=seed)
         del params32
         torch.cuda.empty_cache()
+    return launches
+
+
+class LaunchHolds:
+    """Phase 3b's per-launch holds.  Patches the five wrappers of the
+    serving tier where the port reaches them (module attributes); while
+    :attr:`active`, each launch is held against its plain version on the
+    same inputs: every paged decode launch at :data:`FLASH_TOL`, and the
+    first :attr:`per_key` launches of each shape of the others — the fused
+    linear within 2e-5 (f32) or 2^-8 (bf16, the kernel's f32 alpha against
+    the reference's rounded one) and bitwise against the plain version
+    summed in the kernel's order, ``pack``'s planes bitwise and alpha
+    within 1e-6 or 2^-8, ``parity_digest`` and ``xor_cipher`` bitwise.
+    While not active (the timed runs), each launch's shape is recorded so
+    that :meth:`check` can require it to be one that was held."""
+
+    def __init__(self, per_key: int = 28):
+        from repro_torch.kernels import cipher, pack, paged_attn, parity
+        from repro_torch.kernels import xnor_gemm
+        self.per_key, self.active = per_key, False
+        self.held, self.worst, self.unheld = {}, {}, set()
+        self.sites = {"xnor_linear_fused": xnor_gemm, "pack": pack,
+                      "paged_decode_attention": paged_attn,
+                      "parity_digest": parity, "xor_cipher": cipher}
+        self.orig = {n: getattr(m, n) for n, m in self.sites.items()}
+
+    @staticmethod
+    def key(name, args, kw) -> tuple:
+        a = args[0]
+        dt = str(a.dtype)[6:]
+        if name == "xnor_linear_fused":
+            return (name, dt, a.shape[0], args[1].shape[0], args[3])
+        if name == "paged_decode_attention":
+            return (name, dt, str(args[1].dtype)[6:], a.shape[0],
+                    args[3].shape[1], kw.get("window", 0))
+        if name == "pack":
+            return (name, dt, *a.shape)
+        if name == "xor_cipher":
+            return (name, a.numel())
+        return (name, a.numel(), *args[1:], *sorted(kw.items()))
+
+    def _hold(self, name, out, args, kw) -> float:
+        import torch
+
+        from repro_torch.kernels import cuda
+        from repro_torch.kernels.xnor_gemm import linear_kernel_order
+        with cuda.plain_reference():
+            p = self.orig[name](*args, **kw)
+        if name == "xnor_linear_fused":
+            f32 = args[0].dtype == torch.float32
+            torch.testing.assert_close(out, p, rtol=2e-5 if f32 else 2 ** -8,
+                                       atol=2e-5 if f32 else 1e-6)
+            assert torch.equal(out, linear_kernel_order(*args)), \
+                f"fused linear {self.key(name, args, kw)} differs from its " \
+                "plain version summed in the kernel's order"
+            return (out - p).abs().max().item()
+        if name == "paged_decode_attention":
+            rtol, atol = FLASH_TOL[str(args[0].dtype)[6:]]
+            torch.testing.assert_close(out.float(), p.float(), rtol=rtol,
+                                       atol=atol)
+            return (out.float() - p.float()).abs().max().item()
+        if name == "pack":
+            assert torch.equal(out[0], p[0]), f"pack planes differ at " \
+                f"{self.key(name, args, kw)}"
+            rtol = 1e-6 if args[0].dtype == torch.float32 else 2 ** -8
+            torch.testing.assert_close(out[1], p[1], rtol=rtol, atol=0)
+            return (out[1] - p[1]).abs().max().item()
+        assert torch.equal(out, p), f"{name} differs from its plain version " \
+            f"at {self.key(name, args, kw)}"
+        return 0.0
+
+    def _wrap(self, name):
+        fn = self.orig[name]
+
+        @functools.wraps(fn, updated=())
+        def held(*args, **kw):
+            out = fn(*args, **kw)
+            if not args[0].is_cuda:
+                return out
+            k = self.key(name, args, kw)
+            if not self.active:
+                self.unheld.add(k)
+            elif (name == "paged_decode_attention"
+                  or self.held.get(k, 0) < self.per_key):
+                self.held[k] = self.held.get(k, 0) + 1
+                self.worst[name] = max(self.worst.get(name, 0.0),
+                                       self._hold(name, out, args, kw))
+            return out
+        # the wrapper counts ``fn.launches += 1`` through the module name,
+        # which is now ``held``: one attribute dict keeps one count
+        held.__dict__ = fn.__dict__
+        return held
+
+    def __enter__(self):
+        for n, m in self.sites.items():
+            setattr(m, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, m in self.sites.items():
+            setattr(m, n, self.orig[n])
+
+    @contextlib.contextmanager
+    def off(self):
+        """Launches inside run unheld (timed runs); their shapes are kept."""
+        self.active = False
+        try:
+            yield
+        finally:
+            self.active = True
+
+    def check(self, gpu: str) -> None:
+        """Print what was held; fail unless every shape launched unheld was
+        also held."""
+        for name in self.sites:
+            keys = sorted(k[1:] for k in self.held if k[0] == name)
+            n = sum(v for k, v in self.held.items() if k[0] == name)
+            shown = "" if name in ("parity_digest", "xor_cipher") else \
+                f"; shapes {keys}"
+            print(f"[tier] held against the plain version: {name}, {n} "
+                  f"launches at {len(keys)} shapes, max abs err "
+                  f"{self.worst.get(name)}{shown}  [{gpu}]")
+        missing = self.unheld - set(self.held)
+        assert not missing, f"shapes launched but never held: {missing}"
+
+
+def serving_tier(gpu: str) -> dict:
+    """Phase 3b: the rest of the serving tier on phase 3's model (the same
+    seeded full-width, full-depth qwen2-7b+xnor tree, bf16) and trace.
+
+    (a) temperature 0.8, seed 0: one 4-slot ServeEngine against a
+        2-replica Router (4 slots each, s_max 128, scrub every 4 router
+        steps) with the kill drill at router step 6; every request must
+        finish with the single engine's tokens, a session must migrate,
+        a scrub pass must cover the packed weights and find nothing; then
+        one flipped word of a live replica's packed weights must be
+        exactly one corruption.
+    (c) cross-slot migration: a session exported mid-decode from a 4-slot
+        engine, restored into a 2-slot engine, must finish with the
+        never-migrated tokens, at s_max 128 (table width 8) and 512 (32,
+        where a split plan sized by the batch would cut the paged decode
+        walk 16 ways at 4 slots and 32 at 2); the head GEMM sees another
+        batch too.
+    (b) the slot-dense layout and the static loop, greedy, in f32 at the
+        same width and depth: dense = paged = generate_static; in bf16
+        the number of the 8 requests on which dense and paged agree is
+        printed, and beside it paged with the unfused decode chain.
+    And rows 0-1 of one 4-slot paged decode launch must equal a 2-slot
+    launch's bitwise on the same pools, W 8 and 32, bf16 and f32.
+
+    The five kernels are held against their plain versions at every shape
+    (:class:`LaunchHolds`), but for the two timed runs of (a): the single
+    engine and the Router run once held, for the gates, and once unheld,
+    for the readings (tok/s, ms per migration and per scrub pass), which
+    must repeat the held run's tokens; every shape the timed runs launch
+    must have been held.  Launch counts of the five kernels are zeroed
+    before (a) and read after (b); each must be above zero."""
+    with LaunchHolds() as holds:
+        holds.active = True
+        launches = tier_runs(gpu, holds)
+    holds.check(gpu)
+    return launches
+
+
+def tier_runs(gpu: str, holds: LaunchHolds) -> dict:
+    """The runs of :func:`serving_tier`, inside its holds."""
+    import gc
+    import shutil
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels import paged_attn as kpaged
+    from repro_torch.models import lm
+    from repro_torch.serve import Router, ServeEngine
+    from repro_torch.train import serve_step
+
+    kernels = tuple(holds.orig.values())     # the wrappers themselves
+    cfg = configs.get("qwen2-7b+xnor")
+    trace = slice_trace(cfg.vocab)
+    directory = ROOT / "experiments" / "chip_smoke_router"
+    shutil.rmtree(directory, ignore_errors=True)
+    params = lm.init_params(cfg, SEED, device="cuda")
+    for f in kernels:
+        f.launches = 0
+
+    def tokens(rep, rids):
+        return {rid: rep.tokens(rid).tolist() for rid in rids}
+
+    def serve(eng):
+        for r in trace:
+            eng.submit(r)
+        rep = eng.run()
+        torch.cuda.synchronize()
+        assert all(s.done for s in rep.sessions.values())
+        return rep
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rids = [r.rid for r in trace]
+    tier = dict(s_max=128, temperature=0.8, seed=SEED)
+    want = tokens(serve(ServeEngine(cfg, params, slots=4, **tier)), rids)
+    with holds.off():
+        single = serve(ServeEngine(cfg, params, slots=4, **tier))
+    print(f"[tier] single 4-slot engine, T=0.8, unheld: {single.generated} "
+          f"tokens in {single.wall} s -> {single.tok_per_s} tok/s; tokens "
+          f"as the held run's: {tokens(single, rids) == want}  [{gpu}]")
+    assert tokens(single, rids) == want, "the unheld run's tokens differ"
+
+    def kill_drill(label):
+        """-> (router, report, ms of each migration and scrub pass)."""
+        router = Router(cfg, params, 2, slots=4,
+                        ckpt_dir=str(directory / label), epoch_steps=4,
+                        **tier)
+        timed = {"migrate": [], "scrub": []}
+
+        def timing(name, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                timed[name].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+        router.migrate = timing("migrate", router.migrate)
+        router.scrub = timing("scrub", router.scrub)
+        for r in trace:
+            router.submit(r)
+        rep = router.run(kill_at=6)
+        torch.cuda.synchronize()
+        del router.migrate, router.scrub      # the timing wrappers' cycle
+        done = sum(s.done for s in rep.sessions.values())
+        diverged = [rid for rid in rids
+                    if rep.tokens(rid).tolist() != want[rid]]
+        leaves = sum(r.scrub_weight_leaves for r in rep.replicas)
+        print(f"[tier] router 2 x 4 slots, kill at step 6, {label}: "
+              f"{rep.generated} tokens in {rep.wall} s -> {rep.tok_per_s} "
+              f"tok/s; killed {rep.killed}, {len(rep.migrations)} migrations "
+              f"{[m[:3] for m in rep.migrations]}, {len(diverged)} requests "
+              f"diverged, {done}/{len(trace)} finished; {rep.scrub_passes} "
+              f"scrub passes over {leaves} weight leaves and "
+              f"{sum(r.scrub_idle_blocks for r in rep.replicas)} idle "
+              f"blocks, {rep.scrub_corruptions} corruptions  [{gpu}]")
+        assert done == len(trace), f"{done}/{len(trace)} finished"
+        assert not diverged, f"router tokens diverged on requests {diverged}"
+        assert rep.migrations, "the kill drill migrated no session"
+        assert leaves > 0, "no scrub pass covered the packed weights"
+        assert rep.scrub_corruptions == 0, "the scrubber reported corruption"
+        return router, rep, timed
+
+    router, rep, _ = kill_drill("held")
+    del router, rep
+    free()
+    with holds.off():
+        router, rep, timed = kill_drill("unheld")
+    wire = sum(f.stat().st_size for f in (directory / "unheld").rglob("*")
+               if f.is_file())
+    print(f"[tier] ms per migration (export, save, restore, import), unheld "
+          f"run: {timed['migrate']}; encrypted wire {wire} bytes in all, "
+          f"{wire / len(rep.migrations)} a migration  [{gpu}]")
+    print(f"[tier] ms per scrub pass (both replicas), unheld run: "
+          f"{timed['scrub']}  [{gpu}]")
+    # the control: one flipped word of a live replica's packed weights
+    alive = [h for h in router.replicas if h.alive]
+    pb = alive[0].engine.params["seg0_attn"]["ffn_w1"].pb
+    pb.view(-1)[12345] ^= 1 << 3
+    flipped = router.scrub()
+    pb.view(-1)[12345] ^= 1 << 3
+    restored = router.scrub()
+    print(f"[tier] control, one flipped word of replica "
+          f"{alive[0].index}'s w1 planes: {flipped} corruption(s); flipped "
+          f"back: {restored}  [{gpu}]")
+    assert flipped == 1, f"the flipped word gave {flipped} corruptions"
+    assert restored == 0
+    del router, rep, alive, pb
+    free()
+
+    # (c) cross-slot migration: 4-slot source, 2-slot destination, at the
+    # phase's table width (W 8) and at W 32, where a split plan sized by
+    # the batch would cut the walk 16 ways at 4 slots and 32 ways at 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cross_slot = {}
+    for s_max in (128, 512):
+        geom = dict(tier, s_max=s_max)
+        base = want if s_max == 128 else tokens(
+            serve(ServeEngine(cfg, params, slots=4, **geom)), rids)
+        a = ServeEngine(cfg, params, slots=4, **geom)
+        for r in trace:
+            a.submit(r)
+        sess = None
+        while sess is None:
+            assert a.step(), "the trace never reached a mid-decode session"
+            live = [x for slot, x in a.pool.active.items()
+                    if x.tokens and not x.done and slot not in a._prefilling]
+            sess = live[0] if live else None
+        rid = sess.request.rid
+        b = ServeEngine(cfg, params, slots=2, **geom)
+        d = str(directory / f"cross_slot_{s_max}")
+        ckpt.save(d, 1, a.export_session(rid), root_key=ROOT_KEY)
+        restored, _ = ckpt.restore(d, 1, b.export_spec(sess.request),
+                                   root_key=ROOT_KEY)
+        b.import_session(sess.request, restored)
+        a.release_migrated(rid)
+        moved = b.run().tokens(rid).tolist()
+        rest = a.run()
+        others = all(rest.tokens(x).tolist() == base[x]
+                     for x in rids if x != rid)
+        w = a._widths["full"]
+        cross_slot[s_max] = moved == base[rid] and others
+        print(f"[tier] cross-slot migration, s_max {s_max} (W {w}; split "
+              f"plan (n_split, cols) "
+              f"{kpaged.split_plan(w, cfg.n_kv_heads, sms)} at any slots): "
+              f"request {rid} after {len(sess.tokens)} tokens, 4-slot -> "
+              f"2-slot engine: "
+              f"{'identical' if moved == base[rid] else 'DIFFERENT'} to the "
+              f"never-migrated tokens (others identical: {others})  [{gpu}]")
+        del a, b
+        free()
+    assert all(cross_slot.values()), f"cross-slot migration: {cross_slot}"
+
+    # bf16, greedy: dense against paged, printed as a count
+    greedy = dict(s_max=128, seed=SEED)
+    paged = tokens(serve(ServeEngine(cfg, params, slots=4, **greedy)), rids)
+    dense = tokens(serve(ServeEngine(cfg, params, slots=4, paged=False,
+                                     **greedy)), rids)
+    # and paged decode through the gather / softmax chain (P rounded to
+    # bf16 before P.V, as the dense layout computes it) in place of the
+    # kernel, which keeps P in f32
+    chain = tokens(serve(ServeEngine(
+        dataclasses.replace(cfg, fused_decode="off"), params, slots=4,
+        **greedy)), rids)
+    for name, other in (("paged", paged), ("paged, unfused decode", chain)):
+        agree = sum(other[x] == dense[x] for x in rids)
+        common = [next((i for i, (p, q) in enumerate(zip(other[x], dense[x]))
+                        if p != q), len(other[x])) for x in rids]
+        print(f"[tier] bf16 greedy: dense and {name} agree on {agree}/"
+              f"{len(rids)} requests; tokens in common before they part "
+              f"{common} of {[len(dense[x]) for x in rids]}  [{gpu}]")
+    del params
+    free()
+
+    # (b) f32, greedy: dense = paged = generate_static
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = lm.init_params(cfg32, SEED, device="cuda")
+    eng = ServeEngine(cfg32, params32, slots=4, paged=False, **greedy)
+    paged = tokens(serve(ServeEngine(cfg32, params32, slots=4, **greedy)),
+                   rids)
+    del params32
+    dense = tokens(serve(eng), rids)
+    static = {r.rid: serve_step.generate_static(
+        cfg32, eng.params, torch.from_numpy(r.prompt[None]).cuda(),
+        r.max_new_tokens)[0].tolist() for r in trace}
+    print(f"[tier] f32 greedy: dense = paged on "
+          f"{sum(dense[x] == paged[x] for x in rids)}/8, generate_static = "
+          f"dense on {sum(static[x] == dense[x] for x in rids)}/8  [{gpu}]")
+    assert dense == paged, "f32: the dense layout's tokens differ from paged"
+    assert static == dense, "f32: generate_static differs from the engine"
+    del eng
+    free()
+    launches = {f.__name__: f.launches for f in kernels}
+    print(f"[tier] launches in the phase: {launches}  [{gpu}]")
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched in the serving tier"
+
+    # the kernel alone: rows 0-1 of a 4-slot launch against a 2-slot one on
+    # the same pools, full tables (W 8 and 32), bf16 and f32: bitwise (each
+    # launch also held against the plain version)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 17)
+    kv, gq, dh, bs = cfg.n_kv_heads, cfg.q_per_kv, cfg.d_head, cfg.block_size
+    rows = {}
+    for w, dt in ((8, torch.bfloat16), (32, torch.bfloat16),
+                  (8, torch.float32), (32, torch.float32)):
+        q = torch.randn((4, kv, gq, dh), generator=g, device="cuda").to(dt)
+        ck, cv = (torch.randn((1 + 4 * w, kv, bs, dh), generator=g,
+                              device="cuda").to(dt) for _ in range(2))
+        table = (torch.randperm(4 * w, generator=g, device="cuda") + 1
+                 ).reshape(4, w).to(torch.int32)
+        pos = torch.full((4,), w * bs - 1, dtype=torch.int32, device="cuda")
+        o4 = kpaged.paged_decode_attention(q, ck, cv, table, pos,
+                                           scale=dh ** -0.5)
+        o2 = kpaged.paged_decode_attention(q[:2].contiguous(), ck, cv,
+                                           table[:2].contiguous(),
+                                           pos[:2].contiguous(),
+                                           scale=dh ** -0.5)
+        rows[f"W {w} {str(dt)[6:]}"] = int((o4[:2] != o2).sum())
+    print(f"[tier] paged decode, slots 0-1 of a 4-slot launch against a "
+          f"2-slot launch, elements differing of {2 * kv * gq * dh}: "
+          f"{rows}  [{gpu}]")
+    assert not any(rows.values()), f"a slot's bits depend on the batch: {rows}"
+    shutil.rmtree(directory, ignore_errors=True)
+    free()
+    print(f"[tier] device memory still allocated after the phase "
+          f"{torch.cuda.memory_allocated() / 2**30} GiB  [{gpu}]")
     return launches
 
 
@@ -1805,12 +2239,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    first, _FIRST["lib"] = start_first_design_build()
     cuda.build()
     for name in cuda.ENTRY_POINTS:
         cuda.fn(name)
-    first_log, _ = first.communicate()
-    assert first.returncode == 0, f"nvcc failed for {FIRST_GEMM}:\n{first_log}"
     print(f"kernels built and loaded in {time.perf_counter() - t0} s "
           f"(nvcc {cuda.build_seconds()} s)")
     for line in cuda.build_log().splitlines():
@@ -1823,6 +2254,9 @@ def main() -> int:
     if sys.argv[1:] == ["--path-readings"]:
         path_readings(gpu)
         return 0
+    if sys.argv[1:] == ["--paged-plans"]:
+        paged_plans(gpu)
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 products
     torch.backends.cudnn.allow_tf32 = False         # stay f32 on the card
@@ -1831,9 +2265,12 @@ def main() -> int:
     rec.update(integer_kernel_checks(gpu, LINEAR_SHAPES))
     rec.update(flash_checks(gpu))
     launches = serve_slice(gpu)
+    tier = serving_tier(gpu)            # launches of its five kernels
     launches.update(integer_chain(gpu))
     launches["xnor_gemm"] = binary_layers(gpu, LINEAR_SHAPES)["xnor_gemm"]
     launches.update(long_context(gpu))
+    for name, n in tier.items():         # the larger path's count
+        launches[name] = max(launches[name], n)
     checkpoint_layer(gpu)
     monte_carlo(gpu)
     kernels = []

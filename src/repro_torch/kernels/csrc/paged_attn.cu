@@ -24,9 +24,11 @@
 // KV head) would leave most of the 132 SMs idle and walk a long table
 // serially, so the walk is split: the grid is (B*KV, n_split), and block
 // (bh, i) walks table columns [i*cols, min(W, (i+1)*cols)).  The host
-// picks n_split and cols from W, B*KV and the SM count alone
-// (kernels/paged_attn.py::split_plan), never from pos, so a decode step
-// needs no device-to-host read.  A column's liveness is O(1) and depends
+// picks n_split and cols from W, KV and the SM count alone, sizing the
+// grid for a fixed number of slots (kernels/paged_attn.py::split_plan),
+// never from pos, so a decode step needs no device-to-host read, and
+// never from B, so a slot's result is the same bits in a batch of any
+// size.  A column's liveness is O(1) and depends
 // only on pos and the column, so a dead column is skipped uniformly (which
 // is also the guard against exp(NEG_INF - NEG_INF)).
 //

@@ -23,18 +23,25 @@ WARPS = 4                  # warps of a block, each walking its own columns
 MAX_G = 16                 # query rows per KV head the kernel holds
 MAX_DH = 256               # (G up to 8; up to 128 for G up to 16)
 BLOCKS_PER_SM = 3          # split target: blocks per SM (two in flight)
+PLAN_SLOTS = 4             # the batch the split plan sizes its grid for
 
 
-def split_plan(w: int, bkv: int, sms: int) -> tuple[int, int]:
+def split_plan(w: int, kv: int, sms: int) -> tuple[int, int]:
     """-> (n_split, cols): the table's ``w`` columns cut into ``n_split``
     contiguous ranges of ``cols`` (the last may be shorter, none is empty),
     enough for about ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs over
-    ``bkv`` (slot, KV head) pairs, never more splits than columns.  Shapes
-    only: the plan never reads positions, so a decode step needs no
-    device-to-host copy."""
-    cuda.check(w >= 1 and bkv >= 1 and sms >= 1,
-               f"split_plan needs W, B*KV, SMs >= 1, got {w}, {bkv}, {sms}")
-    n = max(1, min(w, -(-BLOCKS_PER_SM * sms // bkv)))
+    ``PLAN_SLOTS`` slots of ``kv`` heads, never more splits than columns.
+    Shapes only: the plan never reads positions, so a decode step needs no
+    device-to-host copy; and it does not read the launch's batch, so a
+    slot's walk and merge order, and with them its output bits, are the
+    same in an engine of any ``slots`` (a session migrates between such
+    engines token for token).  At ``PLAN_SLOTS`` slots the plan is the
+    one a batch-sized plan would pick; at W 2048 on an H100 it was no
+    slower than a batch-sized plan at 1, 16 or 32 slots either
+    (``chip_smoke.py --paged-plans``)."""
+    cuda.check(w >= 1 and kv >= 1 and sms >= 1,
+               f"split_plan needs W, KV, SMs >= 1, got {w}, {kv}, {sms}")
+    n = max(1, min(w, -(-BLOCKS_PER_SM * sms // (PLAN_SLOTS * kv))))
     cols = -(-w // n)
     return -(-w // cols), cols
 
@@ -60,13 +67,13 @@ def split_reference(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                     window: int = 0, scale: float = 1.0,
                     out_scale: float = 1.0, sms: int) -> torch.Tensor:
     """The kernel's split walk in plain PyTorch: each split of
-    ``split_plan(W, B*KV, sms)`` runs the online recurrence over its live
+    ``split_plan(W, KV, sms)`` runs the online recurrence over its live
     columns, and the splits' states meet in ``online_softmax.merge``.
     Equal to ``ref.paged_decode`` up to f32 rounding; the card tests hold
     the kernel's last-block merge against it."""
     b, kv, g, dh = q.shape
     w, bs = table.shape[1], ck.shape[2]
-    n, cols = split_plan(w, b * kv, sms)
+    n, cols = split_plan(w, kv, sms)
     idx = table.long()
     gk = ck[idx].permute(0, 2, 1, 3, 4).float()       # (B, KV, W, bs, dh)
     gv = cv[idx].permute(0, 2, 1, 3, 4).float()
@@ -164,7 +171,7 @@ def paged_decode_attention(q: torch.Tensor, ck: torch.Tensor,
     cuda.check(smem <= MAX_SMEM, f"G={g}, bs={bs}, dh={dh} need {smem} "
                "bytes of shared memory")
     out = torch.empty_like(q)
-    n_split, cols = split_plan(w, b * kv, _sm_count(q.device.index))
+    n_split, cols = split_plan(w, kv, _sm_count(q.device.index))
     scratch = [0, 0, 0]
     if n_split > 1:
         part_acc = torch.empty(b * kv * n_split * g * dh,

@@ -1,11 +1,16 @@
-"""GQA attention over the block-paged KV cache (the serve path).
+"""GQA attention: full-sequence prefill, decode against a slot-dense KV
+cache, and decode / chunked prefill through the block-paged pool.
 
 Layouts, as in the JAX package:
   q            (B, S, H, dh)
-  k, v         (B, S, KV, dh) — compact GQA form, never expanded
+  k, v         (B, S, KV, dh) — compact GQA form; expanded to (B, S, H,
+               dh) only in the full-sequence path
+  KV cache     (B, KV, S_max, dh) — the dense decode layout
   paged pool   (n_blocks, KV, block_size, dh) — shared, no batch axis,
                addressed through per-slot int32 block tables
-Scores accumulate in f32; softmax is f32.
+Scores accumulate in f32; softmax is f32.  The reference computes the
+dense products with ``einsum`` outside any kernel, so the dense path is
+plain PyTorch on every device, in the reference's rounding order.
 """
 
 from __future__ import annotations
@@ -69,6 +74,124 @@ def _project_kv(cfg, p, x, positions):
     if cfg.qk_norm:
         k = layers.rms_norm(k, p["k_norm"])
     return layers.apply_rope(k, positions, cfg.rope_theta), v
+
+
+def _expand_kv(cfg, k, v):
+    """(B, S, KV, dh) -> (B, S, H, dh): repeat each KV head q_per_kv times."""
+    if cfg.q_per_kv == 1:
+        return k, v
+    return (torch.repeat_interleave(k, cfg.q_per_kv, dim=2),
+            torch.repeat_interleave(v, cfg.q_per_kv, dim=2))
+
+
+def _sdpa(cfg, q, k, v, mask):
+    """q (B, Sq, H, dh), k/v (B, Sk, H, dh), mask (1|B, Sq, Sk) or None;
+    f32 scores and softmax, P rounded to v's dtype before P.V."""
+    scale = cfg.d_head ** -0.5
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
+    if mask is not None:
+        scores = torch.where(mask[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def _causal_mask(sq: int, sk: int, q0: int, window: int = 0, device=None):
+    """(1, sq, sk) bool: query i (position q0 + i) sees key j iff
+    j <= q0 + i and (no window or j > q0 + i - window)."""
+    qpos = q0 + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m[None]
+
+
+def attention(cfg, p: dict, x: torch.Tensor, *, causal: bool = True,
+              window: int = 0, q_chunk: int = 0,
+              positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Self-attention over a full sequence (prefill): x (B, S, d) ->
+    (B, S, d).  Only the one-shot form (``q_chunk == 0``, or S <= q_chunk)
+    is ported; the reference's chunked-query scan is not."""
+    b, s, _ = x.shape
+    if q_chunk and s > q_chunk:
+        raise NotImplementedError(
+            "chunked-query attention (q_chunk > 0) is not ported")
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = _project_q(cfg, p, x, positions)
+    k, v = _expand_kv(cfg, *_project_kv(cfg, p, x, positions))
+    mask = _causal_mask(s, s, 0, window, x.device) if causal else None
+    out = _sdpa(cfg, q, k, v, mask)
+    return layers.linear(out.reshape(b, s, cfg.n_heads * cfg.d_head),
+                         p["wo"], cfg.quant)
+
+
+class KVCache(NamedTuple):
+    """The dense decode cache: per-slot rows (B, KV, S_max, dh), layer-
+    stacked in a segment as (n_layers, B, KV, S_max, dh).  Updated in
+    place, like the paged pools."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg, batch: int, s_max: int, dtype, device,
+              n_layers: int):
+        shp = (n_layers, batch, cfg.n_kv_heads, s_max, cfg.d_head)
+        return cls(torch.zeros(shp, dtype=dtype, device=device),
+                   torch.zeros(shp, dtype=dtype, device=device))
+
+    def layer(self, i: int) -> "KVCache":
+        return KVCache(self.k[i], self.v[i])
+
+
+def decode_attention(cfg, p: dict, x: torch.Tensor, cache: KVCache,
+                     pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """One token per row against a resident dense cache.
+
+    x (B, 1, d); ``pos`` a scalar (homogeneous batch) or (B,) per-slot
+    positions: the cache holds ``pos`` valid entries before the call.  The
+    new key and value are written in place at ``pos`` (``pos % s_max`` for
+    a rolling window buffer).  Returns (B, 1, d)."""
+    b = x.shape[0]
+    s_max = cache.k.shape[2]
+    pos_b = pos.to(torch.int64).expand(b)
+    positions = pos_b[:, None]
+    q = _project_q(cfg, p, x, positions)                  # (B, 1, H, dh)
+    q = q.reshape(b, 1, cfg.n_kv_heads, cfg.q_per_kv, cfg.d_head)
+    k, v = _project_kv(cfg, p, x, positions)
+
+    slot_b = pos_b % s_max if window else pos_b
+    knew, vnew = k[:, 0], v[:, 0]                          # (B, KV, dh)
+    i8 = cache.k.dtype == torch.int8
+    if i8:
+        knew, vnew = i8_encode(cfg, knew), i8_encode(cfg, vnew)
+    rows = torch.arange(b, device=x.device)
+    cache.k[rows, :, slot_b] = knew.to(cache.k.dtype)
+    cache.v[rows, :, slot_b] = vnew.to(cache.v.dtype)
+
+    scale = cfg.d_head ** -0.5
+    if i8:
+        scale = scale / cfg.kv_i8_scale
+    scores = torch.einsum("bqkgd,bksd->bkgqs", q.float(),
+                          cache.k.to(q.dtype).float()) * scale
+    kpos = torch.arange(s_max, device=x.device)
+    if window:
+        # rolling buffer: slot s holds position pos - ((slot - s) mod s_max)
+        age = torch.remainder(slot_b[:, None] - kpos[None, :], s_max)
+        valid = age < torch.clamp(pos_b[:, None] + 1, max=window)
+    else:
+        valid = kpos[None, :] <= pos_b[:, None]            # (B, s_max)
+    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bqkgd", probs.to(q.dtype).float(),
+                       cache.v.to(q.dtype).float()).to(x.dtype)
+    if i8:
+        out = out / cfg.kv_i8_scale
+    out = out.reshape(b, 1, cfg.n_heads * cfg.d_head)
+    return layers.linear(out, p["wo"], cfg.quant)
 
 
 class PagedKVCache(NamedTuple):

@@ -1,14 +1,16 @@
-"""Language-model assembly for the paged serve path: embeddings, the
+"""Language-model assembly for the serve path: embeddings, the
 per-segment blocks, the full-precision head.
 
 Public surface:
   param_defs / abstract_params / init_params / pack_params
+  decode_state_spec / prefill / decode_step            (dense layout)
   paged_table_widths / paged_decode_state_spec
   paged_decode_step(cfg, params, token, state, tables, active)
   prefill_chunk_step(cfg, params, tokens, state, slot, n_valid, tables, ...)
   paged_copy_block / prefix_cache_eligible / prefix_table_class
+  export_slot / import_slot / export_slot_spec / gather_block  (migration)
 
-The resident state is updated in place: the pools are written by the
+The resident state is updated in place: the caches are written by the
 scatter, ``pos`` by the step.  Each step returns the state it was given.
 """
 
@@ -61,8 +63,46 @@ def _seg_params(cfg, params):
 
 
 class DecodeState(NamedTuple):
-    pos: torch.Tensor          # (B,) int32 per-slot tokens consumed
-    seg_states: list           # per-segment layer-stacked pools
+    pos: torch.Tensor          # int32 tokens consumed: scalar (homogeneous
+                               # batch) or (B,) per slot
+    seg_states: list           # per-segment layer-stacked caches / pools
+
+
+def decode_state_spec(cfg, batch: int, s_max: int, *, device,
+                      per_slot_pos: bool = False) -> DecodeState:
+    """Zeroed dense resident state: (n, batch, KV, s_max, dh) caches per
+    segment and a scalar ``pos``, or a (batch,) vector with
+    ``per_slot_pos`` (continuous batching)."""
+    seg = blocks.segment_states(cfg, cfg.segments(), batch, s_max, device)
+    pshape = (batch,) if per_slot_pos else ()
+    return DecodeState(torch.zeros(pshape, dtype=torch.int32, device=device),
+                       seg)
+
+
+def prefill(cfg, params, tokens: torch.Tensor, s_max: int):
+    """tokens (B, S) -> (logits of the last position (B, 1, V), a fresh
+    dense DecodeState of capacity ``s_max`` with scalar ``pos`` = S)."""
+    x = layers.embed(params["embed"], tokens).to(cfg.dtype)
+    opts = blocks.FwdOpts(want_state=True, s_max=s_max)
+    x, states = blocks.segment_fwd(cfg, _seg_params(cfg, params), x, opts)
+    logits = layers.logits(cfg, params["embed"], x[:, -1:])
+    pos = torch.tensor(tokens.shape[1], dtype=torch.int32,
+                       device=tokens.device)
+    return logits, DecodeState(pos, states)
+
+
+def decode_step(cfg, params, token: torch.Tensor, state: DecodeState,
+                active: torch.Tensor | None = None):
+    """token (B, 1) -> logits (B, 1, V) against the dense state.  ``active``
+    (B,) bool freezes inactive slots' positions: a dead slot rewrites its
+    frozen cache line, inert until an admission overwrites it."""
+    x = layers.embed(params["embed"], token).to(cfg.dtype)
+    x = blocks.segment_decode(cfg, _seg_params(cfg, params), x,
+                              state.seg_states, state.pos, None,
+                              active=active)
+    logits = layers.logits(cfg, params["embed"], x)
+    state.pos.add_(1 if active is None else active.to(torch.int32))
+    return logits, state
 
 
 def paged_table_widths(cfg, s_max: int, block_size: int,
@@ -150,3 +190,47 @@ def prefix_table_class(cfg) -> str | None:
                if registry.contract(k).paged_kv
                and registry.contract(k).prefix_shareable}
     return classes.pop() if len(classes) == 1 else None
+
+
+# ---------------------------------------------------------------------------
+# session migration: slot extraction / injection
+# ---------------------------------------------------------------------------
+
+
+def export_slot(cfg, state: DecodeState, slot: int, ids: dict) -> dict:
+    """One slot's complete state as a self-contained tree ``{"pos": (1,)
+    int32, "segs": per-segment (shared, per_slot) pairs}``: paged blocks in
+    table-row order (``ids`` maps table class -> the slot's (W,) row); the
+    ``attn`` kind has no per-slot leaves.  A pure gather; paged layout
+    only."""
+    segs = blocks.segment_export_slot(cfg, state.seg_states, ids)
+    return {"pos": state.pos[slot:slot + 1].clone(), "segs": segs}
+
+
+def import_slot(cfg, state: DecodeState, slot: int, ids: dict,
+                payload) -> DecodeState:
+    """Inverse of :func:`export_slot`, in place: seat ``payload`` in
+    ``slot`` with ``ids`` the destination rows (same widths, fresh ids)."""
+    state.pos[slot:slot + 1] = payload["pos"].to(state.pos.device,
+                                                 torch.int32)
+    blocks.segment_import_slot(cfg, state.seg_states, ids, payload["segs"])
+    return state
+
+
+def export_slot_spec(cfg, state: DecodeState, widths: dict) -> dict:
+    """The shape and dtype tree of :func:`export_slot`'s payload for this
+    geometry, as ``meta`` tensors: the ``like`` tree a migration
+    checkpoint restores against (shapes never come from the file)."""
+    ids = {c: torch.zeros((w,), dtype=torch.int64, device="meta")
+           for c, w in widths.items()}
+    meta = DecodeState(state.pos.to("meta"),
+                       [None if st is None else type(st)(
+                           *(l.to("meta") for l in st))
+                        for st in state.seg_states])
+    return export_slot(cfg, meta, 0, ids)
+
+
+def gather_block(cfg, state: DecodeState, bid: int) -> tuple:
+    """Physical block ``bid`` across every shared pool (the integrity
+    scrubber's unit of verification for idle cached blocks)."""
+    return blocks.segment_gather_block(cfg, state.seg_states, bid)

@@ -1,11 +1,13 @@
-"""Continuous-batching serve engine over the block-paged KV cache.
+"""Continuous-batching serve engine over one resident decode state.
 
 A FIFO request queue feeds a fixed pool of batch slots over one resident
 :class:`repro_torch.models.lm.DecodeState`:
 
-* **paged KV**: attention state lives in a shared block pool addressed
-  through host-owned per-slot block tables (:class:`BlockPool` allocates;
-  tables are mirrored to the device when they change);
+* **paged KV** (default): attention state lives in a shared block pool
+  addressed through host-owned per-slot block tables (:class:`BlockPool`
+  allocates; tables are mirrored to the device when they change);
+  ``paged=False`` keeps the slot-dense layout (``(slots, KV, s_max, dh)``
+  caches): exact-length batch-1 prefill scattered into the slot;
 * **admission**: a request's worst-case blocks are reserved (the FIFO head
   waits otherwise) and its prompt is consumed by **chunked prefill**, one
   ``prefill_chunk``-sized piece per engine step, interleaved with decode;
@@ -15,15 +17,22 @@ A FIFO request queue feeds a fixed pool of batch slots over one resident
   land in, and prefills only the rest;
 * **eviction** on EOS or budget: the slot frees, its blocks return to the
   pool (cached ones park in the idle tier), its table row is zeroed so the
-  dead slot's writes land in the trash block 0.
+  dead slot's writes land in the trash block 0;
+* **sampling**: greedy at temperature 0; above it, Gumbel noise from a
+  threefry twin (:mod:`repro_torch.core.prng`) keyed by the engine seed
+  folded with a (request, step) seed, so a draw never depends on the slot
+  or the batch — the contract session migration rests on;
+* **session export/import** (paged layout): a live slot's blocks,
+  position, tokens and chunked-prefill progress lift out as a flat wire
+  tree and re-admit into any engine of the same (cfg, s_max, block_size,
+  prefill_chunk, temperature, seed), token-identically; the replicated
+  tier (:mod:`repro_torch.serve.router`) ships it as an encrypted
+  checkpoint.
 
 With ``pack=True`` and a ``quant="xnor"`` arch the engine serves from
 packed weights (:func:`repro_torch.models.lm.pack_params`): sign planes +
-beta; the float copies of binarized linears are not kept.
-
-Greedy sampling only: temperature > 0 needs a twin of the reference's
-threefry / gumbel stream and is not ported yet.  This mirrors
-``repro/serve/engine.py``'s paged path, token for token.
+beta; the float copies of binarized linears are not kept.  This mirrors
+``repro/serve/engine.py``, token for token.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import prng
 from repro_torch.models import lm
 from repro_torch.models.params import tree_map
 from repro_torch.serve.pools import BlockPool, SlotPool
@@ -43,10 +53,35 @@ from repro_torch.serve.session import Request, Session
 from repro_torch.serve.stats import EngineStats, ServeReport
 
 
-def _greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
-    """Last-position argmax over the true vocab (pad ids never win)."""
+def _sample_tokens(cfg, logits: torch.Tensor, key: torch.Tensor,
+                   seeds: torch.Tensor | None,
+                   temperature: float) -> torch.Tensor:
+    """Last-position sampling over the true vocab (pad ids never drawn):
+    argmax at temperature 0, else argmax of ``row / T + gumbel`` with row
+    ``b``'s noise keyed by ``fold_in(key, seeds[b])`` — draws depend only on
+    the (request, step) seed, never on the slot or the batch.  ``seeds``
+    may be None at temperature 0."""
     lg = logits[:, -1, :cfg.vocab].float()
+    if temperature > 0.0:
+        keys = prng.fold_in(key, seeds.to(torch.int64))       # (B, 2)
+        lg = lg / temperature + prng.gumbel(keys, (lg.shape[-1],))
     return lg.argmax(dim=-1).to(torch.int32)[:, None]
+
+
+def _insert_slot(resident: lm.DecodeState, one: lm.DecodeState,
+                 slot: int) -> None:
+    """Scatter a freshly prefilled batch-1 dense state into resident slot
+    ``slot``, in place (leaves are layer-stacked, batch at axis 1)."""
+    for r, o in zip(resident.seg_states, one.seg_states):
+        if r is not None:
+            for rl, ol in zip(r, o):
+                rl[:, slot] = ol[:, 0]
+    resident.pos[slot] = one.pos
+
+
+def _host(v) -> np.ndarray:
+    """A wire leaf (tensor on any device, or array) as a host array."""
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 @dataclasses.dataclass
@@ -59,6 +94,7 @@ class _PrefillProgress:
     n_chunks: int
     next_chunk: int
     rows: dict                  # this slot's (1, W) device table rows
+    seeds: torch.Tensor | None  # (1,) device seed of the prefill sample
     skip: int = 0               # positions served from shared prefix blocks
     chain: list = dataclasses.field(default_factory=list)
                                 # full prompt's (key, parent, tokens) chain
@@ -77,7 +113,10 @@ class ServeEngine:
       s_max: per-slot cache capacity; a request needs
         ``len(prompt) + max_new_tokens - 1 <= s_max``.
       eos_id: token id that ends a request early (None: budget only).
-      temperature: must be 0 (greedy).
+      temperature: 0 = greedy; > 0 = Gumbel sampling with per-(request,
+        step) keys.
+      seed: engine sampling seed.
+      paged: block-paged KV (default) or the slot-dense layout.
       prefix_cache: content-addressed prefix sharing over the pool,
         auto-disabled for archs whose state cannot be rebuilt from cached
         blocks (``engine.prefix_caching`` reports the effective setting).
@@ -87,23 +126,38 @@ class ServeEngine:
 
     def __init__(self, cfg, params, *, slots: int, s_max: int,
                  eos_id: int | None = None, temperature: float = 0.0,
-                 pack: bool = True, block_size: int = 0,
-                 prefill_chunk: int = 0, n_blocks: int = 0,
-                 prefix_cache: bool = True, device="cuda"):
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "sampling at temperature > 0 is not ported yet; use greedy")
+                 seed: int = 0, pack: bool = True, paged: bool = True,
+                 block_size: int = 0, prefill_chunk: int = 0,
+                 n_blocks: int = 0, prefix_cache: bool = True,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.slots = slots
         self.s_max = s_max
         self.eos_id = eos_id
+        self.temperature = float(temperature)
         params = tree_map(lambda t: t.to(self.device), params)
         self.params = lm.pack_params(cfg, params) if pack else params
         self.pool = SlotPool(slots)
         self.sessions: dict[int, Session] = {}
         self.stats = EngineStats()
+        self._key = prng.PRNGKey(seed, device=self.device)
+        self.paged = bool(paged)
         self._step_idx = 0                 # engine steps since construction
+        # host-side mirrors of the device batch (tiny, moved every step)
+        self._tokens = np.zeros((slots, 1), np.int32)
+        self._active = np.zeros((slots,), bool)
+        self._prefilling: dict[int, _PrefillProgress] = {}
+        # memoized FIFO-head prefix plan: ((rid, index generation), plan)
+        self._plan_cache: tuple[tuple[int, int], tuple] | None = None
+        self._dev_tables = None
+        if not self.paged:
+            self._widths, self._tables = {}, {}
+            self.blocks, self._prefix, self._share_cls = None, None, None
+            self._state = lm.decode_state_spec(cfg, slots, s_max,
+                                               device=self.device,
+                                               per_slot_pos=True)
+            return
         self.block_size = block_size or cfg.block_size
         self.prefill_chunk = prefill_chunk or cfg.prefill_chunk
         self._widths = lm.paged_table_widths(cfg, s_max, self.block_size,
@@ -122,16 +176,9 @@ class ServeEngine:
         # host-owned block tables, mirrored to the device on change
         self._tables = {c: np.zeros((slots, w), np.int32)
                         for c, w in self._widths.items()}
-        self._dev_tables = None
         self._state = lm.paged_decode_state_spec(
             cfg, slots, n_blocks=n_blocks, block_size=self.block_size,
             device=self.device)
-        # host-side mirrors of the device batch (tiny, moved every step)
-        self._tokens = np.zeros((slots, 1), np.int32)
-        self._active = np.zeros((slots,), bool)
-        self._prefilling: dict[int, _PrefillProgress] = {}
-        # memoized FIFO-head prefix plan: ((rid, index generation), plan)
-        self._plan_cache: tuple[tuple[int, int], tuple] | None = None
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -174,6 +221,16 @@ class ServeEngine:
         self.pool.submit(session)
         return session
 
+    def _seed_for(self, rid: int, step: int) -> int:
+        return (rid * 1_000_003 + step) % (2**31 - 1)
+
+    def _seeds(self, seeds) -> torch.Tensor | None:
+        """Sampling seeds on the device; None at temperature 0, where
+        nothing is drawn (greedy decode copies no seeds to the card)."""
+        if self.temperature <= 0.0:
+            return None
+        return self._dev(np.asarray(seeds, np.int32))
+
     def _finish(self, session: Session, reason: str) -> None:
         session.finish_reason = reason
         session.t_done = time.monotonic()
@@ -209,24 +266,183 @@ class ServeEngine:
                 self.blocks.set_cached(bid)
         self.stats.prefix_cached_blocks = len(self._prefix)
 
-    def _post_prefill(self, session: Session, slot: int, tok: int) -> None:
-        """Record the prefill-sampled token; the request joins the decode
-        batch unless it already finished."""
+    def _post_prefill(self, session: Session, slot: int, tok: int) -> bool:
+        """Record the prefill-sampled token; True when the request joins
+        the decode batch (it did not already finish)."""
         session.tokens.append(tok)
         session.t_first = time.monotonic()
         session.step_first = self._step_idx
         if self.eos_id is not None and tok == self.eos_id:
             self._finish(session, "eos")
-        elif session.request.max_new_tokens == 1:
+            return False
+        if session.request.max_new_tokens == 1:
             self._finish(session, "length")
-        else:
-            self._tokens[slot, 0] = tok
-            self._active[slot] = True
+            return False
+        self._tokens[slot, 0] = tok
+        self._active[slot] = True
+        return True
 
     @property
     def prefix_caching(self) -> bool:
         """Whether prefix sharing is effectively on for this engine."""
         return self._prefix is not None
+
+    # -- session migration ---------------------------------------------------
+
+    def _require_paged(self, what: str) -> None:
+        if not self.paged:
+            raise RuntimeError(
+                f"{what} requires the block-paged layout: the dense layout "
+                "has no per-slot block addressing to extract state through")
+
+    def export_session(self, rid: int) -> dict:
+        """A live admitted session as a flat wire tree: the slot's blocks
+        gathered through its table rows, position, generated tokens,
+        chunked-prefill progress and timing.  Leaf names and dtypes are the
+        reference's (``meta`` int64 (8,), ``times`` float64 (5,), ``tokens``
+        and ``prompt`` int32, ``state`` as :func:`lm.export_slot`, on this
+        engine's device), so either package restores the other's wire.  A
+        pure read: the slot keeps running until :meth:`release_migrated`."""
+        self._require_paged("export_session")
+        session = self.sessions[rid]
+        slot = session.slot
+        if slot is None or slot not in self.pool.active:
+            raise RuntimeError(
+                f"request {rid} is not admitted; queued sessions migrate by "
+                "resubmission, finished ones by their tokens")
+        prog = self._prefilling.get(slot)
+        rows = {c: self._dev(t[slot]) for c, t in self._tables.items()}
+        payload = lm.export_slot(self.cfg, self._state, slot, rows)
+        req = session.request
+        toks = np.zeros((req.max_new_tokens,), np.int32)
+        toks[:len(session.tokens)] = session.tokens
+        meta = np.array([
+            req.rid, req.max_new_tokens, len(session.tokens),
+            int(self._active[slot]), int(prog is not None),
+            prog.next_chunk if prog is not None else 0,
+            prog.skip if prog is not None else 0,
+            int(self._tokens[slot, 0]),
+        ], np.int64)
+
+        def _t(v):
+            return np.nan if v is None else float(v)
+        times = np.array([session.t_submit, _t(session.t_admit),
+                          _t(session.t_first), _t(session.step_first),
+                          _t(session.t_done)], np.float64)
+        return {"meta": meta, "times": times, "tokens": toks,
+                "prompt": np.asarray(req.prompt, np.int32), "state": payload}
+
+    def export_spec(self, request: Request) -> dict:
+        """The shape and dtype tree (``meta`` tensors) of
+        :meth:`export_session`'s wire for this geometry: the ``like`` tree
+        a migration checkpoint restores against — shapes come from (cfg,
+        geometry, request), never from the file."""
+        self._require_paged("export_spec")
+
+        def like(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        return {"meta": like((8,), torch.int64),
+                "times": like((5,), torch.float64),
+                "tokens": like((request.max_new_tokens,), torch.int32),
+                "prompt": like(request.prompt.shape, torch.int32),
+                "state": lm.export_slot_spec(self.cfg, self._state,
+                                             self._widths)}
+
+    def release_migrated(self, rid: int) -> None:
+        """Drop a session exported elsewhere: free its slot and blocks
+        without the finish path (no finish_reason, no t_done, no prefix
+        registration; blocks it registered as a donor stay cached)."""
+        self._require_paged("release_migrated")
+        session = self.sessions.pop(rid)
+        slot = session.slot
+        self._prefilling.pop(slot, None)
+        self.pool.evict(slot)
+        self._active[slot] = False
+        self._tokens[slot] = 0
+        if self.blocks is not None:
+            self.blocks.free(rid)
+        for t in self._tables.values():
+            t[slot, :] = 0
+        self._dev_tables = None
+        self.stats.migrations_out += 1
+
+    def import_session(self, request: Request, wire: dict) -> Session:
+        """Re-admit an exported session token-identically: seat it in a
+        free slot, allocate fresh private blocks, scatter the wire's state
+        and rebuild the host bookkeeping, mid-chunked-prefill progress
+        included.  Identity needs the source's (cfg, s_max, block_size,
+        prefill_chunk, temperature, seed); ``slots`` and ``n_blocks`` may
+        differ."""
+        self._require_paged("import_session")
+        rid = request.rid
+        if rid in self.sessions:
+            raise ValueError(f"duplicate request id {rid}")
+        meta = _host(wire["meta"])
+        if int(meta[0]) != rid:
+            raise ValueError(
+                f"wire is for request {int(meta[0])}, not {rid}")
+        if not np.array_equal(_host(wire["prompt"]), request.prompt):
+            raise ValueError(f"request {rid}: wire prompt differs from the "
+                             "submitted prompt")
+        p_len = request.prompt.shape[0]
+        if p_len + request.max_new_tokens - 1 > self.s_max:
+            raise ValueError(f"request {rid} does not fit s_max={self.s_max}")
+        if not self.pool.free_slots:
+            raise RuntimeError("import_session: no free slot")
+        per = self._blocks_per_class(p_len, request.max_new_tokens)
+        if self.blocks is not None:
+            if sum(per.values()) > self.blocks.reclaimable:
+                raise RuntimeError("import_session: not enough free blocks")
+        n_tok = int(meta[2])
+        times = _host(wire["times"])
+        session = Session(request, t_submit=float(times[0]))
+        session.tokens = [int(t) for t in _host(wire["tokens"])[:n_tok]]
+
+        def _t(v):
+            return None if np.isnan(v) else float(v)
+        session.t_admit = _t(times[1])
+        session.t_first = _t(times[2])
+        session.step_first = None if np.isnan(times[3]) else int(times[3])
+        slot = self.pool.free_slots[0]
+        self.pool.place(session, slot)
+        self.sessions[rid] = session
+        if self.blocks is not None:
+            fresh = {c: self._alloc_blocks(rid, n) for c, n in per.items()}
+            for c, ids in fresh.items():
+                row = self._tables[c][slot]
+                row[:] = 0
+                row[:len(ids)] = ids
+            self.stats.fresh_blocks += sum(len(v) for v in fresh.values())
+            self.stats.observe_blocks(self.blocks.in_use)
+        self._dev_tables = None
+        rows = {c: self._dev(t[slot]) for c, t in self._tables.items()}
+        lm.import_slot(self.cfg, self._state, slot, rows, wire["state"])
+        self._tokens[slot, 0] = int(meta[7])
+        self._active[slot] = bool(meta[3])
+        if bool(meta[4]):           # mid-chunked-prefill: rebuild progress
+            skip, next_chunk = int(meta[6]), int(meta[5])
+            c = self.prefill_chunk
+            n_suffix = p_len - skip
+            n_chunks = -(-n_suffix // c)
+            padded = np.zeros((n_chunks * c,), np.int32)
+            padded[:n_suffix] = request.prompt[skip:]
+            chain = ([] if self._prefix is None
+                     else self._prefix.chain(request.prompt))
+            self._prefilling[slot] = _PrefillProgress(
+                session=session, padded=padded, p_len=n_suffix,
+                n_chunks=n_chunks, next_chunk=next_chunk,
+                rows=self._slot_table_rows(slot),
+                seeds=self._seeds([self._seed_for(rid, 0)]), skip=skip,
+                chain=chain)
+        self.stats.migrations_in += 1
+        return session
+
+    def gather_block(self, bid: int) -> tuple:
+        """Physical block ``bid`` across every shared pool, on the engine's
+        device: the scrubber's unit of verification for idle cached
+        blocks."""
+        self._require_paged("gather_block")
+        return lm.gather_block(self.cfg, self._state, bid)
 
     # -- admission -----------------------------------------------------------
 
@@ -309,6 +525,28 @@ class ServeEngine:
         return {c: self._dev(t[slot:slot + 1]) for c, t in self._tables.items()}
 
     def _admit(self) -> None:
+        """Fill free slots from the queue: chunked prefill under the paged
+        layout, else an exact-length batch-1 prefill scattered into the
+        slot."""
+        if self.paged:
+            return self._admit_paged()
+        while self.pool.admissible():
+            session, slot = self.pool.admit()
+            req = session.request
+            session.t_admit = time.monotonic()
+            with torch.inference_mode():
+                logits, one = lm.prefill(self.cfg, self.params,
+                                         self._dev(req.prompt[None, :]),
+                                         self.s_max)
+                tok = _sample_tokens(
+                    self.cfg, logits, self._key,
+                    self._seeds([self._seed_for(req.rid, 0)]),
+                    self.temperature)
+                self.stats.prefills += 1
+                if self._post_prefill(session, slot, int(tok[0, 0])):
+                    _insert_slot(self._state, one, slot)
+
+    def _admit_paged(self) -> None:
         """Map the head's shared prefix blocks, reserve fresh blocks,
         copy-on-write the divergence block, and queue the chunked prefill
         of the unshared suffix (dispatched one chunk per step)."""
@@ -361,7 +599,9 @@ class ServeEngine:
             self._prefilling[slot] = _PrefillProgress(
                 session=session, padded=padded, p_len=n_suffix,
                 n_chunks=n_chunks, next_chunk=0,
-                rows=self._slot_table_rows(slot), skip=skip, chain=chain)
+                rows=self._slot_table_rows(slot),
+                seeds=self._seeds([self._seed_for(req.rid, 0)]), skip=skip,
+                chain=chain)
             self.stats.prefills += 1
 
     def _register_upto(self, prog: _PrefillProgress, slot: int,
@@ -399,8 +639,9 @@ class ServeEngine:
                 self._register_upto(prog, slot, done // self.block_size)
             if prog.next_chunk == prog.n_chunks:
                 del self._prefilling[slot]
-                tok = int(_greedy(self.cfg, logits)[0, 0])
-                self._post_prefill(prog.session, slot, tok)
+                tok = _sample_tokens(self.cfg, logits, self._key, prog.seeds,
+                                     self.temperature)
+                self._post_prefill(prog.session, slot, int(tok[0, 0]))
 
     def _device_tables(self) -> dict:
         if self._dev_tables is None:
@@ -414,13 +655,25 @@ class ServeEngine:
         inertly (their writes go to the trash block)."""
         active_sessions = {s: sess for s, sess in self.pool.active.items()
                            if s not in self._prefilling}
-        logits, self._state = lm.paged_decode_step(
-            self.cfg, self.params, self._dev(self._tokens), self._state,
-            self._device_tables(), active=self._dev(self._active))
-        if self.blocks is not None:
-            self.stats.observe_blocks(self.blocks.in_use)
+        seeds = None
+        if self.temperature > 0.0:
+            seeds = np.zeros((self.slots,), np.int32)
+            for slot, sess in active_sessions.items():
+                seeds[slot] = self._seed_for(sess.request.rid,
+                                             len(sess.tokens))
+        tokens, active = self._dev(self._tokens), self._dev(self._active)
+        if self.paged:
+            logits, self._state = lm.paged_decode_step(
+                self.cfg, self.params, tokens, self._state,
+                self._device_tables(), active=active)
+            if self.blocks is not None:
+                self.stats.observe_blocks(self.blocks.in_use)
+        else:
+            logits, self._state = lm.decode_step(
+                self.cfg, self.params, tokens, self._state, active=active)
         self.stats.decode_steps += 1
-        toks = _greedy(self.cfg, logits).cpu().numpy()  # the per-step sync
+        toks = _sample_tokens(self.cfg, logits, self._key, self._seeds(seeds),
+                              self.temperature).cpu().numpy()  # step's sync
         for slot, sess in active_sessions.items():
             t = int(toks[slot, 0])
             sess.tokens.append(t)

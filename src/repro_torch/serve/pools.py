@@ -45,6 +45,12 @@ class SlotPool:
         """The session the next admit() would pop (FIFO head), or None."""
         return self._queue[0] if self._queue else None
 
+    def drain_queue(self) -> list[Session]:
+        """Remove and return every queued (not yet admitted) session: the
+        router's kill drill resubmits these to surviving replicas."""
+        out = list(self._queue)
+        self._queue.clear()
+        return out
 
     # -- slot side -----------------------------------------------------------
 
@@ -71,6 +77,15 @@ class SlotPool:
         self._active[slot] = session
         return session, slot
 
+    def place(self, session: Session, slot: int) -> None:
+        """Seat a session directly in a specific free slot, bypassing the
+        queue: a migration import lands the session in the slot its state
+        was scattered into."""
+        if slot not in self._free:
+            raise RuntimeError(f"place({slot}): slot is not free")
+        self._free.remove(slot)
+        session.slot = slot
+        self._active[slot] = session
 
     def evict(self, slot: int) -> Session:
         """Free a slot; its session leaves the active set."""
@@ -171,6 +186,13 @@ class BlockPool:
         """True when ``bid`` sits in the idle tier (cached, no holder) —
         evictable now, but not after a :meth:`share` revives it."""
         return bid in self._idle
+
+    def idle_stamp(self, bid: int) -> int | None:
+        """The logical-clock stamp of ``bid``'s current stay in the idle
+        tier (None if not idle).  Strictly increasing across stays: the
+        integrity scrubber keys its baselines on (bid, stamp), so a block
+        revived, rewritten and re-idled is re-baselined, not flagged."""
+        return self._idle.get(bid)
 
 
     def alloc(self, rid: int, n: int) -> list[int]:

@@ -1,8 +1,10 @@
-"""Serve-side counters and run reports (DESIGN.md §13–§15).
+"""Serve-side counters and run reports (DESIGN.md §13–§15, §17).
 
 :class:`EngineStats` is the per-engine counter block (steps, chunks,
-block-pool occupancy, prefix-cache outcomes); :class:`ServeReport` is the
-per-run outcome of :meth:`ServeEngine.run`.  Both are plain host data.
+block-pool occupancy, prefix-cache, migration and integrity-scrub
+outcomes); :class:`ServeReport` is the per-run outcome of
+:meth:`ServeEngine.run`.  Both are plain host data, so the router can
+aggregate them across replicas.
 """
 
 from __future__ import annotations
@@ -35,6 +37,15 @@ class EngineStats:
     fresh_blocks: int = 0           # blocks newly allocated at admission
     prefix_evictions: int = 0       # cached blocks reclaimed under pressure
     prefix_cached_blocks: int = 0   # current index size (registered blocks)
+    # session migration (zero outside the replicated tier)
+    migrations_out: int = 0         # sessions exported off this engine
+    migrations_in: int = 0          # sessions imported into this engine
+    # integrity scrubbing: DigestCache passes over the resident packed
+    # weights and idle cached KV blocks, and the mismatches found
+    scrub_passes: int = 0
+    scrub_weight_leaves: int = 0    # param leaves verified, cumulative
+    scrub_idle_blocks: int = 0      # idle cached blocks verified, cumulative
+    scrub_corruptions: int = 0      # digest mismatches against the baseline
     _block_sum: int = 0
     _block_samples: int = 0
 

@@ -10,7 +10,8 @@ the JAX reference's ``flash_attention_ref`` within 2e-5.
 
 ``paged_attn.split_plan`` cuts a table's W columns into the kernel's
 splits from shapes alone: every column exactly once, never more splits
-than columns, and no position among its inputs.  ``paged_attn.live_columns``
+than columns, and neither a position nor the batch size among its inputs
+(a slot's rows are the same bits at any batch size).  ``paged_attn.live_columns``
 is the kernel's O(1) dead-column rule, held against the reference kernel's
 ``any(valid)`` over each column's keys.  The paged decode through the split
 plan (``paged_attn.split_reference``), merged, equals the JAX reference's
@@ -97,26 +98,30 @@ def test_merge_weighs_dead_parts_nothing(n_parts):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("bkv,sms", [(1, 132), (16, 132), (28, 132),
-                                     (112, 132), (2048, 132), (16, 1),
-                                     (3, 7), (1000, 114)])
-def test_split_plan_covers_every_column_once(bkv, sms):
+@pytest.mark.parametrize("kv,sms", [(1, 132), (16, 132), (28, 132),
+                                    (112, 132), (2048, 132), (16, 1),
+                                    (3, 7), (1000, 114)])
+def test_split_plan_covers_every_column_once(kv, sms):
     for w in range(1, 4097):
-        n, cols = kpaged.split_plan(w, bkv, sms)
+        n, cols = kpaged.split_plan(w, kv, sms)
         assert 1 <= n <= w and cols >= 1
         ranges = [(i * cols, min(w, (i + 1) * cols)) for i in range(n)]
         assert all(b > a for a, b in ranges), (w, n, cols)     # none empty
         assert ranges[0][0] == 0 and ranges[-1][1] == w
         assert all(ranges[i][1] == ranges[i + 1][0] for i in range(n - 1))
-        assert n * bkv <= max(kpaged.BLOCKS_PER_SM * sms, bkv) + bkv
+        assert n * kpaged.PLAN_SLOTS * kv <= \
+            max(kpaged.BLOCKS_PER_SM * sms, kpaged.PLAN_SLOTS * kv) + \
+            kpaged.PLAN_SLOTS * kv
 
 
 def test_split_plan_reads_no_positions():
+    """Nor the batch: the plan sizes the grid for ``PLAN_SLOTS`` slots."""
     assert list(inspect.signature(kpaged.split_plan).parameters) == [
-        "w", "bkv", "sms"]
-    # the serving and long-context shapes of chip_smoke.py on 132 SMs
-    assert kpaged.split_plan(8, 16, 132) == (8, 1)
-    assert kpaged.split_plan(2048, 16, 132) == (25, 82)
+        "w", "kv", "sms"]
+    # qwen2-7b's 4 KV heads at the serving and long-context tables of
+    # chip_smoke.py on 132 SMs
+    assert kpaged.split_plan(8, 4, 132) == (8, 1)
+    assert kpaged.split_plan(2048, 4, 132) == (25, 82)
 
 
 def _valid_np(pos, w, bs, window):
@@ -167,3 +172,23 @@ def test_split_paged_decode_equals_the_reference(window, pos, sms):
     plain = ref.paged_decode(*(torch.from_numpy(a) for a in (
         q, ck, cv, table, pos_np)), **kw)
     torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("w", [8, 32, 300])
+def test_split_rows_do_not_depend_on_the_batch(w):
+    """Slots 0-1 of a 4-slot split walk equal a 2-slot walk's bitwise
+    (f32), so a session moved between engines of other ``slots`` meets
+    the same merge order."""
+    rng = np.random.default_rng(w)
+    kv, g, dh, bs = 2, 3, 16, 4
+    q = torch.from_numpy(rng.standard_normal((4, kv, g, dh))
+                         .astype(np.float32))
+    ck, cv = (torch.from_numpy(rng.standard_normal((1 + 4 * w, kv, bs, dh))
+                               .astype(np.float32)) for _ in range(2))
+    table = torch.from_numpy((rng.permutation(4 * w).reshape(4, w) + 1)
+                             .astype(np.int32))
+    pos = torch.tensor([w * bs - 1, 5, w * bs // 2, 0], dtype=torch.int32)
+    kw = dict(scale=dh ** -0.5, sms=132)
+    four = kpaged.split_reference(q, ck, cv, table, pos, **kw)
+    two = kpaged.split_reference(q[:2], ck, cv, table[:2], pos[:2], **kw)
+    assert torch.equal(four[:2], two)

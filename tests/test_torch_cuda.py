@@ -177,7 +177,7 @@ def test_cuda_paged_decode_merge(gpu, dtype, tol, window, pos):
             torch.from_numpy(table).to(gpu),
             torch.tensor(pos, dtype=torch.int32, device=gpu))
     sms = torch.cuda.get_device_properties(gpu).multi_processor_count
-    n_split, _ = kpaged.split_plan(64, 16, sms)
+    n_split, _ = kpaged.split_plan(64, 4, sms)
     assert n_split > 1
     got = kpaged.paged_decode_attention(*args, window=window, scale=scale,
                                         out_scale=out_scale)
@@ -187,6 +187,33 @@ def test_cuda_paged_decode_merge(gpu, dtype, tol, window, pos):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
                                atol=tol[1])
     assert int(kpaged._tickets[gpu.index or 0][:16].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [8, 32, 2048])
+def test_cuda_paged_decode_rows_do_not_depend_on_the_batch(gpu, w, dtype):
+    """Slots 0-1 of a 4-slot launch equal a 2-slot launch's bitwise: the
+    split plan reads no batch size, so a session migrated between engines
+    of other ``slots`` keeps its bits."""
+    b, kv, g, dh, bs = 4, 4, 7, 128, 16
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(w)
+    q = torch.randn((b, kv, g, dh), generator=gen, device=gpu).to(dtype)
+    ck, cv = (torch.randn((1 + b * w, kv, bs, dh), generator=gen,
+                          device=gpu).to(dtype) for _ in range(2))
+    table = (torch.randperm(b * w, generator=gen, device=gpu).reshape(b, w)
+             + 1).to(torch.int32)
+    pos = torch.tensor([w * bs - 1, 17, w * bs // 2, 3], dtype=torch.int32,
+                       device=gpu)
+    four = kpaged.paged_decode_attention(q, ck, cv, table, pos,
+                                         scale=dh ** -0.5)
+    two = kpaged.paged_decode_attention(q[:2].contiguous(), ck, cv,
+                                        table[:2].contiguous(),
+                                        pos[:2].contiguous(),
+                                        scale=dh ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(four[:2], two)
 
 
 @pytest.mark.cuda
@@ -204,7 +231,7 @@ def test_cuda_paged_decode_long_ring_with_dead_splits(gpu):
     pos = torch.tensor([45, 32767, 40000, 100000], dtype=torch.int32,
                        device=gpu)
     sms = torch.cuda.get_device_properties(gpu).multi_processor_count
-    n_split, cols = kpaged.split_plan(w, b * kv, sms)
+    n_split, cols = kpaged.split_plan(w, kv, sms)
     live = kpaged.live_columns(pos, w, bs, window).cpu()
     dead = [i for i in range(n_split)
             if not live[:, i * cols:(i + 1) * cols].any()]
@@ -394,3 +421,122 @@ def test_cuda_checkpoint_defaults_to_the_card(gpu, tmp_path, root_key):
     for a, b in zip((got["w"], *got["b"]), (tree["w"], *tree["b"])):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card: sampling, migration, the router
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_prng_equals_cpu(gpu):
+    """The threefry twin on the card: bits and uniforms bitwise equal to
+    the CPU's; gumbel within two ulps of max(|g|, 1) (the card's log)."""
+    from repro_torch.core import prng
+
+    seeds = torch.tensor([0, 7, 2**31 - 2, 1_000_003])
+    for dev_key, cpu_key in ((prng.fold_in(prng.PRNGKey(3, gpu), seeds.to(gpu)),
+                              prng.fold_in(prng.PRNGKey(3), seeds)),):
+        assert torch.equal(dev_key.cpu(), cpu_key)
+        for shape in [(5,), (3, 152064)]:
+            assert torch.equal(prng.bits(dev_key, shape).cpu(),
+                               prng.bits(cpu_key, shape))
+            assert torch.equal(prng.uniform(dev_key, shape).cpu(),
+                               prng.uniform(cpu_key, shape))
+        g, c = prng.gumbel(dev_key, (4096,)).cpu(), prng.gumbel(cpu_key,
+                                                                 (4096,))
+        ulp = torch.from_numpy(np.spacing(
+            np.maximum(c.abs().numpy(), 1).astype(np.float32)))
+        assert torch.all((g - c).abs() <= 2 * ulp)
+
+
+def _smoke_serving(gpu, dtype=torch.bfloat16):
+    import repro_torch.configs as configs
+    from repro_torch.models import lm
+    from repro_torch.serve import synthetic_trace
+
+    cfg = configs.get("qwen2-7b+xnor").smoke(dtype=dtype)
+    params = lm.init_params(cfg, 0, device=gpu)
+    trace = synthetic_trace(6, cfg.vocab, seed=3, prompt_lens=(6, 11, 17),
+                            new_tokens=(5, 9))
+    return cfg, params, trace
+
+
+def _run_engine(eng, trace):
+    for r in trace:
+        eng.submit(r)
+    rep = eng.run()
+    return {r.rid: rep.tokens(r.rid).tolist() for r in trace}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dst_slots", [4, 2])
+def test_cuda_migration_identity(gpu, tmp_path, dst_slots):
+    """On the card, bf16, packed, T = 0.8: a session exported mid-decode
+    from a 4-slot engine through an encrypted checkpoint (digests and
+    cipher on the card) finishes in a ``dst_slots``-slot engine with the
+    never-migrated tokens; the 2-slot case changes the batch the
+    destination's kernels see."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.serve import ServeEngine
+
+    cfg, params, trace = _smoke_serving(gpu)
+    kw = dict(s_max=48, temperature=0.8, seed=0, device=gpu)
+    want = _run_engine(ServeEngine(cfg, params, slots=4, **kw), trace)
+    a = ServeEngine(cfg, params, slots=4, **kw)
+    for r in trace:
+        a.submit(r)
+    sess = None
+    for _ in range(12):
+        a.step()
+        live = [s for slot, s in a.pool.active.items()
+                if s.tokens and not s.done and slot not in a._prefilling]
+        if live:
+            sess = live[0]
+            break
+    assert sess is not None
+    rid = sess.request.rid
+    b = ServeEngine(cfg, params, slots=dst_slots, **kw)
+    kparity.parity_digest.launches = 0
+    kcipher.xor_cipher.launches = 0
+    d = str(tmp_path / "wire")
+    ckpt.save(d, 1, a.export_session(rid), root_key="k")
+    restored, _ = ckpt.restore(d, 1, b.export_spec(sess.request),
+                               root_key="k")
+    assert restored["state"]["segs"][0][0].k.device.type == "cuda"
+    b.import_session(sess.request, restored)
+    a.release_migrated(rid)
+    assert kparity.parity_digest.launches > 0
+    assert kcipher.xor_cipher.launches > 0
+    rep_a, rep_b = a.run(), b.run()
+    got = {r.rid: (rep_b if r.rid == rid else rep_a).tokens(r.rid).tolist()
+           for r in trace}
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_cuda_router_kill_drill(gpu, tmp_path):
+    """Two replicas sharing the card, the kill drill at router step 3:
+    every request finishes with the single engine's tokens, at least one
+    session migrated, the scrubber covered the packed weights and found
+    nothing; one flipped weight word is then exactly one corruption."""
+    from repro_torch.serve import Router, ServeEngine
+
+    cfg, params, trace = _smoke_serving(gpu)
+    kw = dict(slots=2, s_max=48, temperature=0.8, seed=0)
+    want = _run_engine(ServeEngine(cfg, params, device=gpu, **kw), trace)
+    router = Router(cfg, params, 2, ckpt_dir=str(tmp_path), epoch_steps=2,
+                    **kw)
+    assert [h.device.type for h in router.replicas] == ["cuda", "cuda"]
+    for r in trace:
+        router.submit(r)
+    rep = router.run(kill_at=3)
+    assert all(s.done for s in rep.sessions.values())
+    assert {rid: rep.tokens(rid).tolist() for rid in want} == want
+    assert rep.migrations and rep.scrub_corruptions == 0
+    assert sum(r.scrub_weight_leaves for r in rep.replicas) > 0
+    alive = [h for h in router.replicas if h.alive]
+    pb = alive[0].engine.params["seg0_attn"]["ffn_w1"].pb
+    assert router.scrub() == 0
+    pb.view(-1)[0] ^= 1
+    assert router.scrub() == 1

@@ -152,12 +152,14 @@ def test_prefix_cache_off_same_tokens(setup):
 
 
 def test_engine_rejects_unported_modes(setup):
+    """Modality context (vlm / enc-dec archs) is not ported: a request
+    carrying one is refused (temperature > 0 is ported now)."""
     cfg, tp, _, _ = setup
-    with pytest.raises(NotImplementedError):
-        ServeEngine(cfg, tp, slots=1, s_max=16, temperature=0.7,
-                    device="cpu")
     eng = ServeEngine(cfg, tp, slots=1, s_max=16, device="cpu")
     from repro_torch.serve import Request
+    with pytest.raises(NotImplementedError):
+        eng.submit(Request(rid=1, prompt=np.arange(3), max_new_tokens=2,
+                           ctx=np.zeros((2, cfg.d_model), np.float32)))
     with pytest.raises(ValueError):         # does not fit s_max
         eng.submit(Request(rid=0, prompt=np.arange(12), max_new_tokens=8))
 
