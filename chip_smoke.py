@@ -2,8 +2,10 @@
 """Chip smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # the run below
-    python3 chip_smoke.py --path-readings    # the readings behind the
-                                             # limits of check_paths
+    python3 chip_smoke.py --path-readings [ARCH]   # the readings behind
+                                             # the limits of check_paths
+                                             # (qwen2-7b+xnor by default,
+                                             # or recurrentgemma-2b+xnor)
     python3 chip_smoke.py --paged-plans      # paged decode at W 2048, the
                                              # fixed split plan against a
                                              # batch-sized one, B 1 to 32
@@ -36,7 +38,15 @@ Phases (any failure raises and the script exits non-zero):
    decode step's 196 fused linears (7 a layer x 28) timed as one CUDA
    graph beside their byte bound.  Times come from CUDA events over many
    launches, rotating through enough input copies to exceed the 50 MB L2
-   cache where the path finds its data cold.
+   cache where the path finds its data cold.  The other ported archs
+   (``other_arch_kernels``): the fused linear at recurrentgemma-2b's,
+   phi4-mini's and qwen3-14b's shapes, M 4 and 32, bitwise in the
+   kernel's order, and one recurrentgemma decode step's 200 fused linears
+   as a CUDA graph; paged decode at recurrentgemma's local geometry (B 4,
+   KV 1, G 10, dh 256, bs 16, a 130-column ring at window 2048) in bf16,
+   f32 and int8, held and timed against its byte bound, SDPA on gathered
+   K/V and the plain version, at G 9-16 x dh 256, and at phi4-mini's and
+   qwen3-14b's geometry.
 3. The serving slice: full-width, full-depth qwen2-7b+xnor in bf16, random
    weights from a seeded generator on the card, packed at load by the pack
    kernel, served by a 4-slot ServeEngine (s_max 128) over 8 requests of
@@ -59,6 +69,18 @@ Phases (any failure raises and the script exits non-zero):
    paged decode launch, the first 28 of each shape of the others), but
    for one timed run each of the engine and the Router, which must repeat
    the held runs' tokens at shapes that were held.
+3c. RecurrentGemma (``recurrent_serving``): full-width, full-depth
+   recurrentgemma-2b+xnor (18 rglru + 8 local layers) in bf16, packed at
+   load, a 4-slot paged ServeEngine (block 16, chunk 32, prefix caching
+   off) over phase 3's 8 requests and one of 2,100 prompt tokens, which
+   wraps the 2,048-token window ring.  Every launch of pack, the fused
+   linear and paged decode in one run held against its plain version at
+   every shape (``LaunchHolds``), an unheld timed run repeating its
+   tokens (tok/s, TTFT, peak memory, 200 + 8 launches per decode step);
+   the long session migrated mid-decode 4 -> 2 slots through an encrypted
+   wire (ring blocks, f32 ``h``, bf16 conv buffer) keeping its tokens;
+   ``check_paths`` in bf16 at this arch's limits and f32, with the
+   one-ulp-up control failing; f32 dense = paged on the short requests.
 4. The integer chain at checkpoint scale: the same seeded 7.6 B-parameter
    bf16 tree (15.2 GB), leaf by leaf through one CimEngine — digest,
    encrypt, decrypt, verify_copy of the decrypted leaf against the
@@ -80,8 +102,9 @@ Phases (any failure raises and the script exits non-zero):
    full, through ``flash_attention`` (its own entry; the model's prefill
    does not call it, as in the reference); held against the one-shot
    plain version on 2 heads within one bf16 ulp, timed against SDPA.
-7. The checkpoint layer on the card through one CimEngine, over the full
-   28-layer bf16 qwen2-7b tree (15.2 GB): an encrypted, write-verified
+7. The checkpoint layer on the card through one CimEngine, over the bf16
+   qwen2-7b tree at full width, cut to 16 of its 28 layers (9.6 GB, to
+   keep the script near 400 s): an encrypted, write-verified
    save; one leaf changed in place and a delta saved with a primed
    DigestCache (exactly that leaf stored); ``check`` of both steps; one
    byte of a member flipped inside a valid container (``check`` names
@@ -578,6 +601,224 @@ def paged_plans(gpu: str, batches=(1, 4, 16, 32)) -> None:
         torch.cuda.empty_cache()
 
 
+# the other ported archs' linear shapes (N, K), in launch order per kind
+OTHER_LINEARS = {
+    "recurrentgemma-2b": {"d x d": (2560, 2560), "wk/wv": (256, 2560),
+                          "w1/w3": (7680, 2560), "w2": (2560, 7680)},
+    "phi4-mini-3.8b": {"d x d": (3072, 3072), "wk/wv": (1024, 3072),
+                       "w1/w3": (8192, 3072), "w2": (3072, 8192)},
+    "qwen3-14b": {"d x d": (5120, 5120), "wk/wv": (1024, 5120),
+                  "w1/w3": (17408, 5120), "w2": (5120, 17408)}}
+RG_SHAPE = {"w_gate": "d x d", "w_x": "d x d", "w_r": "d x d",
+            "w_i": "d x d", "w_out": "d x d", "wq": "d x d", "wo": "d x d",
+            "wk": "wk/wv", "wv": "wk/wv", "w1": "w1/w3", "w3": "w1/w3",
+            "w2": "w2"}
+# recurrentgemma-2b's local attention at decode: B 4, KV 1, G 10, dh 256,
+# bs 16, a 130-column ring (window 2048 + a 32-token chunk - 1)
+RG_PAGED = dict(b=4, kv=1, g=10, dh=256, bs=16, w=130, window=2048)
+
+
+def other_arch_kernels(gpu: str) -> dict:
+    """Phase 2 for the archs beside qwen2-7b: the fused linear at each of
+    recurrentgemma-2b's, phi4-mini's and qwen3-14b's shapes, M 4 and 32,
+    bitwise in the kernel's order (recurrentgemma's timed at M 4 beside
+    its byte bound), and one recurrentgemma decode step's 200 fused
+    linears as one CUDA graph; paged decode at recurrentgemma's local
+    geometry in bf16, f32 and int8 (held, timed past L2 against its byte
+    bound, SDPA on K/V already gathered and the plain version), at G 9-16
+    x dh 256 (bf16, f32, int8; monotone and ring), and at phi4-mini's and
+    qwen3-14b's decode geometry.  -> the recurrentgemma paged decode
+    reading."""
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.configs as configs
+    from repro_torch.core import xnor_layers
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import paged_attn as kpaged
+    from repro_torch.kernels import xnor_gemm as kxnor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 18)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def both(fn, *args, **kw):
+        k = fn(*args, **kw)
+        with cuda.plain_reference():
+            p = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return k, p
+
+    # -- the fused linear at the other archs' shapes -------------------------
+    for arch, shapes in OTHER_LINEARS.items():
+        row = {}
+        for name, (n, k) in shapes.items():
+            pb, beta = xnor_layers.pack_weights(randn(n, k,
+                                                      dtype=torch.bfloat16))
+            for m in (4, 32):
+                for dt in (torch.float32, torch.bfloat16):
+                    x = randn(m, k, dtype=dt)
+                    kk, pp = both(kxnor.xnor_linear_fused, x, pb, beta, k)
+                    assert torch.equal(kk, kxnor.linear_kernel_order(
+                        x, pb, beta, k)), f"{arch} {name} M={m} {dt}"
+                    f32 = dt == torch.float32
+                    torch.testing.assert_close(
+                        kk, pp, rtol=2e-5 if f32 else 2 ** -8,
+                        atol=2e-5 if f32 else 1e-6)
+            if arch == "recurrentgemma-2b":
+                kw = pb.shape[1]
+                nbytes = 4 * k * 2 + n * kw * 4 + n * 4 + 4 * n * 2
+                sets = copies(lambda: (randn(4, k, dtype=torch.bfloat16),
+                                       *xnor_layers.pack_weights(
+                                           randn(n, k, dtype=torch.bfloat16)),
+                                       k), n * kw * 4)
+                ms = time_ms(kxnor.xnor_linear_fused, sets, 200)
+                b_ms, b_by = bound(nbytes, 2 * 4 * n * k, "int8")
+                row[name] = dict(N=n, K=k, ms=ms, bound_ms=b_ms)
+                del sets
+        print(f"[xnor_linear_fused {arch}] held bitwise in the kernel's "
+              f"order at {list(shapes.values())} (N, K), M 4 and 32, f32 "
+              f"and bf16" + (f"; bf16 M=4 timings {json.dumps(row)}"
+                             if row else "") + f"  [{gpu}]")
+
+    # one recurrentgemma decode step: 18 rglru layers x 8 linears and 8
+    # local layers x 7, each layer its own weights, M = 4, one CUDA graph
+    cfg = configs.get("recurrentgemma-2b+xnor")
+    calls, nbytes = [], 0
+    for kind in cfg.layer_kinds():
+        for lin in KIND_LINEARS[kind]:
+            n, k = OTHER_LINEARS["recurrentgemma-2b"][RG_SHAPE[lin]]
+            pb, beta = xnor_layers.pack_weights(
+                randn(n, k, dtype=torch.bfloat16))
+            calls.append((randn(4, k, dtype=torch.bfloat16), pb, beta, k))
+            nbytes += 4 * k * 2 + pb.numel() * 4 + n * 4 + 4 * n * 2
+    assert len(calls) == 200, len(calls)
+    step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[xnor_linear_fused recurrentgemma decode step] {len(calls)} "
+          f"launches (8 a rglru layer x 18, 7 a local layer x 8, M = 4) in "
+          f"one CUDA graph: {step} ms, bound {b_ms} ms ({step / b_ms} x)  "
+          f"[{gpu}]")
+    del calls
+    torch.cuda.empty_cache()
+
+    # -- paged decode ----------------------------------------------------------
+    def case(b, kv, gq, dh, bs, w, dtype, i8):
+        q = randn(b, kv, gq, dh, dtype=dtype)
+        ck, cv = randn(1 + b * w, kv, bs, dh), randn(1 + b * w, kv, bs, dh)
+        if i8:
+            ck = torch.clamp(torch.round(ck * 32), -127, 127).to(torch.int8)
+            cv = torch.clamp(torch.round(cv * 32), -127, 127).to(torch.int8)
+        else:
+            ck, cv = ck.to(dtype), cv.to(dtype)
+        table = (torch.randperm(b * w, generator=g, device=dev) + 1
+                 ).reshape(b, w).to(torch.int32)
+        return q, ck, cv, table
+
+    def held(args, window, i8, dtype):
+        dh = args[0].shape[-1]
+        sc, osc = ((dh ** -0.5) / 32, 1 / 32) if i8 else (dh ** -0.5, 1.0)
+        kk, pp = both(kpaged.paged_decode_attention, *args, window=window,
+                      scale=sc, out_scale=osc)
+        rtol, atol = FLASH_TOL[str(dtype)[6:]]
+        torch.testing.assert_close(kk.float(), pp.float(), rtol=rtol,
+                                   atol=atol)
+        return (kk.float() - pp.float()).abs().max().item()
+
+    r = RG_PAGED
+    pos = torch.tensor([2099, 4000, 2047, 700], dtype=torch.int32, device=dev)
+    errs = {}
+    for dtype, i8 in ((torch.bfloat16, False), (torch.float32, False),
+                      (torch.bfloat16, True)):
+        args = (*case(r["b"], r["kv"], r["g"], r["dh"], r["bs"], r["w"],
+                      dtype, i8), pos)
+        errs[f"{str(dtype)[6:]}{' int8' if i8 else ''}"] = held(
+            args, r["window"], i8, dtype)
+    edges = {}
+    for gq in range(9, 17):
+        for dtype, i8 in ((torch.bfloat16, False), (torch.float32, False),
+                          (torch.bfloat16, True)):
+            for w, window, p in ((8, 0, [127, 0, 64, 17]),
+                                 (130, 2048, [2099, 3000, 45, 2048])):
+                args = (*case(4, 1, gq, 256, 16, w, dtype, i8),
+                        torch.tensor(p, dtype=torch.int32, device=dev))
+                edges[gq] = max(edges.get(gq, 0.0),
+                                held(args, window, i8, dtype))
+    others = {}
+    for arch in ("phi4-mini-3.8b", "qwen3-14b"):
+        c = configs.get(arch)
+        for dtype in (torch.bfloat16, torch.float32):
+            args = (*case(4, c.n_kv_heads, c.q_per_kv, c.d_head, 16, 16,
+                          dtype, False),
+                    torch.tensor([255, 100, 17, 0], dtype=torch.int32,
+                                 device=dev))
+            others[f"{arch} {str(dtype)[6:]}"] = held(args, 0, False, dtype)
+    print(f"[paged_decode_attention recurrentgemma] B={r['b']} KV={r['kv']} "
+          f"G={r['g']} dh={r['dh']} bs={r['bs']} W={r['w']} window "
+          f"{r['window']} pos {pos.tolist()}: max abs err against the plain "
+          f"version {errs}; G 9-16 x dh 256 edges (bf16, f32, int8; "
+          f"monotone W 8 and ring W 130) {edges}; phi4-mini / qwen3-14b "
+          f"geometry {others}  [{gpu}]")
+
+    # timed in bf16 over input sets rotated past L2 (each layer's pool is
+    # cold on the serving path), beside the byte bound, SDPA on K/V already
+    # gathered (the window mask; the gather is not timed) and the plain one
+    b, kv, gq, dh, bs, w = (r[k] for k in ("b", "kv", "g", "dh", "bs", "w"))
+    cap = w * bs
+    live = kpaged.live_columns(pos, w, bs, r["window"])
+    kslot = torch.arange(cap, device=dev)[None]
+    age = torch.remainder(torch.remainder(pos.long()[:, None], cap) - kslot,
+                          cap)
+    valid = age < torch.clamp(pos.long()[:, None] + 1, max=r["window"])
+    keys = int(valid.sum())
+    out = {}
+    for dtype, i8 in ((torch.bfloat16, False), (torch.float32, False),
+                      (torch.bfloat16, True)):
+        item = 1 if i8 else dtype.itemsize
+        qb = dtype.itemsize
+        per_set = b * kv * gq * dh * qb + 2 * (1 + b * w) * kv * bs * dh * item
+        sets = copies(lambda: (*case(b, kv, gq, dh, bs, w, dtype, i8), pos),
+                      per_set)
+        sc, osc = ((dh ** -0.5) / 32, 1 / 32) if i8 else (dh ** -0.5, 1.0)
+
+        def run(*a, sc=sc, osc=osc):
+            return kpaged.paged_decode_attention(*a, window=r["window"],
+                                                 scale=sc, out_scale=osc)
+        ms = time_ms(run, sets, 200)
+        with cuda.plain_reference():
+            plain = time_ms(run, sets[:2], 10, 2)
+        nbytes = (2 * b * kv * gq * dh * qb
+                  + int(live.sum()) * kv * 2 * bs * dh * item
+                  + b * w * 4 + b * 4)
+        b_ms, b_by = bound(nbytes, 4 * kv * gq * dh * keys,
+                           "bf16" if dtype == torch.bfloat16 else "f32")
+        lib = None
+        if not i8:
+            mask = valid[:, None, None, :]
+
+            def gathered(q, ck, cv, table, _):
+                idx = table.long()
+                return (q, ck[idx].permute(0, 2, 1, 3, 4).reshape(
+                    b, kv, cap, dh), cv[idx].permute(0, 2, 1, 3, 4).reshape(
+                    b, kv, cap, dh), mask)
+            lib = time_ms(lambda a, b_, c, m: F.scaled_dot_product_attention(
+                a, b_, c, attn_mask=m),
+                [gathered(*x) for x in sets], 200)
+        label = f"{str(dtype)[6:]}{' int8 pools' if i8 else ''}"
+        out[label] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib)
+        print(f"[paged_decode_attention recurrentgemma {label}] {len(sets)} "
+              f"input sets rotated: {ms} ms, plain {plain} ms, SDPA on "
+              f"pre-gathered K/V {lib} ms, bound {b_ms} ms ({b_by}), "
+              f"{keys} live keys in {int(live.sum())} live columns  [{gpu}]")
+        del sets
+        torch.cuda.empty_cache()
+    return dict(out["bfloat16"], max_abs_err=errs["bfloat16"])
+
+
 LEAF_WORDS = 28 * 3584 * 3584 // 2   # a layer-stacked wq leaf, bf16 words
 def c_gemm_plan(m: int, n: int, kw: int) -> list:
     """The plan ``csrc/xnor_gemm.cu`` launches for these shapes."""
@@ -954,7 +1195,7 @@ class LaunchHolds:
         finally:
             self.active = True
 
-    def check(self, gpu: str) -> None:
+    def check(self, gpu: str, label: str = "tier") -> None:
         """Print what was held; fail unless every shape launched unheld was
         also held."""
         for name in self.sites:
@@ -962,7 +1203,7 @@ class LaunchHolds:
             n = sum(v for k, v in self.held.items() if k[0] == name)
             shown = "" if name in ("parity_digest", "xor_cipher") else \
                 f"; shapes {keys}"
-            print(f"[tier] held against the plain version: {name}, {n} "
+            print(f"[{label}] held against the plain version: {name}, {n} "
                   f"launches at {len(keys)} shapes, max abs err "
                   f"{self.worst.get(name)}{shown}  [{gpu}]")
         missing = self.unheld - set(self.held)
@@ -1241,6 +1482,231 @@ def tier_runs(gpu: str, holds: LaunchHolds) -> dict:
     free()
     print(f"[tier] device memory still allocated after the phase "
           f"{torch.cuda.memory_allocated() / 2**30} GiB  [{gpu}]")
+    return launches
+
+
+def recurrent_trace(vocab: int) -> list:
+    """Phase 3c's trace: phase 3's 8 requests, then one of a 2,100-token
+    prompt and 16 new tokens, which wraps the 2,048-token window ring."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    long_ = np.random.default_rng([SEED, 0x2100]).integers(
+        0, vocab, size=2100).astype(np.int32)
+    return slice_trace(vocab) + [Request(8, long_, 16)]
+
+
+def migrate(cfg, params, trace, want, geom, directory, gpu) -> None:
+    """Phase 3c's migration: request 8 (2,100 prompt tokens) exported
+    after 4 decoded tokens from a 4-slot engine, saved encrypted,
+    restored against a 2-slot engine's spec and imported there; both
+    engines finish, and every request keeps ``want``'s tokens.  Prints
+    the wire's leaves, its bytes and the ms from export to import."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.serve import ServeEngine
+
+    a = ServeEngine(cfg, params, device="cuda", **geom)
+    for r in trace:
+        a.submit(r)
+    long_ = a.sessions[8]
+    while len(long_.tokens) < 4:
+        assert a.step(), "the long request never reached decode"
+    b = ServeEngine(cfg, params, device="cuda", **dict(geom, slots=2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wire = a.export_session(8)
+    ckpt.save(str(directory), 1, wire, root_key=ROOT_KEY)
+    restored, _ = ckpt.restore(str(directory), 1,
+                               b.export_spec(long_.request),
+                               root_key=ROOT_KEY)
+    b.import_session(long_.request, restored)
+    a.release_migrated(8)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    segs = wire["state"]["segs"]
+    leaves = {"h": {str(x[1][0].h.dtype) for x in segs if x[1] is not None},
+              "conv": {str(x[1][1].dtype) for x in segs if x[1] is not None},
+              "ring": {tuple(x[0].k.shape) for x in segs
+                       if x[0] is not None}}
+    assert leaves["h"] == {"torch.float32"}, leaves
+    assert leaves["conv"] == {"torch.bfloat16"}, leaves
+    assert all(shape[1] == 130 for shape in leaves["ring"]), leaves
+    nbytes = sum(f.stat().st_size for f in directory.rglob("*")
+                 if f.is_file())
+    moved = b.run().tokens(8).tolist()
+    rest = a.run()
+    others = all(rest.tokens(r.rid).tolist() == want[r.rid] for r in trace
+                 if r.rid != 8)
+    print(f"[recurrent] migration ({directory.name}) of request 8 after "
+          f"{len(long_.tokens)} tokens (2,100 prompt tokens, the ring "
+          f"wrapped), 4-slot -> 2-slot engine: "
+          f"{'identical' if moved == want[8] else 'DIFFERENT'} to the "
+          f"never-migrated tokens (others identical: {others}); {ms} ms "
+          f"(export, encrypted save, restore, import), {nbytes} bytes on "
+          f"disk; wire leaves {leaves} per segment  [{gpu}]")
+    assert moved == want[8] and others, "migration changed tokens"
+
+
+def recurrent_serving(gpu: str) -> dict:
+    """Phase 3c: full recurrentgemma-2b+xnor (26 layers: 18 rglru, 8 local;
+    d 2560, vocab 256,000, MQA G 10 at dh 256, window 2048), bf16 weights
+    from a seeded generator on the card, packed at load, served by a
+    4-slot paged ServeEngine (block 16, chunk 32, s_max 2176) over
+    :func:`recurrent_trace`.
+
+    Gates: prefix caching off; pack, the fused linear and paged decode
+    launched on the main path, every launch of the held run held against
+    its plain version at every shape (:class:`LaunchHolds`), and one
+    unheld timed run repeating its tokens; :func:`check_paths` in f32 and
+    bf16 (this arch's limits) and the one-ulp-up control failing them; a
+    session migrated mid-decode (the long one, after its ring wrapped)
+    from the 4-slot engine to a 2-slot one through an encrypted wire,
+    keeping its tokens; in f32, the dense and paged layouts' tokens equal
+    on the 8 short requests.  -> launch counts of the three kernels."""
+    import gc
+    import shutil
+    import statistics
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+
+    cfg = configs.get("recurrentgemma-2b+xnor")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_head, cfg.d_ff, cfg.vocab, cfg.local_window,
+            cfg.dtype) == (26, 2560, 10, 1, 256, 7680, 256000, 2048,
+                           torch.bfloat16)
+    assert [k for k, _ in cfg.segments()].count("local") == 8
+    trace = recurrent_trace(cfg.vocab)
+    rids = [r.rid for r in trace]
+    geom = dict(slots=4, s_max=2176, block_size=16, prefill_chunk=32)
+    directory = ROOT / "experiments" / "chip_smoke_recurrent"
+    shutil.rmtree(directory, ignore_errors=True)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def serve(eng, requests=trace):
+        for r in requests:
+            eng.submit(r)
+        rep = eng.run()
+        torch.cuda.synchronize()
+        assert all(s.done for s in rep.sessions.values())
+        return rep
+
+    def tokens(rep, which=rids):
+        return {rid: rep.tokens(rid).tolist() for rid in which}
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[recurrent] init {cfg.name}: "
+          f"{lm.pdefs.count(lm.param_defs(cfg))} params in "
+          f"{time.perf_counter() - t0} s")
+    with LaunchHolds() as holds:
+        kernels = [holds.orig[n] for n in ("pack", "xnor_linear_fused",
+                                           "paged_decode_attention")]
+        holds.active = True
+        for f in kernels:
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(cfg, params, device="cuda", **geom)
+        assert eng.prefix_caching is False, "prefix caching must be off"
+        assert eng._widths == {"win": 130}, eng._widths
+        held = serve(eng)
+        launches = {f.__name__: f.launches for f in kernels}
+        want = tokens(held)
+        for s in held.sessions.values():
+            assert len(s.tokens) == s.request.max_new_tokens
+            assert all(0 <= t < cfg.vocab for t in s.tokens)
+        for name, n in launches.items():
+            assert n > 0, f"kernel {name} never launched on the main path"
+        print(f"[recurrent] main-path launches (held run) {launches}  "
+              f"[{gpu}]")
+        del eng
+        free()
+
+        # the unheld timed run, launches read around every decode step
+        with holds.off():
+            torch.cuda.reset_peak_memory_stats()
+            eng = ServeEngine(cfg, params, device="cuda", **geom)
+            per_step, decode_once = [], eng._decode_once
+
+            def counted():
+                before = [f.launches for f in kernels[1:]]
+                decode_once()
+                per_step.append(tuple(f.launches - b for f, b in
+                                      zip(kernels[1:], before)))
+            eng._decode_once = counted
+            rep = serve(eng)
+            del eng._decode_once
+            peak = torch.cuda.max_memory_allocated()
+        assert tokens(rep) == want, "the unheld run's tokens differ"
+        ttft = rep.ttft_quantiles((0.5, 0.95))
+        st = rep.stats
+        print(f"[recurrent] unheld run: {rep.generated} tokens in {rep.wall} "
+              f"s -> {rep.tok_per_s} tok/s; TTFT p50 {ttft[0.5] * 1e3} ms "
+              f"p95 {ttft[0.95] * 1e3} ms; {st.prefill_chunks} prefill "
+              f"chunks, {st.decode_steps} decode steps; peak device memory "
+              f"{peak / 2**30} GiB; tokens as the held run's: True  [{gpu}]")
+        print(f"[recurrent] launches per decode step (fused linear, paged "
+              f"decode): median "
+              f"{statistics.median(p[0] for p in per_step)}, "
+              f"{statistics.median(p[1] for p in per_step)} over "
+              f"{len(per_step)} steps  [{gpu}]")
+        assert per_step and all(p == (200, 8) for p in per_step), per_step
+
+        # migration mid-decode, 4 -> 2 slots, after the long request's ring
+        # wrapped: the wire carries the ring blocks, h (f32), conv (bf16);
+        # once held (the gate), once unheld (the timing)
+        migrate(cfg, params, trace, want, geom, directory / "held", gpu)
+        with holds.off():
+            migrate(cfg, params, trace, want, geom, directory / "unheld",
+                    gpu)
+        free()
+    holds.check(gpu, "recurrent")
+    shutil.rmtree(directory, ignore_errors=True)
+
+    # the kernel path against the plain path, bf16 (this arch's limits)
+    # and f32; and the control that rounds one way
+    pparams = lm.pack_params(cfg, params)
+    toks = torch.from_numpy(trace[0].prompt[None, :cfg.prefill_chunk]
+                            .copy())
+    nxt = int(trace[0].prompt[cfg.prefill_chunk])
+    check_paths(cfg, pparams, toks, nxt, gpu)
+    try:
+        with attention_rounding_up(1):
+            check_paths(cfg, pparams, toks, nxt, gpu)
+        failed = ""
+    except AssertionError as e:
+        failed = str(e)
+    print(f"[recurrent] control, paged decode one ulp up at every "
+          f"element: check_paths failed with {failed!r}  [{gpu}]")
+    assert "inputs drifted" in failed and "rounds one way" in failed, \
+        "check_paths' bf16 holds must each fail a kernel that rounds one way"
+    del pparams, params
+    free()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = lm.init_params(cfg32, SEED, device="cuda")
+    check_paths(cfg32, lm.pack_params(cfg32, params32), toks, nxt, gpu)
+    short = trace[:8]
+    f32 = dict(slots=4, s_max=128)
+    paged = tokens(serve(ServeEngine(cfg32, params32, device="cuda",
+                                     **f32), short), rids[:8])
+    dense = tokens(serve(ServeEngine(cfg32, params32, device="cuda",
+                                     paged=False, **f32), short),
+                   rids[:8])
+    print(f"[recurrent] f32 greedy: dense = paged on "
+          f"{sum(dense[x] == paged[x] for x in rids[:8])}/8  [{gpu}]")
+    assert dense == paged, "f32: the dense layout's tokens differ"
+    del params32
+    free()
     return launches
 
 
@@ -1697,7 +2163,8 @@ def flip_member_byte(npz: Path, member: str, index: int) -> None:
 
 def checkpoint_layer(gpu: str) -> dict:
     """Phase 7: save, delta, check, tamper, restore and restore_packed of
-    the full bf16 qwen2-7b tree through one CimEngine on the card."""
+    the bf16 qwen2-7b tree (full width, 16 of its 28 layers) through one
+    CimEngine on the card."""
     import shutil
 
     import torch
@@ -1713,9 +2180,10 @@ def checkpoint_layer(gpu: str) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine, synthetic_trace
 
-    # the full 28-layer tree: 15.2 GB fits the card's host (96 GiB) and
-    # its disk (75 GB free) with room to spare; nothing is cut
-    cfg = configs.get("qwen2-7b+xnor")
+    # the tree at full width, its depth cut from 28 layers to 16 (9.6 GB)
+    # to keep the script near 400 s once phase 3c joined it; phase 4 still
+    # streams the full 15.2 GB tree
+    cfg = dataclasses.replace(configs.get("qwen2-7b+xnor"), n_layers=16)
     directory = ROOT / "experiments" / "chip_smoke_ckpt"
     shutil.rmtree(directory, ignore_errors=True)
     params = lm.init_params(cfg, SEED, device="cuda")
@@ -1829,6 +2297,7 @@ def checkpoint_layer(gpu: str) -> dict:
     host.cuda()
     torch.cuda.synchronize()
     h2d = big.numel() * 2 / (time.perf_counter() - t0) / 1e9
+    big_gb = big.numel() * 2 / 1e9
     del host, params, leaves, big
     torch.cuda.empty_cache()
 
@@ -1847,7 +2316,8 @@ def checkpoint_layer(gpu: str) -> dict:
           f"[{gpu}]")
     print(f"[ckpt] where the time goes: digest + cipher kernels over the tree "
           f"{kernel_s} s of device time; D2H {d2h} GB/s and H2D {h2d} GB/s "
-          f"(pageable, one 3.8 GB leaf), i.e. {gb / d2h} s and {gb / h2d} s "
+          f"(pageable, one {big_gb} GB leaf), i.e. {gb / d2h} s and "
+          f"{gb / h2d} s "
           f"for the tree; the rest of each pass is the disk and the zip "
           f"(CRC) on the host  [{gpu}]")
     print(f"[ckpt] engine stats {eng.stats.cycles} cycles, "
@@ -1906,6 +2376,17 @@ def monte_carlo(gpu: str) -> None:
 
 
 LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")   # launch order per layer
+KIND_LINEARS = {"attn": LINEARS, "local": LINEARS,
+                "rglru": ("w_gate", "w_x", "w_r", "w_i", "w_out", "w1", "w3",
+                          "w2")}
+
+
+def launch_names(cfg) -> list:
+    """(layer, linear) of each fused-linear launch of one step, in order."""
+    return [(i, lin) for i, kind in enumerate(cfg.layer_kinds())
+            for lin in KIND_LINEARS[kind]]
+
+
 # check_paths' bf16 limits, from ``--path-readings`` (PERF.md §6: over 12
 # prompts the kernel path's largest readings were 1.46e-3, 3.9e-4 and a z
 # of 1.39 at 14 differing elements; the one-ulp-up controls drift 4.3e-3
@@ -1917,12 +2398,20 @@ LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")   # launch order per layer
 BF16_PATH_LOGITS = 3e-3
 BF16_TRACK = 1.5e-3
 BF16_ATTN_Z = 4.0
+# the same three limits for recurrentgemma-2b+xnor, from its own
+# ``--path-readings recurrentgemma-2b+xnor`` (PERF.md §6: over 12
+# prompts the kernel path read logits 0 where no sign bit differs, drift
+# at most 1.8e-5 and |z| at most 1.42 at 5 differing elements; the
+# one-ulp-up controls drift 5.9e-3 and 4.5e-3 and read z 284 and 201)
+BF16_LIMITS = {"qwen2-7b+xnor": (BF16_PATH_LOGITS, BF16_TRACK, BF16_ATTN_Z),
+               "recurrentgemma-2b+xnor": (1e-3, 5e-4, 4.0)}
 
 
-def first_flip(xs_a, xs_b):
+def first_flip(xs_a, xs_b, names):
     """Walk two runs' fused-linear inputs launch by launch: the largest
     relative L2 gap up to and including the first launch whose sign bits
-    differ, and where that first differing bit is (None if none does)."""
+    differ, and where that first differing bit is (None if none does);
+    ``names`` gives each launch's (layer, linear)."""
     drift = 0.0
     for i, (a, b) in enumerate(zip(xs_a, xs_b)):
         drift = max(drift, ((a - b).norm() / b.norm()).item())
@@ -1930,8 +2419,7 @@ def first_flip(xs_a, xs_b):
         if diff.any():
             r, c = (int(v) for v in diff.nonzero()[0])
             return drift, dict(
-                launch=i, layer=i // len(LINEARS),
-                linear=LINEARS[i % len(LINEARS)], row=r, col=c,
+                launch=i, layer=names[i][0], linear=names[i][1], row=r, col=c,
                 x_a=a[r, c].item(), x_b=b[r, c].item(),
                 row_mean_abs=b[r].abs().mean().item(),
                 bits=int(diff.sum()))
@@ -1988,15 +2476,21 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import lm
 
+    from repro_torch.models import blocks
+
     f32 = cfg.dtype == torch.float32
     tol_lin = 2e-5 if f32 else 2 ** -8
     rtol_attn, atol_attn = FLASH_TOL["float32" if f32 else "bfloat16"]
-    track_tol = 1e-4 if f32 else BF16_TRACK
-    logit_tol = 1e-3 if f32 else BF16_PATH_LOGITS
+    bf16_logits, bf16_track, bf16_z = BF16_LIMITS[cfg.name]
+    track_tol = 1e-4 if f32 else bf16_track
+    logit_tol = 1e-3 if f32 else bf16_logits
     ref_linear, fused = ref.xnor_linear_fused, ops.xnor_linear_fused
     name = f"{cfg.name} {str(cfg.dtype)[6:]} seed {seed}"
+    names = launch_names(cfg)
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds())
 
-    bs, w = cfg.block_size, 128 // cfg.block_size
+    bs = cfg.block_size
+    (cls, w), = lm.paged_table_widths(cfg, 128, bs, cfg.prefill_chunk).items()
     table = torch.arange(1, 1 + 4 * w, dtype=torch.int32,
                          device="cuda").reshape(4, w)
     dtable = table.clone()
@@ -2062,7 +2556,7 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
                                                block_size=bs, device="cuda")
         else:
             state = lm.DecodeState(state.pos.clone(), [
-                type(st)(*(t.clone() for t in st))
+                blocks.state_map(torch.clone, st)
                 for st in state.seg_states])
         patches = [mock.patch.object(ops, "xnor_linear_fused", lin),
                    mock.patch.object(ref, "xnor_linear_fused", plain)]
@@ -2080,11 +2574,11 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
             if step == "prefill_chunk":
                 logits, state = lm.prefill_chunk_step(
                     cfg, params, toks.cuda(), state, 0, toks.shape[1],
-                    {"full": table[:1]}, fresh=True)
+                    {cls: table[:1]}, fresh=True)
             else:
                 logits, state = lm.paged_decode_step(
-                    cfg, params, tok, state, {"full": dtable}, active=active)
-        assert len(xs) == len(LINEARS) * cfg.n_layers, len(xs)
+                    cfg, params, tok, state, {cls: dtable}, active=active)
+        assert len(xs) == len(names), len(xs)
         logits = logits[:1].float()
         assert torch.isfinite(logits).all()
         assert logits.shape == (1, 1, cfg.padded_vocab), logits.shape
@@ -2094,7 +2588,7 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
         return ((a - b).norm() / b.norm()).item()
 
     def walk(step, lk, xk, other, xo, what):
-        drift, flip = first_flip(xk, xo)
+        drift, flip = first_flip(xk, xo, names)
         r = rel(lk, other)
         print(f"[slice] {name} {step}, kernel path vs {what}, run apart: "
               f"logits relative L2 {r}; inputs tracked within {drift} up to "
@@ -2123,23 +2617,22 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
                              f"(kernel's attention values)")
         if f32:
             lr, _, xr = run(step, start, kernel=False, plain=ref_linear)
-            drift, flip = first_flip(xk, xr)
+            drift, flip = first_flip(xk, xr, names)
             print(f"[slice] {name} {step}, kernel path vs plain path with "
                   f"the reference's alpha (reported): logits relative L2 "
                   f"{rel(lk, lr)}; inputs tracked within {drift} up to the "
                   f"first differing sign bit {flip}  [{gpu}]")
             lu, _, xu = run(step, start, kernel=False, plain=ref_linear,
                             scale=1.0 + 2 ** -23)
-            drift, flip = first_flip(xu, xr)
+            drift, flip = first_flip(xu, xr, names)
             print(f"[slice] {name} {step}, plain path vs itself with every "
                   f"fused linear's output scaled by 1 + 2^-23 (reported): "
                   f"logits relative L2 {rel(lu, lr)}; inputs tracked within "
                   f"{drift} up to the first differing sign bit {flip}  "
                   f"[{gpu}]")
         start = after
-    n_lin = len(LINEARS) * cfg.n_layers * 2
-    assert held == {"xnor_linear_fused": n_lin,
-                    "paged_decode_attention": cfg.n_layers}, held
+    assert held == {"xnor_linear_fused": 2 * len(names),
+                    "paged_decode_attention": n_attn}, held
     print(f"[slice] {name}: {held} launches of one prefill chunk + one "
           f"decode step each held against the plain version on the same "
           f"inputs (the fused linear also bitwise against the plain version "
@@ -2148,7 +2641,7 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
     print(f"[slice] {name}: paged decode differs from its plain version at "
           f"{ups[1]} of {ups[2]} elements, {ups[0]} of them above it (z "
           f"{z} against no rounding direction)  [{gpu}]")
-    if not f32 and abs(z) > BF16_ATTN_Z:
+    if not f32 and abs(z) > bf16_z:
         fails.append(f"paged decode rounds one way: {ups[0]} of its "
                      f"{ups[1]} differences lie above the plain version")
     assert not fails, f"{name}: {fails}"
@@ -2183,9 +2676,10 @@ def attention_rounding_up(every: int):
         kpaged.paged_decode_attention = kernel
 
 
-def path_readings(gpu: str, n_prompts: int = 12) -> None:
+def path_readings(gpu: str, arch: str = "qwen2-7b+xnor",
+                  n_prompts: int = 12) -> None:
     """The readings behind :func:`check_paths`' bf16 limits: the check on
-    full qwen2-7b+xnor in bf16 over the smoke's first prompt and
+    the full ``arch`` in bf16 over the smoke's first prompt and
     ``n_prompts - 1`` seeded ones, with the paged decode kernel as built
     and with two controls that stay within one bf16 ulp of the plain
     version at every launch but round one way (its output moved one ulp
@@ -2198,7 +2692,7 @@ def path_readings(gpu: str, n_prompts: int = 12) -> None:
     from repro_torch.models import lm
     from repro_torch.serve import synthetic_trace
 
-    cfg = configs.get("qwen2-7b+xnor")
+    cfg = configs.get(arch)
     params = lm.pack_params(cfg, lm.init_params(cfg, SEED, device="cuda"))
     base = synthetic_trace(8, cfg.vocab, seed=SEED,
                            prompt_lens=(8, 16, 24, 32),
@@ -2251,8 +2745,8 @@ def main() -> int:
         for row in ptxas_summary(cuda.build_log(), source):
             print(f"[ptxas] {source}.cu {row}")
     print(f"[sass] flash_attn: {sass_counts(cuda.build()['flash_attn'])}")
-    if sys.argv[1:] == ["--path-readings"]:
-        path_readings(gpu)
+    if sys.argv[1:2] == ["--path-readings"]:
+        path_readings(gpu, *sys.argv[2:3])
         return 0
     if sys.argv[1:] == ["--paged-plans"]:
         paged_plans(gpu)
@@ -2262,15 +2756,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False         # stay f32 on the card
     rec = kernel_checks(gpu)
     paged_long(gpu)
+    other_arch_kernels(gpu)
     rec.update(integer_kernel_checks(gpu, LINEAR_SHAPES))
     rec.update(flash_checks(gpu))
     launches = serve_slice(gpu)
     tier = serving_tier(gpu)            # launches of its five kernels
+    recurrent = recurrent_serving(gpu)  # and of its three
     launches.update(integer_chain(gpu))
     launches["xnor_gemm"] = binary_layers(gpu, LINEAR_SHAPES)["xnor_gemm"]
     launches.update(long_context(gpu))
-    for name, n in tier.items():         # the larger path's count
-        launches[name] = max(launches[name], n)
+    for path in (tier, recurrent):      # the path that runs each most
+        for name, n in path.items():
+            launches[name] = max(launches[name], n)
     checkpoint_layer(gpu)
     monte_carlo(gpu)
     kernels = []

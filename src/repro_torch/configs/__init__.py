@@ -2,7 +2,8 @@
 
 ``get(name)`` also accepts ``<name>+xnor`` for the binary-quantized
 variant (the paper's technique as a config axis).  The port carries the
-dense attention archs its serving path runs.
+archs whose block kinds it serves: the dense attention archs and the
+hybrid RecurrentGemma (``rglru`` + ``local``).
 """
 
 from __future__ import annotations
@@ -12,8 +13,13 @@ import dataclasses
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.qwen2_7b import CONFIG as qwen2_7b
 from repro_torch.configs.qwen3_4b import CONFIG as qwen3_4b
+from repro_torch.configs.phi4_mini_3_8b import CONFIG as phi4_mini_3_8b
+from repro_torch.configs.qwen3_14b import CONFIG as qwen3_14b
+from repro_torch.configs.recurrentgemma_2b import CONFIG as recurrentgemma_2b
 
-ALL: dict[str, ArchConfig] = {c.name: c for c in [qwen2_7b, qwen3_4b]}
+ALL: dict[str, ArchConfig] = {
+    c.name: c for c in [qwen2_7b, qwen3_4b, phi4_mini_3_8b, qwen3_14b,
+                        recurrentgemma_2b]}
 
 
 def get(name: str) -> ArchConfig:

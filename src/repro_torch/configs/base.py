@@ -38,6 +38,10 @@ class ArchConfig:
     # kinds is one segment with its parameters stacked on a leading axis
     pattern: tuple = ("attn",)
 
+    # recurrent blocks (RG-LRU)
+    conv_width: int = 4            # causal depthwise conv1d taps
+    rglru_c: float = 8.0           # Griffin's fixed decay sharpness
+
     # the paper's technique: binary (XNOR-Net) projections
     quant: str = "none"            # "none" | "xnor"
 
@@ -51,6 +55,7 @@ class ArchConfig:
                                    # C == 1 attention; "off": the gather /
                                    # mask / softmax chain; "auto": "on" on
                                    # the card, "off" on the CPU
+    supports_long_context: bool = False
     notes: str = ""
 
     def __post_init__(self):

@@ -32,11 +32,18 @@
 // only on pos and the column, so a dead column is skipped uniformly (which
 // is also the guard against exp(NEG_INF - NEG_INF)).
 //
-// Inside a block each of the four warps walks its own columns (every
-// fourth), with no block barrier in the walk: a warp streams its live
-// columns' K and V pages into its own three-stage shared-memory ring with
-// 16-byte cp.async, two columns ahead, each page's pool block id loaded
-// one issue ahead.  Scores: a half-warp per key, each lane holding its
+// Inside a block the four warps form 4 / RW walkers of RW warps each; a
+// walker walks its own columns (every (4 / RW)-th), with no block barrier
+// in the walk: it streams its live columns' K and V pages into its own
+// shared-memory ring (three stages, two for f32 pages) with 16-byte
+// cp.async, a column or two ahead, each page's pool block id loaded one
+// issue ahead.  With RW = 1 a walker is one warp holding every query row;
+// with RW = 2 (dh > 128 with G > 8, or f32 pools at dh > 128) the query
+// rows are cut in two groups, one a warp, that score the same staged page
+// (each K/V page still crosses HBM once) and meet at a named barrier per
+// column.  That keeps a lane's q chunks and P V sums in registers at
+// G 16, dh 256 (two groups of 8 rows, 128 + 64 floats), and halves the
+// rings, so f32 pools at dh 256 fit (2 walkers x 2 stages x 32 KB).  Scores: a half-warp per key, each lane holding its
 // 8-column chunk of every query row in registers; the rows' partial dots
 // meet in a reduce-scatter of at most 15 shuffles, four keys at a time so
 // their shuffles overlap.  (m, l): all rows at once, 32 / G lanes a row.
@@ -158,13 +165,15 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared memory: each warp's K/V ring (stage s: K page, then V page, each
-// bs*dh elements of TKV), which after the walk holds the warps' P V sums
-// [kWarps][G][dh] f32; then each warp's scores and then probabilities
-// [bs][GM] (rows past G stay zero) and its corr, m, l [GM]; then the
-// last-block flag.  NC: 8-column chunks of q a lane holds per row
-// (dh <= 128 * NC); STAGES: ring depth per warp, in table columns.
-template <typename TQ, typename TKV, int GM, int NC>
+// Shared memory: each walker's K/V ring (stage s: K page, then V page,
+// each bs*dh elements of TKV), which after the walk holds the walkers' P V
+// sums [kWarps / RW][G][dh] f32; then each warp's scores and then
+// probabilities [bs][GM] (rows past its group stay zero) and its corr, m,
+// l [GM]; then the last-block flag.  GM: query rows a warp holds (its
+// group has ceil(G / RW)); NC: 8-column chunks of q a lane holds per row
+// (dh <= 128 * NC); RW: warps a walker (row groups); STAGES: ring depth
+// per walker, in table columns.
+template <typename TQ, typename TKV, int GM, int NC, int RW>
 __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
     paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ ck,
                        const TKV* __restrict__ cv,
@@ -179,12 +188,13 @@ __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
   constexpr int NKG = 32 / CH;              // P V: key groups per warp
   constexpr int LPR = 32 / GM;              // softmax: lanes per row
   constexpr int KP = GM * NC == 8 ? 4 : 1;  // scores: keys a half-warp
+  constexpr int NW = kWarps / RW;           // walkers
   extern __shared__ __align__(16) unsigned char smem[];
   const int page = bs * dh;
   const int chunks = dh / 8;                // 8-column chunks of a row
   const size_t ring_bytes =
-      static_cast<size_t>(kWarps) * STAGES * 2 * page * sizeof(TKV);
-  const size_t red_bytes = sizeof(float) * kWarps * G * dh;
+      static_cast<size_t>(NW) * STAGES * 2 * page * sizeof(TKV);
+  const size_t red_bytes = sizeof(float) * NW * G * dh;
   const int wstride = bs * GM + 3 * GM;     // floats of a warp's state
   float* red = reinterpret_cast<float*>(smem);
   float* states = reinterpret_cast<float*>(
@@ -198,10 +208,16 @@ __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int pos = pos_b[b];
   const int cap = W * bs;
+  // this warp's walker and row group: rows [row0, row0 + GR) of q
+  const int walker = warp / RW, rg = warp % RW;
+  const int GG = (G + RW - 1) / RW;         // rows a group
+  const int row0 = rg * GG;
+  const int GR = max(0, min(GG, G - row0));
   const size_t qbase = static_cast<size_t>(bh) * G * dh;
+  const size_t qrow = qbase + static_cast<size_t>(row0) * dh;
 
   TKV* ring = reinterpret_cast<TKV*>(smem) +
-              static_cast<size_t>(warp) * STAGES * 2 * page;
+              static_cast<size_t>(walker) * STAGES * 2 * page;
   float* p_w = states + warp * wstride;     // [bs][GM]
   float* c_w = p_w + bs * GM;               // [GM]
   float* m_w = c_w + GM;                    // [GM]
@@ -216,8 +232,8 @@ __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
     const int c = sub + 16 * j;
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      if (c < chunks && g < G) {
-        load8(q + qbase + g * dh + 8 * c, qr[j][g]);
+      if (c < chunks && g < GR) {
+        load8(q + qrow + g * dh + 8 * c, qr[j][g]);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) qr[j][g][e] = 0.f;
@@ -239,10 +255,10 @@ __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
 
-  // this warp's columns: w_lo + warp, then every kWarps-th, the dead ones
-  // skipped (a live prefix or a live ring arc falls evenly on the warps)
+  // this walker's columns: w_lo + walker, then every NW-th, the dead ones
+  // skipped (a live prefix or a live ring arc falls evenly on the walkers)
   auto next_mine = [&](int w) {
-    while (w < w_hi && !column_live(w, pos, bs, cap, window)) w += kWarps;
+    while (w < w_hi && !column_live(w, pos, bs, cap, window)) w += NW;
     return w;
   };
   // a column's pool block id, loaded one issue ahead of its use
@@ -257,33 +273,43 @@ __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
     const uint32_t kd = static_cast<uint32_t>(
         __cvta_generic_to_shared(ring + 2 * stage * page));
     const uint32_t vd = kd + page * sizeof(TKV);
-    for (int i = lane; i < chunks16; i += 32) {
+    for (int i = rg * 32 + lane; i < chunks16; i += 32 * RW) {
       cp_async16(kd + 16 * i, kp + 16 * i);
       cp_async16(vd + 16 * i, vp + 16 * i);
     }
   };
+  // every lane of the walker: its copies of a column landed, and the
+  // previous column is done with
+  auto walker_sync = [&]() {
+    if constexpr (RW == 1) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + walker), "r"(32 * RW)
+                   : "memory");
+    }
+  };
 
-  // prologue: this warp's first STAGES - 1 live columns in flight
-  int w_next = next_mine(w_lo + warp);
+  // prologue: this walker's first STAGES - 1 live columns in flight
+  int w_next = next_mine(w_lo + walker);
   int p_next = phys_of(w_next);
   const int w_first = w_next;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (w_next < w_hi) {
       issue(p_next, s);
-      w_next = next_mine(w_next + kWarps);
+      w_next = next_mine(w_next + NW);
       p_next = phys_of(w_next);
     }
     cp_commit();
   }
 
   int stage = 0;
-  for (int w = w_first; w < w_hi; w = next_mine(w + kWarps)) {
+  for (int w = w_first; w < w_hi; w = next_mine(w + NW)) {
     cp_wait<STAGES - 2>();   // this lane's copies of column w landed
-    __syncwarp();            // every lane's; the previous column is done
+    walker_sync();           // every lane's; the previous column is done
     if (w_next < w_hi) {
       issue(p_next, (stage + STAGES - 1) % STAGES);
-      w_next = next_mine(w_next + kWarps);
+      w_next = next_mine(w_next + NW);
       p_next = phys_of(w_next);
     }
     cp_commit();
@@ -322,7 +348,7 @@ __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
 #pragma unroll
       for (int u = 0; u < KP; ++u) {
         const int t = t0 + 2 * u + lane / 16;
-        if (t < bs && sub % (16 / GM) == 0 && g < G)
+        if (t < bs && sub % (16 / GM) == 0 && g < GR)
           p_w[t * GM + g] = key_valid(w * bs + t, pos, cap, window)
                                 ? dot[u] * scale
                                 : kNegInf;
@@ -333,7 +359,7 @@ __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
     // (m, l): every row at once, LPR lanes a row
     {
       const int g = lane / LPR, ls = lane % LPR;
-      const bool row = g < G;
+      const bool row = g < GR;
       float mx = kNegInf;
       if (row)
         for (int t = ls; t < bs; t += LPR) mx = fmaxf(mx, p_w[t * GM + g]);
@@ -402,13 +428,13 @@ __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
       for (int e = 0; e < 8; ++e)
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
   }
-  __syncthreads();   // every ring is free: it becomes the warps' sums
+  __syncthreads();   // every ring is free: it becomes the walkers' sums
   if (kg == 0 && pc < chunks) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      if (g < G) {
-        float4* r = reinterpret_cast<float4*>(red + (warp * G + g) * dh +
-                                              8 * pc);
+      if (g < GR) {
+        float4* r = reinterpret_cast<float4*>(
+            red + (walker * G + row0 + g) * dh + 8 * pc);
         r[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
         r[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
       }
@@ -421,18 +447,19 @@ __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
   const size_t part = static_cast<size_t>(bh) * n_split + split;
   for (int item = tid; item < n_items; item += kThreads) {
     const int g = item / chunks, c = item - g * chunks;
+    const int gw = g / GG, gl = g - gw * GG;  // row group, row in it
     float M = kNegInf;
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k)
-      M = fmaxf(M, states[k * wstride + bs * GM + GM + g]);
+    for (int k = 0; k < NW; ++k)
+      M = fmaxf(M, states[(k * RW + gw) * wstride + bs * GM + GM + gl]);
     float L = 0.f, a[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) a[e] = 0.f;
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      const float* st = states + k * wstride + bs * GM;
-      const float wgt = expf(st[GM + g] - M);
-      L += st[2 * GM + g] * wgt;
+    for (int k = 0; k < NW; ++k) {
+      const float* st = states + (k * RW + gw) * wstride + bs * GM;
+      const float wgt = expf(st[GM + gl] - M);
+      L += st[2 * GM + gl] * wgt;
       const float4* r =
           reinterpret_cast<const float4*>(red + (k * G + g) * dh + 8 * c);
       const float4 x = r[0], y = r[1];
@@ -511,26 +538,28 @@ __global__ void __launch_bounds__(kThreads, GM * NC == 8 ? 2 : 1)
   if (tid == 0) tickets[bh] = 0;   // ready for the next launch
 }
 
-template <typename TQ, typename TKV, int GM, int NC>
+template <typename TQ, typename TKV, int GM, int NC, int RW>
 int launch_gm(const void* q, const void* ck, const void* cv,
               const int32_t* table, const int32_t* pos, void* out,
               float* part_acc, float* part_ml, int* tickets, int B, int KV,
               int G, int dh, int bs, int W, int window, int n_split, int cols,
               float scale, float out_scale, cudaStream_t s) {
-  const size_t ring = static_cast<size_t>(kWarps) * stages<TKV>() * 2 * bs *
-                      dh * sizeof(TKV);
-  const size_t red = sizeof(float) * kWarps * G * dh;
+  constexpr int NW = kWarps / RW;
+  const size_t ring = static_cast<size_t>(NW) * stages<TKV>() * 2 * bs * dh *
+                      sizeof(TKV);
+  const size_t red = sizeof(float) * NW * G * dh;
   const size_t smem =
       (ring > red ? ring : red) +
       sizeof(float) * kWarps * (static_cast<size_t>(bs) * GM + 3 * GM) + 16;
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_split_kernel<TQ, TKV, GM, NC>,
+        paged_split_kernel<TQ, TKV, GM, NC, RW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(B * KV, n_split);
-  paged_split_kernel<TQ, TKV, GM, NC><<<grid, kThreads, smem, s>>>(
+  paged_split_kernel<TQ, TKV, GM, NC, RW><<<grid, kThreads, smem, s>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(ck),
       static_cast<const TKV*>(cv), table, pos, static_cast<TQ*>(out),
       part_acc, part_ml, tickets, KV, G, dh, bs, W, window, n_split, cols,
@@ -538,7 +567,10 @@ int launch_gm(const void* q, const void* ck, const void* cv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Instances: G <= 8 with dh <= 256, or G <= 16 with dh <= 128.
+// Instances: dh <= 128: one row group of up to 8 or 16 rows.  dh <= 256:
+// one group of up to 8 rows (1- and 2-byte pools), or two groups of up to
+// 8 rows each (G <= 16, and f32 pools at any G, whose four-warp ring
+// would not fit).
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* ck, const void* cv, const int32_t* table,
            const int32_t* pos, void* out, float* part_acc, float* part_ml,
@@ -547,21 +579,27 @@ int launch(const void* q, const void* ck, const void* cv, const int32_t* table,
            cudaStream_t s) {
   const size_t page_bytes = static_cast<size_t>(bs) * dh * sizeof(TKV);
   if (dh % 8 != 0 || dh > 256 || page_bytes % 16 != 0 || G < 1 || G > 16 ||
-      (G > 8 && dh > 128) || !xnor::aligned16(ck) || !xnor::aligned16(cv))
+      !xnor::aligned16(ck) || !xnor::aligned16(cv))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dh > 128 && (G > 8 || sizeof(TKV) == 4))
+    return launch_gm<TQ, TKV, 8, 2, 2>(q, ck, cv, table, pos, out, part_acc,
+                                       part_ml, tickets, B, KV, G, dh, bs, W,
+                                       window, n_split, cols, scale,
+                                       out_scale, s);
   if (G > 8)
-    return launch_gm<TQ, TKV, 16, 1>(q, ck, cv, table, pos, out, part_acc,
+    return launch_gm<TQ, TKV, 16, 1, 1>(q, ck, cv, table, pos, out, part_acc,
+                                        part_ml, tickets, B, KV, G, dh, bs, W,
+                                        window, n_split, cols, scale,
+                                        out_scale, s);
+  if (dh > 128)
+    return launch_gm<TQ, TKV, 8, 2, 1>(q, ck, cv, table, pos, out, part_acc,
+                                       part_ml, tickets, B, KV, G, dh, bs, W,
+                                       window, n_split, cols, scale,
+                                       out_scale, s);
+  return launch_gm<TQ, TKV, 8, 1, 1>(q, ck, cv, table, pos, out, part_acc,
                                      part_ml, tickets, B, KV, G, dh, bs, W,
                                      window, n_split, cols, scale, out_scale,
                                      s);
-  if (dh > 128)
-    return launch_gm<TQ, TKV, 8, 2>(q, ck, cv, table, pos, out, part_acc,
-                                    part_ml, tickets, B, KV, G, dh, bs, W,
-                                    window, n_split, cols, scale, out_scale,
-                                    s);
-  return launch_gm<TQ, TKV, 8, 1>(q, ck, cv, table, pos, out, part_acc,
-                                  part_ml, tickets, B, KV, G, dh, bs, W,
-                                  window, n_split, cols, scale, out_scale, s);
 }
 
 template <typename TQ>

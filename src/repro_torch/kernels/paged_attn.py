@@ -21,7 +21,7 @@ from repro_torch.kernels import online_softmax as osm
 MAX_SMEM = 227 * 1024
 WARPS = 4                  # warps of a block, each walking its own columns
 MAX_G = 16                 # query rows per KV head the kernel holds
-MAX_DH = 256               # (G up to 8; up to 128 for G up to 16)
+MAX_DH = 256
 BLOCKS_PER_SM = 3          # split target: blocks per SM (two in flight)
 PLAN_SLOTS = 4             # the batch the split plan sizes its grid for
 
@@ -101,6 +101,27 @@ def split_reference(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
+def instance(g: int, dh: int, item: int) -> tuple[int, int]:
+    """-> (gm, rw): the kernel instance ``csrc/paged_attn.cu`` launches for
+    G rows at width dh over pool elements of ``item`` bytes: ``rw`` row
+    groups of up to ``gm`` rows, one a warp, the four warps forming
+    4 / rw walkers of the table."""
+    if dh > 128 and (g > 8 or item == 4):
+        return 8, 2
+    return (16 if g > 8 else 8), 1
+
+
+def smem_bytes(g: int, dh: int, bs: int, item: int) -> int:
+    """Dynamic shared memory of that instance: the walkers' K/V rings
+    (reused for their P V sums), the warps' score and (m, l) rows and the
+    last-block flag."""
+    gm, rw = instance(g, dh, item)
+    stages = 2 if item == 4 else 3            # each walker's K/V ring
+    ring = (WARPS // rw) * stages * 2 * bs * dh * item
+    red = 4 * (WARPS // rw) * g * dh          # the walkers' P V sums
+    return max(ring, red) + 4 * WARPS * (bs * gm + 3 * gm) + 16
+
+
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
@@ -158,16 +179,12 @@ def paged_decode_attention(q: torch.Tensor, ck: torch.Tensor,
     cuda.check(dh % 8 == 0 and (bs * dh * item) % 16 == 0,
                f"the paged kernel takes dh a multiple of 8 and pool pages of "
                f"a multiple of 16 bytes, got dh={dh}, bs={bs}, {ck.dtype}")
-    cuda.check(1 <= g <= MAX_G and dh <= (MAX_DH if g <= 8 else 128),
-               f"the paged kernel takes G up to 8 with dh up to {MAX_DH}, or "
-               f"G up to {MAX_G} with dh up to 128; got G={g}, dh={dh}")
+    cuda.check(1 <= g <= MAX_G and dh <= MAX_DH,
+               f"the paged kernel takes G up to {MAX_G} and dh up to "
+               f"{MAX_DH}; got G={g}, dh={dh}")
     cuda.check(ck.data_ptr() % 16 == 0 and cv.data_ptr() % 16 == 0,
                "paged_decode_attention needs 16-byte-aligned pools")
-    gm = 8 if g <= 8 else 16
-    stages = 2 if item == 4 else 3            # each warp's K/V ring
-    ring = WARPS * stages * 2 * bs * dh * item
-    red = 4 * WARPS * g * dh                  # the warps' P V sums
-    smem = max(ring, red) + 4 * WARPS * (bs * gm + 3 * gm) + 16
+    smem = smem_bytes(g, dh, bs, item)
     cuda.check(smem <= MAX_SMEM, f"G={g}, bs={bs}, dh={dh} need {smem} "
                "bytes of shared memory")
     out = torch.empty_like(q)

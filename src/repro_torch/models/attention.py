@@ -143,9 +143,6 @@ class KVCache(NamedTuple):
         return cls(torch.zeros(shp, dtype=dtype, device=device),
                    torch.zeros(shp, dtype=dtype, device=device))
 
-    def layer(self, i: int) -> "KVCache":
-        return KVCache(self.k[i], self.v[i])
-
 
 def decode_attention(cfg, p: dict, x: torch.Tensor, cache: KVCache,
                      pos: torch.Tensor, window: int = 0) -> torch.Tensor:
@@ -209,9 +206,6 @@ class PagedKVCache(NamedTuple):
         shp = (n_layers, n_blocks, cfg.n_kv_heads, block_size, cfg.d_head)
         return cls(torch.zeros(shp, dtype=dtype, device=device),
                    torch.zeros(shp, dtype=dtype, device=device))
-
-    def layer(self, i: int) -> "PagedKVCache":
-        return PagedKVCache(self.k[i], self.v[i])
 
     def copy_block(self, src: int, dst: int) -> None:
         """``dst := src`` in both pools, every layer (copy-on-write)."""

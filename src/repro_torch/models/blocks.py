@@ -2,19 +2,26 @@
 
 A model's depth plan is a list of (kind, count) segments
 (``ArchConfig.segments()``); a segment's parameters are stacked on a
-leading layer axis, and the segment runs as a Python loop over it.  Only
-the ``attn`` kind (GQA self-attention + SwiGLU FFN) is ported so far.
+leading layer axis, and the segment runs as a Python loop over it.
+
+Ported kinds:
+  attn   GQA self-attention + SwiGLU FFN (dense transformers)
+  local  sliding-window GQA + FFN (RecurrentGemma's attention layers)
+  rglru  Griffin's recurrent block (conv1d + RG-LRU) + FFN
 
 Every kind implements:
   defs(cfg, n)                                stacked ParamDefs
   fwd(cfg, p, x, opts)                        full sequence -> (x, state)
   decode(cfg, p, x, state, pos, table, valid) one token per slot; dense
                                               cache when ``table`` is None
-  chunk(cfg, p, x, state, pos0, valid, table) one chunked-prefill piece
+  chunk(cfg, p, x, state, pos0, valid, n_valid, table)
+                                              one chunked-prefill piece
   state_spec(cfg, n, batch, s_max, device)    dense decode state
-  paged_state_spec(cfg, n, n_blocks, block_size, device)
-and, from :class:`PagedLayout`, the session migration surface
-(``export_slot`` / ``import_slot``).  States are updated in place.
+and, from :class:`PagedLayout`, the paged state its contract implies
+(``paged_state_spec``, ``paged_split`` / ``paged_merge``) and the session
+migration surface (``export_slot`` / ``import_slot``).  A state is a tree
+of tuples and NamedTuples over tensors, layer-stacked on axis 0 (per-slot
+leaves carry the batch on axis 1); it is updated in place.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, registry
+from repro_torch.models import layers, registry, ssm
 from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.models.params import ParamDef
 from repro_torch.models.registry import BlockContract, register
@@ -72,61 +79,142 @@ def _kv_dtype(cfg) -> torch.dtype:
     return torch.int8 if cfg.kv_cache_dtype == "i8" else cfg.dtype
 
 
+# -- state trees: tuples and NamedTuples over tensors, None for no state ------
+
+def state_map(fn, tree, *rest):
+    """Same-structure tree of ``fn(leaf, *leaves of rest)``; None stays."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    kids = [state_map(fn, t, *(r[i] for r in rest))
+            for i, t in enumerate(tree)]
+    return type(tree)(*kids) if hasattr(tree, "_fields") else tuple(kids)
+
+
+def state_leaves(tree) -> list:
+    """The tree's tensors in order (none for None)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for t in tree for leaf in state_leaves(t)]
+
+
+def _stack(trees: list):
+    """Per-layer trees -> one tree of layer-stacked leaves."""
+    if trees[0] is None:
+        return None
+    flat = [state_leaves(t) for t in trees]
+    it = iter([torch.stack(ls) for ls in zip(*flat)])
+    return state_map(lambda _: next(it), trees[0])
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a layer-stacked tree (views)."""
+    return state_map(lambda l: l[i], tree)
+
+
 class PagedLayout:
-    """Serving state derived from the kind's contract: a kind with
-    ``paged_kv`` keeps one layer-stacked :class:`PagedKVCache` pool per
-    segment (the paged layout) or one :class:`KVCache` (the dense one).
-    Per-slot dense state is not ported yet."""
+    """Serving state derived from the kind's contract, as the reference's
+    ``PagedLayout`` derives it:
+
+      ``paged_kv`` only         the state IS the shared pool: one
+                                layer-stacked :class:`PagedKVCache` (no
+                                batch axis) addressed through block tables
+      ``per_slot_state`` only   paged layout == dense layout: the per-slot
+                                leaves ride the batch axis (recurrent
+                                state is O(1) a slot; nothing to page)
+      both                      a ``(pool, per_slot)`` pair
+      neither                   stateless; None flows through everything
+
+    Kinds with ``per_slot_state`` may override :meth:`slot_spec` (default:
+    the dense :meth:`state_spec`, right whenever the dense state is all
+    per-slot)."""
 
     @classmethod
-    def _require_ported(cls):
+    def slot_spec(cls, cfg, n, batch, device):
+        return cls.state_spec(cfg, n, batch, 0, device)
+
+    @classmethod
+    def paged_state_spec(cls, cfg, n, batch, n_blocks, block_size, device):
         c = cls.contract
-        if c.per_slot_state:
-            raise NotImplementedError(
-                f"kind {c.kind!r}: per-slot decode state is not ported")
+        pool = (PagedKVCache.zeros(cfg, n_blocks, block_size, _kv_dtype(cfg),
+                                   device, n) if c.paged_kv else None)
+        slot = cls.slot_spec(cfg, n, batch, device) if c.per_slot_state \
+            else None
+        return cls.paged_merge(pool, slot)
 
     @classmethod
-    def paged_state_spec(cls, cfg, n, n_blocks, block_size, device):
-        cls._require_ported()
-        if not cls.contract.paged_kv:
-            return None
-        return PagedKVCache.zeros(cfg, n_blocks, block_size, _kv_dtype(cfg),
-                                  device, n)
+    def paged_split(cls, state):
+        """-> (shared pool leaves, per-slot leaves)."""
+        c = cls.contract
+        if c.paged_kv and c.per_slot_state:
+            return state[0], state[1]
+        if c.paged_kv:
+            return state, None
+        return None, state
 
     @classmethod
-    def state_spec(cls, cfg, n, batch, s_max, device):
-        cls._require_ported()
-        if not cls.contract.paged_kv:
-            return None
-        return KVCache.zeros(cfg, batch, s_max, _kv_dtype(cfg), device, n)
+    def paged_merge(cls, shared, per_slot):
+        c = cls.contract
+        if c.paged_kv and c.per_slot_state:
+            return (shared, per_slot)
+        if c.paged_kv:
+            return shared
+        return per_slot
 
     # -- slot extraction / injection (session migration) ---------------------
 
     @classmethod
-    def export_slot(cls, state, ids: torch.Tensor):
-        """One slot's state out of the layer-stacked paged pool ->
-        ``(shared, None)``, the reference's ``(shared, per_slot)`` pair with
-        no per-slot leaves: pool blocks gathered in table-row order through
-        ``ids`` (the slot's full (W,) row; unused entries name the trash
-        block 0, whose garbage travels along and is never read).  A pure
-        gather."""
-        idx = ids.to(state[0].device, torch.int64)
-        return (type(state)(*(l.index_select(1, idx) for l in state)), None)
+    def export_slot(cls, state, slot: int, ids: torch.Tensor | None):
+        """One slot's complete state out of the layer-stacked paged layout
+        -> the reference's ``(shared, per_slot)`` pair: pool blocks
+        gathered in table-row order through ``ids`` (the slot's full (W,)
+        row; unused entries name the trash block 0, whose garbage travels
+        along and is never read; row order alone fixes a window ring's
+        position -> block mapping), and the slot's per-slot leaves at batch
+        width 1 (copies).  A pure read; None for a half the kind lacks."""
+        shared, per_slot = cls.paged_split(state)
+        sh = None
+        if shared is not None:
+            idx = ids.to(shared[0].device, torch.int64)
+            sh = state_map(lambda l: l.index_select(1, idx), shared)
+        ps = state_map(lambda l: l[:, slot:slot + 1].clone(), per_slot)
+        return (sh, ps)
 
     @classmethod
-    def import_slot(cls, state, ids: torch.Tensor, payload) -> None:
+    def import_slot(cls, state, slot: int, ids: torch.Tensor | None,
+                    payload) -> None:
         """Inverse of :meth:`export_slot`, in place: the payload's blocks
         go to the *destination* row ``ids`` (same width, fresh ids; unused
-        entries 0, so the carried garbage lands in the trash block)."""
-        idx = ids.to(state[0].device, torch.int64)
-        for l, q in zip(state, payload[0]):
-            l[:, idx] = q.to(l.device, l.dtype)
+        entries 0, so the carried garbage lands in the trash block), its
+        per-slot leaves to ``slot``."""
+        sh_p, ps_p = payload
+        shared, per_slot = cls.paged_split(state)
+        if shared is not None:
+            idx = ids.to(shared[0].device, torch.int64)
+            for l, q in zip(state_leaves(shared), state_leaves(sh_p)):
+                l[:, idx] = q.to(l.device, l.dtype)
+        for l, q in zip(state_leaves(per_slot), state_leaves(ps_p)):
+            l[:, slot:slot + 1] = q.to(l.device, l.dtype)
+
+
+def _residual_ffn(cfg, p, x, a):
+    """The residual around a mixer's output ``a``, then the FFN.  ln2
+    reads the residual sum in f32, unrounded: XLA folds the bf16 rounding
+    of x + a into the norm's cast to f32 (it allows excess precision),
+    while the residual stream itself stays rounded."""
+    h = layers.rms_norm(x.float() + a, p["ln2"], dtype=x.dtype)
+    x = x + a
+    return x + layers.ffn(cfg, _sub(p, "ffn_"), h)
 
 
 @register
 class AttnBlock(PagedLayout):
     contract = BlockContract("attn", paged_kv=True, table_class="full",
                              prefix_shareable=True)
+    window = 0
 
     @classmethod
     def defs(cls, cfg, n):
@@ -136,48 +224,155 @@ class AttnBlock(PagedLayout):
         return defs
 
     @classmethod
-    def _ffn(cls, cfg, p, x, a):
-        """The residual around attention output ``a`` and the FFN.  ln2
-        reads the residual sum in f32, unrounded: XLA folds the bf16
-        rounding of x + a into the norm's cast to f32 (it allows excess
-        precision), while the residual stream itself stays rounded."""
-        h = layers.rms_norm(x.float() + a, p["ln2"], dtype=x.dtype)
-        x = x + a
-        return x + layers.ffn(cfg, _sub(p, "ffn_"), h)
+    def _win(cls, cfg) -> int:
+        return cfg.local_window if cls.window else 0
 
     @classmethod
     def fwd(cls, cfg, p, x, opts: FwdOpts):
-        """Full-sequence prefill: x (B, S, d) -> (x, KVCache or None)."""
+        """Full-sequence prefill: x (B, S, d) -> (x, KVCache or None); a
+        window's cache holds min(s_max, window) positions as a ring."""
         h = layers.rms_norm(x, p["ln1"])
         ap = _sub(p, "attn_")
+        win = cls._win(cfg)
         state = None
         if opts.want_state:
             positions = torch.arange(h.shape[1], device=h.device)
             k, v = attn_mod._project_kv(cfg, ap, h, positions)
-            state = _kv_from_seq(cfg, k, v, opts.s_max)
-        a = attn_mod.attention(cfg, ap, h, causal=True)
-        return cls._ffn(cfg, p, x, a), state
+            cap = min(opts.s_max, win) if win else opts.s_max
+            state = _kv_from_seq(cfg, k, v, cap, rolling=bool(win))
+        a = attn_mod.attention(cfg, ap, h, causal=True, window=win)
+        return _residual_ffn(cfg, p, x, a), state
 
     @classmethod
     def decode(cls, cfg, p, x, state, pos, table, valid=None):
         """One token per slot; ``table`` None reads the dense cache."""
         h = layers.rms_norm(x, p["ln1"])
+        win = cls._win(cfg)
         if table is None:
             a = attn_mod.decode_attention(cfg, _sub(p, "attn_"), h, state,
-                                          pos)
+                                          pos, window=win)
         else:
             a = attn_mod.paged_attention(cfg, _sub(p, "attn_"), h, state,
-                                         table, pos, valid=valid)
-        return cls._ffn(cfg, p, x, a)
+                                         table, pos, window=win, valid=valid)
+        return _residual_ffn(cfg, p, x, a)
 
     @classmethod
-    def chunk(cls, cfg, p, x, state, pos0, valid, table):
+    def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table):
         """One chunked-prefill piece: x (1, C, d) at positions
-        pos0 .. pos0 + C - 1; ``valid`` (1, C) marks the real tokens."""
+        pos0 .. pos0 + C - 1; ``valid`` (1, C) marks the first
+        ``n_valid`` tokens, the real ones."""
         h = layers.rms_norm(x, p["ln1"])
         a = attn_mod.paged_attention(cfg, _sub(p, "attn_"), h, state, table,
-                                     pos0, valid=valid)
-        return cls._ffn(cfg, p, x, a)
+                                     pos0, window=cls._win(cfg), valid=valid)
+        return _residual_ffn(cfg, p, x, a)
+
+    @classmethod
+    def state_spec(cls, cfg, n, batch, s_max, device):
+        win = cls._win(cfg)
+        cap = min(s_max, win) if win else s_max
+        return KVCache.zeros(cfg, batch, cap, _kv_dtype(cfg), device, n)
+
+
+@register
+class LocalBlock(AttnBlock):
+    # a window ring recycles physical blocks in place: never shareable
+    contract = BlockContract("local", paged_kv=True, table_class="win",
+                             window=True)
+    window = 1
+
+
+@register
+class RglruBlock(PagedLayout):
+    """Griffin's recurrent block: a gated branch gelu(h W_gate) times the
+    RG-LRU over conv1d(h W_x), projected by W_out; then the FFN.  The
+    state is per slot: ``(RGLRUState(h (B, d) f32), conv buffer (B, W-1,
+    d) in cfg.dtype)``."""
+    contract = BlockContract("rglru", per_slot_state=True)
+
+    @classmethod
+    def defs(cls, cfg, n):
+        d = cfg.d_model
+
+        def lin():
+            return ParamDef((n, d, d), cfg.dtype, binarize=True)
+        return {
+            "ln1": _norm_def(cfg, n), "ln2": _norm_def(cfg, n),
+            "w_gate": lin(), "w_x": lin(),
+            "conv_k": ParamDef((n, cfg.conv_width, d), torch.float32,
+                               scale=0.5),
+            "w_r": lin(), "w_i": lin(),
+            "lam": ParamDef((n, d), torch.float32, init="ones"),
+            "w_out": lin(),
+        } | {f"ffn_{k}": v for k, v in layers.ffn_defs(cfg, n).items()}
+
+    @classmethod
+    def _mix(cls, cfg, p, h):
+        return (layers.gelu(layers.linear(h, p["w_gate"], cfg.quant)),
+                layers.linear(h, p["w_x"], cfg.quant))
+
+    @classmethod
+    def _gates(cls, cfg, p, uc):
+        return (layers.linear(uc, p["w_r"], cfg.quant),
+                layers.linear(uc, p["w_i"], cfg.quant))
+
+    @classmethod
+    def fwd(cls, cfg, p, x, opts: FwdOpts):
+        h = layers.rms_norm(x, p["ln1"])
+        g, u = cls._mix(cfg, p, h)
+        uc = ssm.conv1d(u, p["conv_k"])
+        r, i = cls._gates(cfg, p, uc.to(u.dtype))
+        st0 = ssm.RGLRUState.zeros(x.shape[0], cfg.d_model, x.device)
+        y, st = ssm.rglru(uc, r, i, p["lam"], cfg.rglru_c, st0)
+        x = _residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
+                                                    cfg.quant))
+        state = None
+        if opts.want_state:
+            w1 = cfg.conv_width - 1
+            buf = u[:, -w1:]
+            if buf.shape[1] < w1:          # a prompt shorter than the taps
+                buf = torch.nn.functional.pad(buf,
+                                              (0, 0, w1 - buf.shape[1], 0))
+            state = (st, buf.to(cfg.dtype).contiguous())
+        return x, state
+
+    @classmethod
+    def decode(cls, cfg, p, x, state, pos, table, valid=None):
+        """One token per slot; the state is written in place (the caller
+        freezes inactive slots)."""
+        st, buf = state
+        h = layers.rms_norm(x, p["ln1"])
+        g, u = cls._mix(cfg, p, h)
+        uc, buf_new = ssm.conv1d_step(buf, u, p["conv_k"])
+        r, i = cls._gates(cfg, p, uc)
+        y, st_new = ssm.rglru_step(uc, r, i, p["lam"], cfg.rglru_c, st)
+        x = _residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
+                                                    cfg.quant))
+        st.h.copy_(st_new.h)
+        buf.copy_(buf_new)
+        return x
+
+    @classmethod
+    def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table):
+        st, buf = state
+        h = layers.rms_norm(x, p["ln1"])
+        g, u = cls._mix(cfg, p, h)
+        uc = ssm.conv1d_carry(buf, u, p["conv_k"])
+        r, i = cls._gates(cfg, p, uc.to(u.dtype))
+        y, st_new = ssm.rglru(uc, r, i, p["lam"], cfg.rglru_c, st,
+                              valid=valid)
+        x = _residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
+                                                    cfg.quant))
+        st.h.copy_(st_new.h)
+        buf.copy_(ssm.conv1d_carry_out(buf, u, n_valid))
+        return x
+
+    @classmethod
+    def state_spec(cls, cfg, n, batch, s_max, device):
+        d, w1 = cfg.d_model, cfg.conv_width - 1
+        return (ssm.RGLRUState(torch.zeros((n, batch, d), dtype=torch.float32,
+                                           device=device)),
+                torch.zeros((n, batch, w1, d), dtype=cfg.dtype,
+                            device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -199,8 +394,7 @@ def segment_fwd(cfg, seg_params: list, x, opts: FwdOpts = FwdOpts()):
         for i in range(n):
             x, st = block.fwd(cfg, layer_params(p, i), x, opts)
             sts.append(st)
-        states.append(None if sts[0] is None else
-                      type(sts[0])(*(torch.stack(ls) for ls in zip(*sts))))
+        states.append(_stack(sts))
     return x, states
 
 
@@ -212,8 +406,14 @@ def _block_table(block, tables):
     return tables[block.contract.table_class]
 
 
-def _layer_state(state, i):
-    return None if state is None else state.layer(i)
+def _freeze_inactive(per_slot, old, active: torch.Tensor) -> None:
+    """Put inactive slots' per-slot rows back to ``old``, in place: a
+    mid-prefill slot rides in the decode batch and its recurrent carry must
+    not advance on the token it is fed.  Shared pool leaves need nothing
+    (their writes are trash-routed through ``valid``)."""
+    for leaf, o in zip(state_leaves(per_slot), state_leaves(old)):
+        keep = active.reshape((1, -1) + (1,) * (leaf.ndim - 2))
+        leaf.copy_(torch.where(keep, leaf, o))
 
 
 def segment_decode(cfg, seg_params: list, x, states: list, pos,
@@ -221,77 +421,107 @@ def segment_decode(cfg, seg_params: list, x, states: list, pos,
     """One token for every slot through every segment.  ``tables`` None
     reads the dense caches; otherwise the attn-family blocks go through
     their block tables.  ``active`` (B,) bool trash-routes inactive slots'
-    paged writes (a dense cache's dead rows are inert by overwrite)."""
+    paged writes (a dense cache's dead rows are inert by overwrite) and
+    keeps their per-slot state as it was."""
     valid = None if active is None else active[:, None]
     for ((kind, n), p), st in zip(seg_params, states):
         block = registry.get(kind)
         table = _block_table(block, tables)
+        _, per_slot = block.paged_split(st)
+        old = (None if per_slot is None or active is None
+               else state_map(torch.clone, per_slot))
         for i in range(n):
-            x = block.decode(cfg, layer_params(p, i), x, _layer_state(st, i),
+            x = block.decode(cfg, layer_params(p, i), x, _layer(st, i),
                              pos, table, valid=valid)
+        if old is not None:
+            _freeze_inactive(per_slot, old, active)
     return x
 
 
-def segment_chunk(cfg, seg_params: list, x, states: list, pos0, valid,
-                  tables: dict):
-    """One chunked-prefill piece (B=1, S=C) through every segment;
+def segment_chunk(cfg, seg_params: list, x, states: list, slot: int, pos0,
+                  valid, n_valid: int, tables: dict, fresh: bool = False):
+    """One chunked-prefill piece (B=1, S=C) through every segment.
+
+    Per-slot leaves are viewed at ``slot`` (written in place), reset to
+    their initial values when ``fresh`` (the request's first chunk
+    overwrites what the slot's previous tenant left); shared pools pass
+    whole (the block table confines writes to this slot's blocks).
     ``tables`` rows are this slot's (1, W) rows."""
     for ((kind, n), p), st in zip(seg_params, states):
         block = registry.get(kind)
         table = _block_table(block, tables)
+        shared, per_slot = block.paged_split(st)
+        ps = state_map(lambda l: l[:, slot:slot + 1], per_slot)
+        if ps is not None and fresh:
+            init = block.slot_spec(cfg, n, 1, x.device)
+            state_map(lambda l, i: l.copy_(i), ps, init)
         for i in range(n):
-            x = block.chunk(cfg, layer_params(p, i), x, _layer_state(st, i),
-                            pos0, valid, table)
+            st_i = block.paged_merge(_layer(shared, i), _layer(ps, i))
+            x = block.chunk(cfg, layer_params(p, i), x, st_i, pos0, valid,
+                            n_valid, table)
     return x
 
 
 def segment_copy_block(cfg, states: list, src: int, dst: int) -> None:
     """Copy physical block ``src`` -> ``dst`` in every shared pool (the
     device half of copy-on-write prefix sharing).  Block ids are unique
-    across table classes, so copying in every pool is safe."""
-    for st in states:
-        if st is not None:
-            st.copy_block(src, dst)
+    across table classes, so copying in every pool is safe; per-slot
+    leaves are never block-granular and pass untouched."""
+    for (kind, _), st in zip(cfg.segments(), states):
+        shared, _ = registry.get(kind).paged_split(st)
+        if shared is not None:
+            shared.copy_block(src, dst)
 
 
-def segment_export_slot(cfg, states: list, ids: dict) -> tuple:
+def _row(block, ids: dict):
+    c = block.contract
+    return ids[c.table_class] if c.paged_kv else None
+
+
+def segment_export_slot(cfg, states: list, slot: int, ids: dict) -> tuple:
     """One slot's state out of every segment: ``ids`` maps table class ->
     the slot's full (W,) row, resolved through each kind's contract.
     Returns a tuple of per-segment ``(shared, per_slot)`` payloads."""
-    return tuple(registry.get(kind).export_slot(
-        st, ids[registry.get(kind).contract.table_class])
-        for (kind, _), st in zip(cfg.segments(), states))
+    out = []
+    for (kind, _), st in zip(cfg.segments(), states):
+        block = registry.get(kind)
+        out.append(block.export_slot(st, slot, _row(block, ids)))
+    return tuple(out)
 
 
-def segment_import_slot(cfg, states: list, ids: dict, payloads) -> None:
-    """Inverse of :func:`segment_export_slot`, in place, into the
-    destination rows ``ids``."""
+def segment_import_slot(cfg, states: list, slot: int, ids: dict,
+                        payloads) -> None:
+    """Inverse of :func:`segment_export_slot`, in place, into ``slot`` and
+    the destination rows ``ids``."""
     for (kind, _), st, pl in zip(cfg.segments(), states, payloads):
         block = registry.get(kind)
-        block.import_slot(st, ids[block.contract.table_class], pl)
+        block.import_slot(st, slot, _row(block, ids), pl)
 
 
 def segment_gather_block(cfg, states: list, bid: int) -> tuple:
     """Physical block ``bid`` of every shared pool (None for segments with
-    no pool): the integrity scrubber's view of an idle cached block."""
+    no pool): the integrity scrubber's view of an idle cached block;
+    per-slot state is not part of a block's identity."""
     out = []
-    for st in states:
-        out.append(None if st is None
-                   else type(st)(*(l[:, bid].clone() for l in st)))
+    for (kind, _), st in zip(cfg.segments(), states):
+        shared, _ = registry.get(kind).paged_split(st)
+        out.append(state_map(lambda l: l[:, bid].clone(), shared))
     return tuple(out)
 
 
 def segment_states(cfg, segments, batch: int, s_max: int, device) -> list:
-    """Dense decode states per segment, layer-stacked:
-    ``(n, batch, KV, s_max, dh)`` caches."""
+    """Dense decode states per segment, layer-stacked: ``(n, batch, KV,
+    s_max, dh)`` caches (a window's capped at the window) and per-slot
+    ``(n, batch, ...)`` leaves."""
     return [registry.get(kind).state_spec(cfg, n, batch, s_max, device)
             for kind, n in segments]
 
 
-def segment_paged_states(cfg, segments, n_blocks: int, block_size: int,
-                         device) -> list:
-    """Layer-stacked paged pools per segment
-    ``(n, n_blocks, KV, block_size, dh)``."""
-    return [registry.get(kind).paged_state_spec(cfg, n, n_blocks, block_size,
-                                                device)
+def segment_paged_states(cfg, segments, batch: int, n_blocks: int,
+                         block_size: int, device) -> list:
+    """Paged states per segment: layer-stacked shared pools
+    ``(n, n_blocks, KV, block_size, dh)`` and per-slot ``(n, batch, ...)``
+    leaves, as each kind's contract says."""
+    return [registry.get(kind).paged_state_spec(cfg, n, batch, n_blocks,
+                                                block_size, device)
             for kind, n in segments]

@@ -1,7 +1,10 @@
 """Shared neural layers: RMSNorm, projections (optionally XNOR-binarized),
-RoPE, SwiGLU FFN, embeddings and the full-precision lm head."""
+RoPE, SwiGLU FFN, the tanh GELU, embeddings and the full-precision lm
+head."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -73,6 +76,21 @@ def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     f32).  Subnormals are the platform's: XLA's CPU and the TPU flush them
     to zero, torch keeps them unless ``torch.set_flush_denormal`` is on."""
     return g * torch.exp(-g).add_(1).reciprocal_() * u
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form, its default) as the reference
+    computes it: x (0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))) with
+    every step rounded to x's dtype and the constants rounded to it first
+    (``x ** 3`` is x (x x)).  The jitted reference keeps each bf16 step
+    (``torch.nn.functional.gelu(approximate="tanh")`` rounds once from
+    f32 and differs on about 2 % of bf16 inputs); subnormals are the
+    platform's, as in :func:`silu_mul`."""
+    def c(v):
+        return torch.tensor(v, dtype=torch.float32).to(x.dtype)
+    inner = x + c(0.044715) * (x * (x * x))
+    cdf = c(0.5) * (1.0 + torch.tanh(c(math.sqrt(2 / math.pi)) * inner))
+    return x * cdf
 
 
 def ffn(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:

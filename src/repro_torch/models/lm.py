@@ -65,14 +65,16 @@ def _seg_params(cfg, params):
 class DecodeState(NamedTuple):
     pos: torch.Tensor          # int32 tokens consumed: scalar (homogeneous
                                # batch) or (B,) per slot
-    seg_states: list           # per-segment layer-stacked caches / pools
+    seg_states: list           # per-segment layer-stacked state trees:
+                               # caches / pools and per-slot leaves
 
 
 def decode_state_spec(cfg, batch: int, s_max: int, *, device,
                       per_slot_pos: bool = False) -> DecodeState:
     """Zeroed dense resident state: (n, batch, KV, s_max, dh) caches per
-    segment and a scalar ``pos``, or a (batch,) vector with
-    ``per_slot_pos`` (continuous batching)."""
+    segment (a window's capped at the window), per-slot recurrent leaves,
+    and a scalar ``pos``, or a (batch,) vector with ``per_slot_pos``
+    (continuous batching)."""
     seg = blocks.segment_states(cfg, cfg.segments(), batch, s_max, device)
     pshape = (batch,) if per_slot_pos else ()
     return DecodeState(torch.zeros(pshape, dtype=torch.int32, device=device),
@@ -81,7 +83,8 @@ def decode_state_spec(cfg, batch: int, s_max: int, *, device,
 
 def prefill(cfg, params, tokens: torch.Tensor, s_max: int):
     """tokens (B, S) -> (logits of the last position (B, 1, V), a fresh
-    dense DecodeState of capacity ``s_max`` with scalar ``pos`` = S)."""
+    dense DecodeState of capacity ``s_max`` with scalar ``pos`` = S): the
+    caches (a window's as its ring) and the recurrent state after S."""
     x = layers.embed(params["embed"], tokens).to(cfg.dtype)
     opts = blocks.FwdOpts(want_state=True, s_max=s_max)
     x, states = blocks.segment_fwd(cfg, _seg_params(cfg, params), x, opts)
@@ -94,8 +97,9 @@ def prefill(cfg, params, tokens: torch.Tensor, s_max: int):
 def decode_step(cfg, params, token: torch.Tensor, state: DecodeState,
                 active: torch.Tensor | None = None):
     """token (B, 1) -> logits (B, 1, V) against the dense state.  ``active``
-    (B,) bool freezes inactive slots' positions: a dead slot rewrites its
-    frozen cache line, inert until an admission overwrites it."""
+    (B,) bool freezes inactive slots' positions and per-slot state: a dead
+    slot rewrites its frozen cache line, inert until an admission
+    overwrites it."""
     x = layers.embed(params["embed"], token).to(cfg.dtype)
     x = blocks.segment_decode(cfg, _seg_params(cfg, params), x,
                               state.seg_states, state.pos, None,
@@ -126,8 +130,9 @@ def paged_table_widths(cfg, s_max: int, block_size: int,
 
 def paged_decode_state_spec(cfg, batch: int, *, n_blocks: int,
                             block_size: int, device) -> DecodeState:
-    """Zeroed resident state: shared pools + per-slot positions."""
-    seg = blocks.segment_paged_states(cfg, cfg.segments(), n_blocks,
+    """Zeroed resident state: shared pools, per-slot recurrent leaves and
+    per-slot positions."""
+    seg = blocks.segment_paged_states(cfg, cfg.segments(), batch, n_blocks,
                                       block_size, device)
     return DecodeState(torch.zeros((batch,), dtype=torch.int32,
                                    device=device), seg)
@@ -136,7 +141,8 @@ def paged_decode_state_spec(cfg, batch: int, *, n_blocks: int,
 def paged_decode_step(cfg, params, token: torch.Tensor, state: DecodeState,
                       tables: dict, active: torch.Tensor | None = None):
     """token (B, 1) -> logits (B, 1, V) for every slot.  ``active`` (B,)
-    bool freezes inactive slots' positions and trash-routes their writes."""
+    bool freezes inactive slots' positions and per-slot state and
+    trash-routes their writes."""
     x = layers.embed(params["embed"], token).to(cfg.dtype)
     x = blocks.segment_decode(cfg, _seg_params(cfg, params), x,
                               state.seg_states, state.pos, tables,
@@ -154,7 +160,8 @@ def prefill_chunk_step(cfg, params, tokens: torch.Tensor, state: DecodeState,
     tokens (1, C) hold positions ``pos0 .. pos0 + C - 1`` with
     ``pos0 = start`` on the request's first chunk (``fresh``; ``start`` is
     the prefix-cache skip point) and ``state.pos[slot]`` after; the first
-    ``n_valid`` tokens are real.  ``tables`` rows are (1, W).
+    ``n_valid`` tokens are real.  ``fresh`` also resets the slot's
+    per-slot state.  ``tables`` rows are (1, W).
     Returns (logits of the last valid position (1, 1, V), state)."""
     c = tokens.shape[1]
     dev = tokens.device
@@ -163,7 +170,8 @@ def prefill_chunk_step(cfg, params, tokens: torch.Tensor, state: DecodeState,
     valid = (torch.arange(c, device=dev) < n_valid)[None]       # (1, C)
     x = layers.embed(params["embed"], tokens).to(cfg.dtype)
     x = blocks.segment_chunk(cfg, _seg_params(cfg, params), x,
-                             state.seg_states, pos0, valid, tables)
+                             state.seg_states, slot, pos0, valid, n_valid,
+                             tables, fresh=fresh)
     logits = layers.logits(cfg, params["embed"], x[:, n_valid - 1:n_valid])
     state.pos[slot:slot + 1] = pos0 + n_valid
     return logits, state
@@ -177,7 +185,9 @@ def paged_copy_block(cfg, state: DecodeState, src: int, dst: int):
 
 def prefix_cache_eligible(cfg) -> bool:
     """Prefix sharing is sound only when every decoder kind declares
-    ``prefix_shareable`` (fail-closed)."""
+    ``prefix_shareable`` (fail-closed): recurrent kinds carry per-slot
+    state a skipped prefix would leave cold, and window rings recycle
+    their blocks in place, so a hybrid such as recurrentgemma is not."""
     kinds = {k for k, _ in cfg.segments()}
     return bool(kinds) and all(registry.contract(k).prefix_shareable
                                for k in kinds)
@@ -200,10 +210,10 @@ def prefix_table_class(cfg) -> str | None:
 def export_slot(cfg, state: DecodeState, slot: int, ids: dict) -> dict:
     """One slot's complete state as a self-contained tree ``{"pos": (1,)
     int32, "segs": per-segment (shared, per_slot) pairs}``: paged blocks in
-    table-row order (``ids`` maps table class -> the slot's (W,) row); the
-    ``attn`` kind has no per-slot leaves.  A pure gather; paged layout
-    only."""
-    segs = blocks.segment_export_slot(cfg, state.seg_states, ids)
+    table-row order (``ids`` maps table class -> the slot's (W,) row) and
+    per-slot leaves (the RG-LRU's f32 ``h``, the conv buffer) at batch
+    width 1.  A pure read; paged layout only."""
+    segs = blocks.segment_export_slot(cfg, state.seg_states, slot, ids)
     return {"pos": state.pos[slot:slot + 1].clone(), "segs": segs}
 
 
@@ -213,7 +223,8 @@ def import_slot(cfg, state: DecodeState, slot: int, ids: dict,
     ``slot`` with ``ids`` the destination rows (same widths, fresh ids)."""
     state.pos[slot:slot + 1] = payload["pos"].to(state.pos.device,
                                                  torch.int32)
-    blocks.segment_import_slot(cfg, state.seg_states, ids, payload["segs"])
+    blocks.segment_import_slot(cfg, state.seg_states, slot, ids,
+                               payload["segs"])
     return state
 
 
@@ -224,8 +235,7 @@ def export_slot_spec(cfg, state: DecodeState, widths: dict) -> dict:
     ids = {c: torch.zeros((w,), dtype=torch.int64, device="meta")
            for c, w in widths.items()}
     meta = DecodeState(state.pos.to("meta"),
-                       [None if st is None else type(st)(
-                           *(l.to("meta") for l in st))
+                       [blocks.state_map(lambda l: l.to("meta"), st)
                         for st in state.seg_states])
     return export_slot(cfg, meta, 0, ids)
 

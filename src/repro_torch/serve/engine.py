@@ -45,7 +45,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import prng
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 from repro_torch.models.params import tree_map
 from repro_torch.serve.pools import BlockPool, SlotPool
 from repro_torch.serve.prefix import PrefixIndex
@@ -73,9 +73,8 @@ def _insert_slot(resident: lm.DecodeState, one: lm.DecodeState,
     """Scatter a freshly prefilled batch-1 dense state into resident slot
     ``slot``, in place (leaves are layer-stacked, batch at axis 1)."""
     for r, o in zip(resident.seg_states, one.seg_states):
-        if r is not None:
-            for rl, ol in zip(r, o):
-                rl[:, slot] = ol[:, 0]
+        for rl, ol in zip(blocks.state_leaves(r), blocks.state_leaves(o)):
+            rl[:, slot] = ol[:, 0]
     resident.pos[slot] = one.pos
 
 

@@ -1,0 +1,85 @@
+"""The port's configs against the reference's, and the two dense configs
+this port adds beside qwen2-7b / qwen3-4b (phi4-mini-3.8b, qwen3-14b),
+served at their smoke size with the reference engine's greedy tokens.
+
+Every ported arch must equal the reference's config field by field, full
+size and smoke; archs whose block kinds the port does not serve stay out
+of its registry."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+from repro.models import lm as jlm
+from repro.serve import ServeEngine as JServeEngine
+from repro.serve import synthetic_trace as jsynthetic_trace
+import repro_torch.configs as configs
+from repro_torch import convert
+from repro_torch.models import registry
+from repro_torch.serve import ServeEngine, synthetic_trace
+
+TRACE = dict(prompt_lens=(4, 8, 12, 16), new_tokens=(4, 8),
+             prefix_frac=0.5, prefix_len=16)
+PORTED = sorted(configs.ALL)
+
+
+def test_registry_lists_the_ported_archs():
+    assert PORTED == ["phi4-mini-3.8b", "qwen2-7b", "qwen3-14b", "qwen3-4b",
+                      "recurrentgemma-2b"]
+    for name in ("xlstm-350m", "moonshot-v1-16b-a3b", "whisper-tiny"):
+        with pytest.raises(KeyError):
+            configs.get(name)
+    for name in PORTED:           # no ported config names an unported kind
+        for kind, _ in configs.get(name).segments():
+            registry.get(kind)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("xnor", [False, True])
+@pytest.mark.parametrize("name", PORTED)
+def test_config_equals_the_references(name, xnor, smoke):
+    """Every field the port declares, and the derived ones, are the
+    reference's (dtypes by name)."""
+    arch = name + ("+xnor" if xnor else "")
+    t, j = configs.get(arch), jconfigs.get(arch)
+    if smoke:
+        t, j = t.smoke(), j.smoke()
+    for f in dataclasses.fields(t):
+        got, want = getattr(t, f.name), getattr(j, f.name)
+        if f.name == "dtype":
+            got, want = str(got)[6:], jnp.dtype(want).name
+        assert got == want, (arch, f.name, got, want)
+    for prop in ("q_per_kv", "padded_vocab"):
+        assert getattr(t, prop) == getattr(j, prop)
+    assert t.segments() == j.segments()
+    assert t.layer_kinds() == j.layer_kinds()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "phi4-mini-3.8b+xnor",
+                                  "qwen3-14b", "qwen3-14b+xnor"])
+def test_smoke_greedy_tokens_match_reference(arch, dtype):
+    """phi4-mini (G 3) and qwen3-14b (G 5, qk_norm) at smoke size, paged,
+    packed where binarized, prefix cache on: the reference engine's greedy
+    tokens and counters."""
+    jcfg = jconfigs.get(arch).smoke(dtype=jnp.dtype(dtype))
+    cfg = configs.get(arch).smoke(dtype=getattr(torch, dtype))
+    jp = jlm.init_params(jcfg, jax.random.PRNGKey(7))
+    tp = convert.from_jax(cfg, jax.tree.map(np.asarray, jp))
+    jeng = JServeEngine(jcfg, jp, slots=2, s_max=40, pack=True, paged=True)
+    for r in jsynthetic_trace(6, jcfg.vocab, seed=0, **TRACE):
+        jeng.submit(r)
+    jrep = jeng.run()
+    eng = ServeEngine(cfg, tp, slots=2, s_max=40, pack=True, device="cpu")
+    for r in synthetic_trace(6, cfg.vocab, seed=0, **TRACE):
+        eng.submit(r)
+    rep = eng.run()
+    assert ({rid: rep.tokens(rid).tolist() for rid in rep.sessions}
+            == {rid: jrep.tokens(rid).tolist() for rid in jrep.sessions})
+    assert rep.stats.prefix_hits == jrep.stats.prefix_hits > 0
+    assert rep.stats.decode_steps == jrep.stats.decode_steps

@@ -82,6 +82,11 @@ def test_cuda_pack(gpu, k, dtype):
 
 QWEN2_7B_LINEARS = [(3584, 3584), (512, 3584), (18944, 3584),
                     (3584, 18944)]                       # (N, K)
+# the decode shapes of the other ported archs (N, K)
+NEW_LINEARS = [(2560, 2560), (256, 2560), (7680, 2560), (2560, 7680),  # rg-2b
+               (3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192),  # phi4
+               (5120, 5120), (1024, 5120), (17408, 5120),
+               (5120, 17408)]                                   # qwen3-14b
 
 
 @pytest.mark.cuda
@@ -115,6 +120,25 @@ def test_cuda_xnor_linear_fused(gpu, m, k, n):
     off = torch.cat([xb.new_zeros(1), xb.reshape(-1)])[1:].reshape(m, k)
     assert torch.equal(kxnor.xnor_linear_fused(off, pb, beta, k),
                        kxnor.linear_kernel_order(off, pb, beta, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for n, k in NEW_LINEARS
+                                   for m in (4, 32)])
+def test_cuda_xnor_linear_fused_other_archs(gpu, m, k, n):
+    """recurrentgemma-2b's, phi4-mini's and qwen3-14b's linear shapes at
+    M 4 (decode) and 32 (a prefill chunk): bitwise against the plain
+    version summed in the kernel's order, f32 and bf16."""
+    g = torch.Generator(device=gpu)
+    g.manual_seed(m * 7 + k + n)
+    pb, beta = xnor_layers.pack_weights(
+        torch.randn((n, k), generator=g, device=gpu))
+    for dtype, tol in ((torch.float32, (2e-5, 2e-5)),
+                       (torch.bfloat16, (2 ** -8, 1e-6))):
+        x = torch.randn((m, k), generator=g, device=gpu).to(dtype)
+        kk, pp = _kernel_and_plain(kxnor.xnor_linear_fused, x, pb, beta, k)
+        assert torch.equal(kk, kxnor.linear_kernel_order(x, pb, beta, k))
+        torch.testing.assert_close(kk, pp, rtol=tol[0], atol=tol[1])
 
 
 @pytest.mark.cuda
@@ -211,6 +235,64 @@ def test_cuda_paged_decode_rows_do_not_depend_on_the_batch(gpu, w, dtype):
     two = kpaged.paged_decode_attention(q[:2].contiguous(), ck, cv,
                                         table[:2].contiguous(),
                                         pos[:2].contiguous(),
+                                        scale=dh ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(four[:2], two)
+
+
+DH256 = [("f32", False, (2e-5, 2e-5)), ("bf16", False, BF16_ULP),
+         ("bf16", True, BF16_ULP)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,dtype,i8,tol",
+                         [(g, *c) for g in range(9, 17) for c in DH256]
+                         + [(g, *DH256[0]) for g in (1, 8)])
+def test_cuda_paged_decode_dh256(gpu, g, dtype, i8, tol):
+    """dh 256 at G 9-16 (RecurrentGemma's MQA is G 10), and G 1 and 8 in
+    f32: the instances that score two row groups from one staged page.
+    Monotone at W 8 and a wrapping 2048-key window ring over the 130
+    columns RecurrentGemma's local layers serve (W 130 > 2048 / 16, so
+    every slot's walk splits)."""
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    for w, window, pos in ((8, 0, [0, 17, 127, 64]),
+                           (130, 2048, [2099, 2048, 5000, 1000])):
+        q, ck, cv, table, scale, out_scale = _case(
+            b=4, kv=1, g=g, dh=256, bs=16, w=w, i8=i8, seed=g)
+        conv = (lambda a: torch.from_numpy(a).to(gpu)) if i8 else \
+            (lambda a: torch.from_numpy(a).to(gpu, tdt))
+        args = (torch.from_numpy(q).to(gpu, tdt), conv(ck), conv(cv),
+                torch.from_numpy(table).to(gpu),
+                torch.tensor(pos, dtype=torch.int32, device=gpu))
+        kk, pp = _kernel_and_plain(kpaged.paged_decode_attention, *args,
+                                   window=window, scale=scale,
+                                   out_scale=out_scale)
+        torch.testing.assert_close(kk.float(), pp.float(), rtol=tol[0],
+                                   atol=tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,window", [(8, 0), (130, 2048)])
+def test_cuda_paged_decode_rows_do_not_depend_on_the_batch_g10(gpu, w,
+                                                              window, dtype):
+    """F2's invariant at RecurrentGemma's instance (KV 1, G 10, dh 256):
+    slots 0-1 of a 4-slot launch equal a 2-slot launch's bitwise."""
+    b, kv, g, dh, bs = 4, 1, 10, 256, 16
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(w + 10)
+    q = torch.randn((b, kv, g, dh), generator=gen, device=gpu).to(dtype)
+    ck, cv = (torch.randn((1 + b * w, kv, bs, dh), generator=gen,
+                          device=gpu).to(dtype) for _ in range(2))
+    table = (torch.randperm(b * w, generator=gen, device=gpu).reshape(b, w)
+             + 1).to(torch.int32)
+    pos = torch.tensor([w * bs - 1, 17, 4000, 3], dtype=torch.int32,
+                       device=gpu)
+    four = kpaged.paged_decode_attention(q, ck, cv, table, pos,
+                                         window=window, scale=dh ** -0.5)
+    two = kpaged.paged_decode_attention(q[:2].contiguous(), ck, cv,
+                                        table[:2].contiguous(),
+                                        pos[:2].contiguous(), window=window,
                                         scale=dh ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(four[:2], two)

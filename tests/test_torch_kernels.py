@@ -373,3 +373,16 @@ def test_paged_decode_random_layouts(b, w, bs, seed, ring):
     pos = rng.integers(0, 3 * cap if ring else cap, size=(b,))
     window = int(rng.integers(1, cap + 1)) if ring else 0
     _paged_parity(case, pos.tolist(), window=window, tol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol,i8", [("f32", 2e-5, False),
+                                          ("bf16", 3e-2, False),
+                                          ("f32", 2e-5, True)])
+def test_paged_decode_recurrentgemma_geometry(dtype, tol, i8):
+    """RecurrentGemma's local attention: KV 1, G 10, dh 256, bs 16, over a
+    ring of 130 columns (window 2048 + a 32-token chunk) that wraps: the
+    plain version against the reference's oracle."""
+    case = _case(b=2, kv=1, g=10, dh=256, bs=16, w=130, dtype=dtype, i8=i8,
+                 seed=10)
+    _paged_parity(case, [2099, 4300], window=2048, tol=tol)
+    _paged_parity(case, [5, 2047], window=2048, tol=tol)

@@ -29,7 +29,7 @@ from repro.models import lm as jlm
 import repro_torch.configs as configs
 from repro_torch import convert
 from repro_torch.kernels import ops, paged_attn
-from repro_torch.models import attention, blocks, layers, lm
+from repro_torch.models import blocks, layers, lm
 from repro_torch.serve import ServeEngine
 
 CASES = [("qwen2-7b+xnor", {}, True),          # the slice: packed residency
@@ -379,10 +379,8 @@ def _undone(what: str | None):
     ``"ln2"`` feeds the second RMSNorm the bf16-rounded residual sum,
     ``"cpu"`` takes the fused ops on the CPU (``fused_mode("auto")`` as on
     the card: decode attention without the bf16 rounding of P)."""
-    def attn_ffn(cls, cfg, p, x, state, table, pos, valid):
-        h = layers.rms_norm(x, p["ln1"])
-        x = x + attention.paged_attention(cfg, blocks._sub(p, "attn_"), h,
-                                          state, table, pos, valid=valid)
+    def residual_ffn(cfg, p, x, a):
+        x = x + a
         h = layers.rms_norm(x, p["ln2"])
         return x + layers.ffn(cfg, blocks._sub(p, "ffn_"), h)
 
@@ -392,7 +390,7 @@ def _undone(what: str | None):
     resolve = ops.fused_mode
     owner, attr, new = {
         "gate": (layers, "silu_mul", lambda g, u: g * torch.sigmoid(g) * u),
-        "ln2": (blocks.AttnBlock, "_attn_ffn", classmethod(attn_ffn)),
+        "ln2": (blocks, "_residual_ffn", residual_ffn),
         "cpu": (ops, "fused_mode", lambda mode="auto", device="cuda":
                 resolve(mode, "cuda"))}[what]
     old = owner.__dict__[attr]

@@ -1,5 +1,7 @@
 """Live session migration in the port, mirroring ``tests/test_migration.py``
-for the ported ``attn`` kind, plus both cross-package directions.
+for the ported ``attn`` kind and for RecurrentGemma's ``rglru`` + ``local``
+(per-slot leaves beside window-ring blocks), plus both cross-package
+directions.
 
 The contract: a session exported mid-flight — through an encrypted
 checkpoint on disk, restored on another engine against a spec that engine
@@ -284,6 +286,152 @@ def test_port_wire_restores_into_the_reference(xnor_bf16, tmp_path):
     it against its own spec, imports it and finishes it with its own
     never-migrated tokens."""
     jcfg, jp, cfg, tp = xnor_bf16
+    trace = _trace(cfg, 4)
+    want = _baseline(_jmk(jcfg, jp, pack=True),
+                     _trace(jcfg, 4, fn=jsynthetic_trace))
+    src = _mk(cfg, tp, pack=True)
+    for r in trace:
+        src.submit(r)
+    sess = _mid_decode_session(src)
+    rid = sess.request.rid
+    d = str(tmp_path / "wire")
+    ckpt.save(d, 1, src.export_session(rid), root_key=KEY, device="cpu")
+    dst = _jmk(jcfg, jp, pack=True)
+    restored, _ = jckpt.restore(d, 1, dst.export_spec(sess.request),
+                                root_key=KEY)
+    dst.import_session(sess.request, restored)
+    assert dst.sessions[rid].tokens == sess.tokens
+    assert dst.run().tokens(rid).tolist() == want[rid]
+
+
+# ---------------------------------------------------------------------------
+# RecurrentGemma: per-slot state (the RG-LRU's f32 h, the conv buffer)
+# travels beside the local layers' window-ring blocks
+# ---------------------------------------------------------------------------
+
+RG = "recurrentgemma-2b+xnor"
+
+
+@pytest.fixture(scope="module")
+def rgemma():
+    return _setup(RG)
+
+
+def test_recurrent_wire_carries_per_slot_leaves(rgemma, tmp_path):
+    """The wire's state holds, per rglru segment, the slot's f32 ``h`` and
+    its conv buffer at batch width 1, and per local segment the ring
+    blocks through the ``win`` row; the reference's leaf names."""
+    _, _, cfg, tp = rgemma
+    a = _mk(cfg, tp)
+    for r in _trace(cfg, 2):
+        a.submit(r)
+    sess = _mid_decode_session(a)
+    wire = a.export_session(sess.request.rid)
+    (h, buf), pool = wire["state"]["segs"][0][1], wire["state"]["segs"][1][0]
+    assert wire["state"]["segs"][0][0] is None
+    assert wire["state"]["segs"][1][1] is None
+    assert h.h.shape == (2, 1, cfg.d_model) and h.h.dtype == torch.float32
+    assert buf.shape == (2, 1, cfg.conv_width - 1, cfg.d_model)
+    assert pool.k.shape[1] == a._widths["win"]
+    man = ckpt.save(str(tmp_path / "wire"), 1, wire, root_key=KEY,
+                    device="cpu")
+    assert sorted(k for k in man["leaves"] if k.startswith("state/segs")) \
+        == ["state/segs/0/1/0/.h", "state/segs/0/1/1", "state/segs/1/0/.k",
+            "state/segs/1/0/.v"]
+
+
+def test_recurrent_migration_identity_mid_decode(rgemma, tmp_path):
+    jcfg, jp, cfg, tp = rgemma
+    trace = _trace(cfg, 4)
+    want = _baseline(_mk(cfg, tp), trace)
+    assert want == _baseline(_jmk(jcfg, jp),
+                             _trace(jcfg, 4, fn=jsynthetic_trace))
+    a = _mk(cfg, tp)
+    for r in trace:
+        a.submit(r)
+    sess = _mid_decode_session(a)
+    rid = sess.request.rid
+    b = _mk(cfg, tp)
+    _ship(a, b, rid, sess.request, str(tmp_path / "wire"))
+    got = _finish(trace, {"a": a, "b": b}, lambda r: "b" if r == rid else "a")
+    assert got == want
+
+
+def test_recurrent_migration_identity_mid_chunked_prefill(rgemma, tmp_path):
+    """Shipped after its first chunk: the carry and conv buffer the chunk
+    left go along, and the next chunk continues from them (not fresh)."""
+    _, _, cfg, tp = rgemma
+    trace = _trace(cfg, 3, plens=(20, 23), ntoks=(6, 8))
+    want = _baseline(_mk(cfg, tp), trace)
+    a = _mk(cfg, tp)
+    for r in trace:
+        a.submit(r)
+    a.step()
+    slot = next(iter(a._prefilling))
+    sess = a.pool.active[slot]
+    rid = sess.request.rid
+    b = _mk(cfg, tp)
+    _ship(a, b, rid, sess.request, str(tmp_path / "wire"))
+    assert next(iter(b._prefilling.values())).next_chunk == 1
+    got = _finish(trace, {"a": a, "b": b}, lambda r: "b" if r == rid else "a")
+    assert got == want
+
+
+def test_recurrent_cross_slot_migration_identity(rgemma, tmp_path):
+    """A 4-slot source, a 2-slot destination: the slot's leaves land in
+    another slot index of a narrower batch, token for token."""
+    _, _, cfg, tp = rgemma
+    trace = _trace(cfg, 5)
+    want = _baseline(_mk(cfg, tp, slots=4), trace)
+    a = _mk(cfg, tp, slots=4)
+    for r in trace:
+        a.submit(r)
+    sess = _mid_decode_session(a)
+    rid = sess.request.rid
+    b = _mk(cfg, tp, slots=2)
+    _ship(a, b, rid, sess.request, str(tmp_path / "wire"))
+    got = _finish(trace, {"a": a, "b": b}, lambda r: "b" if r == rid else "a")
+    assert got == want
+
+
+@pytest.fixture(scope="module")
+def rgemma_bf16():
+    return _setup(RG, torch.bfloat16, seed=2)
+
+
+def test_recurrent_reference_wire_restores_into_the_port(rgemma_bf16,
+                                                        tmp_path):
+    """bf16, packed: a mid-decode recurrentgemma session exported by the
+    reference restores into the port and finishes with the reference's
+    never-migrated tokens."""
+    jcfg, jp, cfg, tp = rgemma_bf16
+    jtrace = _trace(jcfg, 4, fn=jsynthetic_trace)
+    want = _baseline(_jmk(jcfg, jp, pack=True), jtrace)
+    src = _jmk(jcfg, jp, pack=True)
+    for r in jtrace:
+        src.submit(r)
+    for _ in range(12):
+        src.step()
+        live = [s for slot, s in src.pool.active.items()
+                if s.tokens and not s.done and slot not in src._prefilling]
+        if live:
+            break
+    jsess = live[0]
+    rid = jsess.request.rid
+    d = str(tmp_path / "wire")
+    jckpt.save(d, 1, src.export_session(rid), root_key=KEY)
+    req = Request(rid, jsess.request.prompt, jsess.request.max_new_tokens)
+    dst = _mk(cfg, tp, pack=True)
+    restored, _ = ckpt.restore(d, 1, dst.export_spec(req), root_key=KEY,
+                               device="cpu")
+    dst.import_session(req, restored)
+    assert dst.sessions[rid].tokens == jsess.tokens
+    assert dst.run().tokens(rid).tolist() == want[rid]
+
+
+def test_recurrent_port_wire_restores_into_the_reference(rgemma_bf16,
+                                                        tmp_path):
+    jcfg, jp, cfg, tp = rgemma_bf16
     trace = _trace(cfg, 4)
     want = _baseline(_jmk(jcfg, jp, pack=True),
                      _trace(jcfg, 4, fn=jsynthetic_trace))

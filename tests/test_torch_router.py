@@ -133,7 +133,30 @@ def test_kill_drill_zero_divergence(smoke, tmp_path):
     router step 3: every request finishes with a single engine's tokens
     and the reference Router's (same drill), sessions migrated, the
     scrubber covered the weights and found nothing."""
-    jcfg, jp, cfg, tp = smoke
+    _kill_drill(*smoke, tmp_path)
+
+
+@pytest.fixture(scope="module")
+def recurrent():
+    jcfg = jconfigs.get("recurrentgemma-2b+xnor").smoke(dtype=jnp.float32)
+    cfg = configs.get("recurrentgemma-2b+xnor").smoke(dtype=torch.float32)
+    jp = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, jp, cfg, convert.from_jax(cfg, jax.tree.map(np.asarray, jp))
+
+
+def test_kill_drill_zero_divergence_recurrent(recurrent, tmp_path):
+    """The same drill on RecurrentGemma: the killed replica's sessions
+    drain with their RG-LRU carries, conv buffers and window rings; no
+    request diverges.  Prefix caching is off for the arch, so the scrubber
+    finds no idle cached block to scan and digests the packed weights."""
+    rep = _kill_drill(*recurrent, tmp_path)
+    cfg, tp = recurrent[2:]
+    assert not ServeEngine(cfg, tp, slots=1, s_max=8,
+                           device="cpu").prefix_caching
+    assert sum(r.scrub_idle_blocks for r in rep.replicas) == 0
+
+
+def _kill_drill(jcfg, jp, cfg, tp, tmp_path):
     trace = synthetic_trace(10, cfg.vocab, seed=1, **TRACE)
     eng = ServeEngine(cfg, tp, slots=2, s_max=24, seed=0, temperature=0.8,
                       device="cpu")
@@ -165,6 +188,7 @@ def test_kill_drill_zero_divergence(smoke, tmp_path):
     assert sr.stats.scrub_weight_leaves > 0
     assert sr.stats.migrations_in == sr.stats.migrations_out == \
         len(rep.migrations)
+    return rep
 
 
 def test_scrubber_flags_one_flipped_word(smoke, tmp_path):

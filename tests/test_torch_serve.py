@@ -200,7 +200,8 @@ def _first_difference(arch: str, key: int, seed: int, undo: list) -> str:
     """Where the port's bf16 serving first departs from the reference's on
     one trace of :func:`test_bf16_greedy_tokens_match_reference`: both
     engines record every layer function's output in order (``rms_norm``,
-    ``linear``, ``apply_rope``, ``ffn``, ``paged_attention``, ``logits``;
+    ``linear``, ``apply_rope``, ``ffn``, ``paged_attention``, ``logits``,
+    and for a recurrent arch ``gelu`` and the conv1d and RG-LRU forms;
     the reference's through ``jax.debug.callback`` inside its jitted
     programs).  ``undo`` puts back the port's departures from the
     reference (``test_torch_layers._undone``: ``gate``, ``ln2``, ``cpu``).
@@ -211,8 +212,10 @@ def _first_difference(arch: str, key: int, seed: int, undo: list) -> str:
 
     from repro.models import attention as jattn
     from repro.models import layers as jlayers
+    from repro.models import ssm as jssm
     from repro_torch.models import attention as tattn
     from repro_torch.models import layers as tlayers
+    from repro_torch.models import ssm as tssm
     from test_torch_layers import _undone
 
     jrec, trec = [], []
@@ -231,16 +234,23 @@ def _first_difference(arch: str, key: int, seed: int, undo: list) -> str:
         @functools.wraps(f)
         def w(*a, **k):
             y = f(*a, **k)
-            trec.append((name, y.float().numpy().copy()))
+            v = y[0] if isinstance(y, tuple) else y
+            if name in ("conv1d", "conv1d_carry"):   # f32, last add unrounded
+                v = v.to(a[-2].dtype)
+            trec.append((name, v.float().numpy().copy()))
             return y
         return w
 
     pairs = [(jlayers, tlayers, n) for n in
              ("rms_norm", "linear", "apply_rope", "ffn", "logits")]
     pairs.append((jattn, tattn, "paged_attention"))
+    pairs += [(jssm, tssm, n) for n in ("conv1d", "conv1d_carry",
+                                        "conv1d_step", "rglru", "rglru_step")]
     for jm, tm, n in pairs:
         setattr(jm, n, jwrap(n, getattr(jm, n)))
         setattr(tm, n, twrap(n, getattr(tm, n)))
+    jax.nn.gelu = jwrap("gelu", jax.nn.gelu)
+    tlayers.gelu = twrap("gelu", tlayers.gelu)
     jcfg = jconfigs.get(arch).smoke(dtype=jnp.bfloat16)
     cfg = configs.get(arch).smoke(dtype=torch.bfloat16)
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(key))
