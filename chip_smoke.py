@@ -5,7 +5,12 @@
     python3 chip_smoke.py --path-readings [ARCH]   # the readings behind
                                              # the limits of check_paths
                                              # (qwen2-7b+xnor by default,
-                                             # or recurrentgemma-2b+xnor)
+                                             # recurrentgemma-2b+xnor or
+                                             # moonshot-v1-16b-a3b+xnor)
+    python3 chip_smoke.py --moe              # phase 2's MoE shapes and
+                                             # phase 3d alone
+    python3 chip_smoke.py --slot-bits        # fault F4's probe: whether a
+                                             # slot's bits hang on the batch
     python3 chip_smoke.py --paged-plans      # paged decode at W 2048, the
                                              # fixed split plan against a
                                              # batch-sized one, B 1 to 32
@@ -46,7 +51,13 @@ Phases (any failure raises and the script exits non-zero):
    KV 1, G 10, dh 256, bs 16, a 130-column ring at window 2048) in bf16,
    f32 and int8, held and timed against its byte bound, SDPA on gathered
    K/V and the plain version, at G 9-16 x dh 256, and at phi4-mini's and
-   qwen3-14b's geometry.
+   qwen3-14b's geometry.  The MoE archs (``moe_arch_kernels``): the fused
+   linear at moonshot-v1-16b-a3b's (2048 -> 2048) and llama4-scout's
+   shapes, M 4 and 32, bitwise in the kernel's order, and one moonshot
+   decode step's 192 fused linears as a CUDA graph; paged decode at
+   moonshot's geometry (B 4, KV 16, G 1, dh 128, bs 16) over W 8 and
+   W 2048 in bf16, f32 and int8, held and timed against its byte bound,
+   SDPA and the plain version.
 3. The serving slice: full-width, full-depth qwen2-7b+xnor in bf16, random
    weights from a seeded generator on the card, packed at load by the pack
    kernel, served by a 4-slot ServeEngine (s_max 128) over 8 requests of
@@ -81,6 +92,22 @@ Phases (any failure raises and the script exits non-zero):
    wire (ring blocks, f32 ``h``, bf16 conv buffer) keeping its tokens;
    ``check_paths`` in bf16 at this arch's limits and f32, with the
    one-ulp-up control failing; f32 dense = paged on the short requests.
+3d. Mixture of experts (``moe_serving``, ``llama4_serving``): full-width,
+   full-depth moonshot-v1-16b-a3b+xnor (48 moe layers, 64 experts of
+   d_ff 1408, top-6; 56 GB of bf16 weights, the attention packed at
+   load), a 4-slot paged ServeEngine (block 16, chunk 32, s_max 128,
+   prefix caching on) over phase 3's 8 requests with every launch held
+   (``LaunchHolds``), an unheld timed run repeating its tokens (tok/s,
+   TTFT, peak memory, 192 + 48 launches per decode step); with the prefix
+   cache off (a hit changes the dispatch groups), a 2-slot engine
+   repeating a 4-slot one's tokens and a session migrated 4 -> 2 slots
+   through an encrypted wire,
+   ``check_paths`` in bf16 at this arch's limits (a differing expert
+   choice ends the walk as a differing sign bit does) with the control
+   failing and in f32 at 8 of the 48 layers (the f32 tree does not fit);
+   then llama4-scout-17b-a16e+xnor at full width and 4 of 48 layers, a
+   2-slot and a 1-slot engine over 4 requests, every launch held, the
+   same tokens.
 4. The integer chain at checkpoint scale: the same seeded 7.6 B-parameter
    bf16 tree (15.2 GB), leaf by leaf through one CimEngine — digest,
    encrypt, decrypt, verify_copy of the decrypted leaf against the
@@ -103,8 +130,8 @@ Phases (any failure raises and the script exits non-zero):
    does not call it, as in the reference); held against the one-shot
    plain version on 2 heads within one bf16 ulp, timed against SDPA.
 7. The checkpoint layer on the card through one CimEngine, over the bf16
-   qwen2-7b tree at full width, cut to 16 of its 28 layers (9.6 GB, to
-   keep the script near 400 s): an encrypted, write-verified
+   qwen2-7b tree at full width, cut to 8 of its 28 layers (5.9 GB, to
+   keep the script near 450 s): an encrypted, write-verified
    save; one leaf changed in place and a delta saved with a primed
    DigestCache (exactly that leaf stored); ``check`` of both steps; one
    byte of a member flipped inside a valid container (``check`` names
@@ -541,6 +568,173 @@ def paged_long(gpu: str) -> dict:
                 max_abs_err=err)
 
 
+def slot_bits(gpu: str) -> None:
+    """Fault F4's probe: whether a slot's bits hang on the batch.  Each
+    row-coupled op of a moonshot-v1-16b-a3b+xnor decode step (full width,
+    one layer's weights), every row at B 2 to 32 against its bits alone;
+    then :func:`engine_bits`."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.models import layers, lm
+    from repro_torch.models import moe as moe_mod
+
+    cfg = dataclasses.replace(configs.get("moonshot-v1-16b-a3b+xnor"),
+                              n_layers=1)
+    params = lm.init_params(cfg, SEED, device="cuda")
+    # each row-coupled op alone: every row at B 2..32 against it alone, f32
+    # rows that are not bf16 values (a bf16 value's square is exact in f32,
+    # and sums of them hide a changed order)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 4)
+    d = cfg.d_model
+    x = torch.randn((32, 1, d), generator=g, device="cuda")
+    lay = {k: v[0] for k, v in params["seg0_moe"].items()}
+    moe_p = {k[4:]: v for k, v in lay.items() if k.startswith("moe_")}
+    cands = {
+        "torch sum of squares": lambda x: (x * x).sum(-1),
+        "row_sum of squares": lambda x: layers.row_sum(x * x),
+        "rms_norm": lambda x: layers.rms_norm(x, lay["ln2"],
+                                              dtype=cfg.dtype),
+        "router product (cuBLAS)": lambda x: torch.matmul(
+            x, lay["moe_router"]),
+        "route at decode": lambda x: moe_mod.route(
+            cfg, lay["moe_router"], x.to(cfg.dtype)).probs,
+        "lm head bf16": lambda x: torch.matmul(
+            x.to(cfg.dtype), params["embed"]["lm_head"]),
+        "moe_ffn": lambda x: moe_mod.moe_ffn(cfg, moe_p, x.to(cfg.dtype))[0],
+    }
+    with torch.inference_mode():
+        for name, fn in cands.items():
+            alone = [fn(x[j:j + 1]) for j in range(32)]
+            bad = [b for b in (2, 3, 4, 8, 16, 32)
+                   if not all(torch.equal(r[None], alone[j])
+                              for j, r in enumerate(fn(x[:b].contiguous())))]
+            print(f"[slot-bits] {name}: some row differs from its bits alone "
+                  f"at B {bad}  [{gpu}]")
+    del params
+    torch.cuda.empty_cache()
+    engine_bits(gpu)
+
+
+def engine_bits(gpu: str, n_layers: int = 48, steps: int = 8) -> None:
+    """F4's probe at the engine: full-width moonshot-v1-16b-a3b+xnor at
+    ``n_layers`` layers served over phase 3's trace by a 4-slot and a
+    2-slot paged engine (prefix cache off), and the 2-slot one twice; every
+    prefill chunk's and decode step's logits recorded per (request, chunk
+    or token), and in the first ``steps`` engine steps every layer
+    function's output row of each decoding request; prints where each
+    pair of runs first parts, and the first op that differs there."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attn as kpaged
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers, lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(configs.get("moonshot-v1-16b-a3b+xnor"),
+                              n_layers=n_layers)
+    params = lm.init_params(cfg, SEED, device="cuda")
+    trace = slice_trace(cfg.vocab)
+    sites = [(layers, "rms_norm"), (layers, "apply_rope"),
+             (layers, "logits"), (attn_mod, "paged_attention"),
+             (kpaged, "paged_decode_attention"), (ops, "xnor_linear_fused"),
+             (moe_mod, "route"), (moe_mod, "experts"), (moe_mod, "combine"),
+             (moe_mod, "moe_ffn")]
+
+    def row(name, out, slot):
+        if name == "route":
+            return torch.cat([out.probs[slot].flatten(),
+                              out.idx[slot].flatten().float()])
+        if name == "experts":
+            return out[:, slot]
+        if isinstance(out, tuple):
+            out = out[0]
+        return out[slot]
+
+    def run(slots):
+        eng = ServeEngine(cfg, params, slots=slots, s_max=128,
+                          prefix_cache=False, device="cuda")
+        rec, ops_rec, step, live = {}, {}, [0], {}
+        chunk, decode = lm.prefill_chunk_step, lm.paged_decode_step
+        orig = {(m, f): getattr(m, f) for m, f in sites}
+
+        def chunk_rec(*a, **k):
+            logits, st = chunk(*a, **k)
+            slot = a[4]
+            sess = eng.pool.active[slot]
+            j = eng._prefilling[slot].next_chunk
+            rec[("chunk", sess.request.rid, j)] = (step[0], logits[0].float()
+                                                   .clone())
+            return logits, st
+
+        def decode_rec(*a, **k):
+            live.clear()
+            if step[0] < steps:
+                live.update({slot: ("token", sess.request.rid,
+                                    len(sess.tokens))
+                             for slot, sess in eng.pool.active.items()
+                             if slot not in eng._prefilling})
+            logits, st = decode(*a, **k)
+            live.clear()
+            for slot, sess in eng.pool.active.items():
+                if slot not in eng._prefilling:
+                    rec[("token", sess.request.rid, len(sess.tokens))] = (
+                        step[0], logits[slot].float().clone())
+            return logits, st
+
+        def wrap(f, fn):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                for slot, key in live.items():
+                    ops_rec.setdefault(key, []).append(
+                        (f, row(f, out, slot).float().clone()))
+                return out
+            wrapped.__dict__ = fn.__dict__     # one launch count
+            return wrapped
+        lm.prefill_chunk_step, lm.paged_decode_step = chunk_rec, decode_rec
+        for (m, f), fn in orig.items():
+            setattr(m, f, wrap(f, fn))
+        try:
+            for r in trace:
+                eng.submit(r)
+            while eng.step():
+                step[0] += 1
+        finally:
+            lm.prefill_chunk_step, lm.paged_decode_step = chunk, decode
+            for (m, f), fn in orig.items():
+                setattr(m, f, fn)
+        return rec, ops_rec
+
+    runs = {"4 slots": run(4), "2 slots": run(2), "2 slots again": run(2)}
+    for x, y in (("4 slots", "2 slots"), ("2 slots", "2 slots again")):
+        (a, oa), (b, ob) = runs[x], runs[y]
+        keys = sorted(set(a) & set(b), key=lambda k: (k[1], k[0], k[2]))
+        bad = [(k, a[k][0], b[k][0], int((a[k][1] != b[k][1]).sum()))
+               for k in keys if not torch.equal(a[k][1], b[k][1])]
+        first = {}
+        for k, sa, sb, n in bad:
+            first.setdefault(k[1], (k, sa, sb, n))
+        print(f"[slot-bits] engines at {n_layers} layers, {x} against {y}: "
+              f"{len(keys)} logits rows compared, {len(bad)} differ; the "
+              f"first a request ((kind, rid, index), step there, step "
+              f"here, elements) {sorted(first.values())}  [{gpu}]")
+        for k, *_ in sorted(first.values()):
+            if k in oa and k in ob:
+                d = [(i, na, int((ta != tb).sum()), ta.numel())
+                     for i, ((na, ta), (nb, tb)) in enumerate(
+                         zip(oa[k], ob[k]))
+                     if na != nb or not torch.equal(ta, tb)]
+                print(f"[slot-bits]   {k}: {len(oa[k])} op rows, the first "
+                      f"differing (record, op, elements, of) {d[:6]}  "
+                      f"[{gpu}]")
+    del params, runs
+    torch.cuda.empty_cache()
+
+
 def paged_plans(gpu: str, batches=(1, 4, 16, 32)) -> None:
     """``--paged-plans``: paged decode at W = 2048 (qwen2-7b's decode
     geometry, bf16) at each batch, with the split plan sized for
@@ -630,7 +824,6 @@ def other_arch_kernels(gpu: str) -> dict:
     qwen3-14b's decode geometry.  -> the recurrentgemma paged decode
     reading."""
     import torch
-    import torch.nn.functional as F
 
     import repro_torch.configs as configs
     from repro_torch.core import xnor_layers
@@ -728,15 +921,6 @@ def other_arch_kernels(gpu: str) -> dict:
                                    atol=atol)
         return (kk.float() - pp.float()).abs().max().item()
 
-    r = RG_PAGED
-    pos = torch.tensor([2099, 4000, 2047, 700], dtype=torch.int32, device=dev)
-    errs = {}
-    for dtype, i8 in ((torch.bfloat16, False), (torch.float32, False),
-                      (torch.bfloat16, True)):
-        args = (*case(r["b"], r["kv"], r["g"], r["dh"], r["bs"], r["w"],
-                      dtype, i8), pos)
-        errs[f"{str(dtype)[6:]}{' int8' if i8 else ''}"] = held(
-            args, r["window"], i8, dtype)
     edges = {}
     for gq in range(9, 17):
         for dtype, i8 in ((torch.bfloat16, False), (torch.float32, False),
@@ -756,67 +940,13 @@ def other_arch_kernels(gpu: str) -> dict:
                     torch.tensor([255, 100, 17, 0], dtype=torch.int32,
                                  device=dev))
             others[f"{arch} {str(dtype)[6:]}"] = held(args, 0, False, dtype)
-    print(f"[paged_decode_attention recurrentgemma] B={r['b']} KV={r['kv']} "
-          f"G={r['g']} dh={r['dh']} bs={r['bs']} W={r['w']} window "
-          f"{r['window']} pos {pos.tolist()}: max abs err against the plain "
-          f"version {errs}; G 9-16 x dh 256 edges (bf16, f32, int8; "
-          f"monotone W 8 and ring W 130) {edges}; phi4-mini / qwen3-14b "
-          f"geometry {others}  [{gpu}]")
-
-    # timed in bf16 over input sets rotated past L2 (each layer's pool is
-    # cold on the serving path), beside the byte bound, SDPA on K/V already
-    # gathered (the window mask; the gather is not timed) and the plain one
-    b, kv, gq, dh, bs, w = (r[k] for k in ("b", "kv", "g", "dh", "bs", "w"))
-    cap = w * bs
-    live = kpaged.live_columns(pos, w, bs, r["window"])
-    kslot = torch.arange(cap, device=dev)[None]
-    age = torch.remainder(torch.remainder(pos.long()[:, None], cap) - kslot,
-                          cap)
-    valid = age < torch.clamp(pos.long()[:, None] + 1, max=r["window"])
-    keys = int(valid.sum())
-    out = {}
-    for dtype, i8 in ((torch.bfloat16, False), (torch.float32, False),
-                      (torch.bfloat16, True)):
-        item = 1 if i8 else dtype.itemsize
-        qb = dtype.itemsize
-        per_set = b * kv * gq * dh * qb + 2 * (1 + b * w) * kv * bs * dh * item
-        sets = copies(lambda: (*case(b, kv, gq, dh, bs, w, dtype, i8), pos),
-                      per_set)
-        sc, osc = ((dh ** -0.5) / 32, 1 / 32) if i8 else (dh ** -0.5, 1.0)
-
-        def run(*a, sc=sc, osc=osc):
-            return kpaged.paged_decode_attention(*a, window=r["window"],
-                                                 scale=sc, out_scale=osc)
-        ms = time_ms(run, sets, 200)
-        with cuda.plain_reference():
-            plain = time_ms(run, sets[:2], 10, 2)
-        nbytes = (2 * b * kv * gq * dh * qb
-                  + int(live.sum()) * kv * 2 * bs * dh * item
-                  + b * w * 4 + b * 4)
-        b_ms, b_by = bound(nbytes, 4 * kv * gq * dh * keys,
-                           "bf16" if dtype == torch.bfloat16 else "f32")
-        lib = None
-        if not i8:
-            mask = valid[:, None, None, :]
-
-            def gathered(q, ck, cv, table, _):
-                idx = table.long()
-                return (q, ck[idx].permute(0, 2, 1, 3, 4).reshape(
-                    b, kv, cap, dh), cv[idx].permute(0, 2, 1, 3, 4).reshape(
-                    b, kv, cap, dh), mask)
-            lib = time_ms(lambda a, b_, c, m: F.scaled_dot_product_attention(
-                a, b_, c, attn_mask=m),
-                [gathered(*x) for x in sets], 200)
-        label = f"{str(dtype)[6:]}{' int8 pools' if i8 else ''}"
-        out[label] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=lib)
-        print(f"[paged_decode_attention recurrentgemma {label}] {len(sets)} "
-              f"input sets rotated: {ms} ms, plain {plain} ms, SDPA on "
-              f"pre-gathered K/V {lib} ms, bound {b_ms} ms ({b_by}), "
-              f"{keys} live keys in {int(live.sum())} live columns  [{gpu}]")
-        del sets
-        torch.cuda.empty_cache()
-    return dict(out["bfloat16"], max_abs_err=errs["bfloat16"])
+    print(f"[paged_decode_attention] held against the plain version: G 9-16 "
+          f"x dh 256 edges (bf16, f32, int8; monotone W 8 and ring W 130) "
+          f"{edges}; phi4-mini / qwen3-14b geometry {others}  [{gpu}]")
+    r = RG_PAGED
+    return paged_readings(gpu, "recurrentgemma", r, r["w"],
+                          [2099, 4000, 2047, 700], randn, g,
+                          window=r["window"])["bfloat16"]
 
 
 LEAF_WORDS = 28 * 3584 * 3584 // 2   # a layer-stacked wq leaf, bf16 words
@@ -1497,12 +1627,16 @@ def recurrent_trace(vocab: int) -> list:
     return slice_trace(vocab) + [Request(8, long_, 16)]
 
 
-def migrate(cfg, params, trace, want, geom, directory, gpu) -> None:
-    """Phase 3c's migration: request 8 (2,100 prompt tokens) exported
-    after 4 decoded tokens from a 4-slot engine, saved encrypted,
-    restored against a 2-slot engine's spec and imported there; both
-    engines finish, and every request keeps ``want``'s tokens.  Prints
-    the wire's leaves, its bytes and the ms from export to import."""
+def migrate(cfg, params, trace, want, geom, directory, gpu, rid=8,
+            label="recurrent", expect=("torch.float32", "torch.bfloat16",
+                                       130)) -> None:
+    """A migration mid-decode: request ``rid`` (phase 3c: request 8, 2,100
+    prompt tokens) exported after 4 decoded tokens from a 4-slot engine,
+    saved encrypted, restored against a 2-slot engine's spec and imported
+    there; both engines finish, and every request keeps ``want``'s tokens.
+    ``expect`` is the wire's per-slot ``h`` and conv dtypes (None where
+    the kind has none) and its pool rows' width.  Prints the wire's
+    leaves, its bytes and the ms from export to import."""
     import torch
 
     from repro_torch.checkpoint import ckpt
@@ -1511,19 +1645,19 @@ def migrate(cfg, params, trace, want, geom, directory, gpu) -> None:
     a = ServeEngine(cfg, params, device="cuda", **geom)
     for r in trace:
         a.submit(r)
-    long_ = a.sessions[8]
+    long_ = a.sessions[rid]
     while len(long_.tokens) < 4:
-        assert a.step(), "the long request never reached decode"
+        assert a.step(), f"request {rid} never reached decode"
     b = ServeEngine(cfg, params, device="cuda", **dict(geom, slots=2))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    wire = a.export_session(8)
+    wire = a.export_session(rid)
     ckpt.save(str(directory), 1, wire, root_key=ROOT_KEY)
     restored, _ = ckpt.restore(str(directory), 1,
                                b.export_spec(long_.request),
                                root_key=ROOT_KEY)
     b.import_session(long_.request, restored)
-    a.release_migrated(8)
+    a.release_migrated(rid)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     segs = wire["state"]["segs"]
@@ -1531,23 +1665,25 @@ def migrate(cfg, params, trace, want, geom, directory, gpu) -> None:
               "conv": {str(x[1][1].dtype) for x in segs if x[1] is not None},
               "ring": {tuple(x[0].k.shape) for x in segs
                        if x[0] is not None}}
-    assert leaves["h"] == {"torch.float32"}, leaves
-    assert leaves["conv"] == {"torch.bfloat16"}, leaves
-    assert all(shape[1] == 130 for shape in leaves["ring"]), leaves
+    h, conv, width = expect
+    assert leaves["h"] == ({h} if h else set()), leaves
+    assert leaves["conv"] == ({conv} if conv else set()), leaves
+    assert leaves["ring"] and all(shape[1] == width
+                                  for shape in leaves["ring"]), leaves
     nbytes = sum(f.stat().st_size for f in directory.rglob("*")
                  if f.is_file())
-    moved = b.run().tokens(8).tolist()
+    moved = b.run().tokens(rid).tolist()
     rest = a.run()
     others = all(rest.tokens(r.rid).tolist() == want[r.rid] for r in trace
-                 if r.rid != 8)
-    print(f"[recurrent] migration ({directory.name}) of request 8 after "
-          f"{len(long_.tokens)} tokens (2,100 prompt tokens, the ring "
-          f"wrapped), 4-slot -> 2-slot engine: "
-          f"{'identical' if moved == want[8] else 'DIFFERENT'} to the "
+                 if r.rid != rid)
+    print(f"[{label}] migration ({directory.name}) of request {rid} after "
+          f"{len(long_.tokens)} tokens ({len(long_.request.prompt)} prompt "
+          f"tokens), 4-slot -> 2-slot engine: "
+          f"{'identical' if moved == want[rid] else 'DIFFERENT'} to the "
           f"never-migrated tokens (others identical: {others}); {ms} ms "
           f"(export, encrypted save, restore, import), {nbytes} bytes on "
           f"disk; wire leaves {leaves} per segment  [{gpu}]")
-    assert moved == want[8] and others, "migration changed tokens"
+    assert moved == want[rid] and others, "migration changed tokens"
 
 
 def recurrent_serving(gpu: str) -> dict:
@@ -1707,6 +1843,424 @@ def recurrent_serving(gpu: str) -> dict:
     assert dense == paged, "f32: the dense layout's tokens differ"
     del params32
     free()
+    return launches
+
+
+# moonshot-v1-16b-a3b's attention projections (all four 2048 -> 2048) and
+# llama4-scout's (q/o 5120 -> 5120, k/v 5120 -> 1024), (N, K)
+MOE_LINEARS = {"moonshot-v1-16b-a3b": {"wq/wk/wv/wo": (2048, 2048)},
+               "llama4-scout-17b-a16e": {"wq/wo": (5120, 5120),
+                                         "wk/wv": (1024, 5120)}}
+# moonshot-v1-16b-a3b's decode attention: B 4, KV 16, G 1 (MHA), dh 128,
+# bs 16; W 8 is phase 3d's table (s_max 128), W 2048 a 32k-key one
+MOE_PAGED = dict(b=4, kv=16, g=1, dh=128, bs=16)
+
+
+def paged_readings(gpu: str, label: str, geom: dict, w: int, pos,
+                   randn, gen, window: int = 0) -> dict:
+    """Paged decode at ``geom`` over a W-column table (a ring of ``window``
+    keys where nonzero): held in bf16, f32 and int8 pools against the
+    plain version, and timed over input sets rotated past L2 (each
+    layer's pool is cold on the serving path) beside its byte bound, SDPA
+    on K/V already gathered (the position or window mask; the gather is
+    not timed) and the plain version.  -> {pool label: reading}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import paged_attn as kpaged
+
+    dev = torch.device("cuda")
+    b, kv, gq, dh, bs = (geom[k] for k in ("b", "kv", "g", "dh", "bs"))
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    cap = w * bs
+
+    def case(dtype, i8):
+        q = randn(b, kv, gq, dh, dtype=dtype)
+        ck, cv = randn(1 + b * w, kv, bs, dh), randn(1 + b * w, kv, bs, dh)
+        if i8:
+            ck = torch.clamp(torch.round(ck * 32), -127, 127).to(torch.int8)
+            cv = torch.clamp(torch.round(cv * 32), -127, 127).to(torch.int8)
+        else:
+            ck, cv = ck.to(dtype), cv.to(dtype)
+        table = (torch.randperm(b * w, generator=gen, device=dev) + 1
+                 ).reshape(b, w).to(torch.int32)
+        return q, ck, cv, table, pos
+
+    live = kpaged.live_columns(pos, w, bs, window)
+    kslot = torch.arange(cap, device=dev)[None]
+    if window:
+        age = torch.remainder(torch.remainder(pos.long()[:, None], cap)
+                              - kslot, cap)
+        valid = age < torch.clamp(pos.long()[:, None] + 1, max=window)
+    else:
+        valid = kslot <= pos.long()[:, None]
+    keys = int(valid.sum())
+    out = {}
+    for dtype, i8 in ((torch.bfloat16, False), (torch.float32, False),
+                      (torch.bfloat16, True)):
+        sc, osc = ((dh ** -0.5) / 32, 1 / 32) if i8 else (dh ** -0.5, 1.0)
+
+        def run(*a, sc=sc, osc=osc):
+            return kpaged.paged_decode_attention(*a, window=window, scale=sc,
+                                                 out_scale=osc)
+        args = case(dtype, i8)
+        kk = run(*args)
+        with cuda.plain_reference():
+            pp = run(*args)
+        rtol, atol = FLASH_TOL[str(dtype)[6:]]
+        torch.testing.assert_close(kk.float(), pp.float(), rtol=rtol,
+                                   atol=atol)
+        err = (kk.float() - pp.float()).abs().max().item()
+        item = 1 if i8 else dtype.itemsize
+        qb = dtype.itemsize
+        per_set = b * kv * gq * dh * qb + 2 * (1 + b * w) * kv * bs * dh * item
+        sets = copies(lambda: case(dtype, i8), per_set)
+        ms = time_ms(run, sets, 200)
+        with cuda.plain_reference():
+            plain = time_ms(run, sets[:2], 10, 2)
+        nbytes = (2 * b * kv * gq * dh * qb
+                  + int(live.sum()) * kv * 2 * bs * dh * item
+                  + b * w * 4 + b * 4)
+        b_ms, b_by = bound(nbytes, 4 * kv * gq * dh * keys,
+                           "bf16" if dtype == torch.bfloat16 else "f32")
+        lib = None
+        if not i8:
+            mask = valid[:, None, None, :]
+
+            def gathered(q, ck, cv, table, _):
+                idx = table.long()
+                return (q, ck[idx].permute(0, 2, 1, 3, 4).reshape(
+                    b, kv, cap, dh), cv[idx].permute(0, 2, 1, 3, 4).reshape(
+                    b, kv, cap, dh), mask)
+            lib = time_ms(lambda a, b_, c, m: F.scaled_dot_product_attention(
+                a, b_, c, attn_mask=m), [gathered(*x) for x in sets], 200)
+        name = f"{str(dtype)[6:]}{' int8 pools' if i8 else ''}"
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib, max_abs_err=err)
+        print(f"[paged_decode_attention {label} W={w} {name}] held, max abs "
+              f"err {err}; {len(sets)} input sets rotated: {ms} ms, plain "
+              f"{plain} ms, SDPA on pre-gathered K/V {lib} ms, bound {b_ms} "
+              f"ms ({b_by}), {keys} live keys in {int(live.sum())} live "
+              f"columns, pos {pos.tolist()}  [{gpu}]")
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_arch_kernels(gpu: str) -> dict:
+    """Phase 2 for the mixture-of-experts archs: the fused linear at
+    moonshot-v1-16b-a3b's (2048 -> 2048) and llama4-scout's (5120 -> 5120,
+    5120 -> 1024) attention shapes, M 4 and 32, f32 and bf16, bitwise in
+    the kernel's order (moonshot's timed at M 4 against its byte bound);
+    one moonshot decode step's 192 fused linears (4 a layer x 48) as one
+    CUDA graph against the step's byte bound; paged decode at moonshot's
+    geometry (B 4, KV 16, G 1, dh 128, bs 16) over W 8 and W 2048 tables
+    (:func:`paged_readings`).  -> the W 8 bf16 paged reading."""
+    import torch
+
+    from repro_torch.core import xnor_layers
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import xnor_gemm as kxnor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 19)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    for arch, shapes in MOE_LINEARS.items():
+        row = {}
+        for name, (n, k) in shapes.items():
+            pb, beta = xnor_layers.pack_weights(randn(n, k,
+                                                      dtype=torch.bfloat16))
+            for m in (4, 32):
+                for dt in (torch.float32, torch.bfloat16):
+                    x = randn(m, k, dtype=dt)
+                    kk = kxnor.xnor_linear_fused(x, pb, beta, k)
+                    with cuda.plain_reference():
+                        pp = kxnor.xnor_linear_fused(x, pb, beta, k)
+                    assert torch.equal(kk, kxnor.linear_kernel_order(
+                        x, pb, beta, k)), f"{arch} {name} M={m} {dt}"
+                    f32 = dt == torch.float32
+                    torch.testing.assert_close(
+                        kk, pp, rtol=2e-5 if f32 else 2 ** -8,
+                        atol=2e-5 if f32 else 1e-6)
+            if arch == "moonshot-v1-16b-a3b":
+                kw = pb.shape[1]
+                sets = copies(lambda: (randn(4, k, dtype=torch.bfloat16),
+                                       *xnor_layers.pack_weights(
+                                           randn(n, k, dtype=torch.bfloat16)),
+                                       k), n * kw * 4)
+                ms = time_ms(kxnor.xnor_linear_fused, sets, 200)
+                b_ms, _ = bound(4 * k * 2 + n * kw * 4 + n * 4 + 4 * n * 2,
+                                2 * 4 * n * k, "int8")
+                row[name] = dict(N=n, K=k, ms=ms, bound_ms=b_ms)
+                del sets
+        print(f"[xnor_linear_fused {arch}] held bitwise in the kernel's "
+              f"order at {list(shapes.values())} (N, K), M 4 and 32, f32 "
+              f"and bf16" + (f"; bf16 M=4 timings {json.dumps(row)}"
+                             if row else "") + f"  [{gpu}]")
+
+    # one moonshot decode step: 48 layers x 4 linears (2048 -> 2048), each
+    # layer its own weights, M = 4, one CUDA graph
+    calls, nbytes = [], 0
+    for _ in range(48 * 4):
+        n, k = MOE_LINEARS["moonshot-v1-16b-a3b"]["wq/wk/wv/wo"]
+        pb, beta = xnor_layers.pack_weights(randn(n, k, dtype=torch.bfloat16))
+        calls.append((randn(4, k, dtype=torch.bfloat16), pb, beta, k))
+        nbytes += 4 * k * 2 + pb.numel() * 4 + n * 4 + 4 * n * 2
+    step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[xnor_linear_fused moonshot decode step] {len(calls)} launches "
+          f"(4 a layer x 48, M = 4) in one CUDA graph: {step} ms, bound "
+          f"{b_ms} ms ({step / b_ms} x)  [{gpu}]")
+    del calls
+    torch.cuda.empty_cache()
+
+    w8 = paged_readings(gpu, "moonshot", MOE_PAGED, 8, [127, 100, 64, 17],
+                        randn, g)
+    paged_readings(gpu, "moonshot", MOE_PAGED, 2048,
+                   [32767, 20000, 4095, 17], randn, g)
+    return w8["bfloat16"]
+
+
+def moe_serving(gpu: str) -> dict:
+    """Phase 3d: full moonshot-v1-16b-a3b+xnor (48 moe layers: d 2048, MHA
+    with 16 heads of 128, 64 experts of d_ff 1408, top-6, vocab 163,840),
+    bf16 weights from a seeded generator on the card (28.1 B parameters,
+    56 GB), the attention packed at load, served by a 4-slot paged
+    ServeEngine (block 16, chunk 32, s_max 128, prefix caching on) over
+    phase 3's 8 requests.
+
+    Gates: pack, the fused linear and paged decode launched on the main
+    path, every launch of the held runs held against its plain version at
+    every shape (:class:`LaunchHolds`); one unheld timed run repeating the
+    held run's tokens (tok/s, TTFT, peak memory; 192 fused linears and 48
+    paged decodes every decode step); with the prefix cache off (a hit
+    changes a request's dispatch groups, and the slot count decides the
+    hits), the same tokens from a 4-slot and a 2-slot engine, and a
+    session migrated mid-decode from the one to the other through an
+    encrypted wire, keeping its tokens; :func:`check_paths` in bf16 at
+    this arch's limits with the one-ulp-up control failing them, and in
+    f32 at full width and 8 of the 48 layers (the f32 tree at full depth,
+    112 GB, does not fit the card).  -> launch counts of the three
+    kernels."""
+    import gc
+    import shutil
+    import statistics
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+
+    cfg = configs.get("moonshot-v1-16b-a3b+xnor")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_head, cfg.n_experts, cfg.top_k, cfg.d_ff_expert,
+            cfg.vocab, cfg.dtype) == (48, 2048, 16, 16, 128, 64, 6, 1408,
+                                      163840, torch.bfloat16)
+    trace = slice_trace(cfg.vocab)
+    rids = [r.rid for r in trace]
+    geom = dict(slots=4, s_max=128, block_size=16, prefill_chunk=32)
+    directory = ROOT / "experiments" / "chip_smoke_moe"
+    shutil.rmtree(directory, ignore_errors=True)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def serve(eng):
+        for r in trace:
+            eng.submit(r)
+        rep = eng.run()
+        torch.cuda.synchronize()
+        assert all(s.done for s in rep.sessions.values())
+        return rep
+
+    def tokens(rep):
+        return {rid: rep.tokens(rid).tolist() for rid in rids}
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = lm.pdefs.count(lm.param_defs(cfg))
+    print(f"[moe] init {cfg.name}: {n_params} params, "
+          f"{torch.cuda.memory_allocated() / 2**30} GiB on the card, in "
+          f"{time.perf_counter() - t0} s")
+    with LaunchHolds() as holds:
+        kernels = [holds.orig[n] for n in ("pack", "xnor_linear_fused",
+                                           "paged_decode_attention")]
+        holds.active = True
+        for f in kernels:
+            f.launches = 0
+        eng = ServeEngine(cfg, params, device="cuda", **geom)
+        assert eng.prefix_caching, "prefix caching must be on for moe"
+        assert eng._widths == {"full": 8}, eng._widths
+        held = serve(eng)
+        launches = {f.__name__: f.launches for f in kernels}
+        want = tokens(held)
+        for s in held.sessions.values():
+            assert len(s.tokens) == s.request.max_new_tokens
+            assert all(0 <= t < cfg.vocab for t in s.tokens)
+        for name, n in launches.items():
+            assert n > 0, f"kernel {name} never launched on the main path"
+        st = held.stats
+        assert st.prefix_hits > 0, "the shared prefix was never hit"
+        print(f"[moe] main-path launches (held run) {launches}; prefix hits "
+              f"{st.prefix_hits}, cow {st.cow_copies}  [{gpu}]")
+        del eng
+        free()
+        # a prefix hit shortens a request's dispatch groups, and the slot
+        # count decides which requests hit (DESIGN.md §14: a hit is not
+        # promised a miss's tokens), so the slot counts are held against
+        # each other with the cache off
+        off = {n: tokens(serve(ServeEngine(cfg, params, device="cuda",
+                                           prefix_cache=False,
+                                           **dict(geom, slots=n))))
+               for n in (4, 2)}
+        print(f"[moe] held, prefix cache off: the 2-slot engine's tokens as "
+              f"the 4-slot one's on {sum(off[2][r] == off[4][r] for r in rids)}"
+              f"/8; at 4 slots, cache on as off on "
+              f"{sum(want[r] == off[4][r] for r in rids)}/8  [{gpu}]")
+        assert off[2] == off[4], "the 2-slot engine's tokens differ"
+        free()
+
+        # the unheld timed run, launches read around every decode step
+        with holds.off():
+            torch.cuda.reset_peak_memory_stats()
+            eng = ServeEngine(cfg, params, device="cuda", **geom)
+            per_step, decode_once = [], eng._decode_once
+
+            def counted():
+                before = [f.launches for f in kernels[1:]]
+                decode_once()
+                per_step.append(tuple(f.launches - b for f, b in
+                                      zip(kernels[1:], before)))
+            eng._decode_once = counted
+            rep = serve(eng)
+            del eng._decode_once
+            peak = torch.cuda.max_memory_allocated()
+            del eng
+        assert tokens(rep) == want, "the unheld run's tokens differ"
+        ttft = rep.ttft_quantiles((0.5, 0.95))
+        st = rep.stats
+        print(f"[moe] unheld run: {rep.generated} tokens in {rep.wall} s -> "
+              f"{rep.tok_per_s} tok/s; TTFT p50 {ttft[0.5] * 1e3} ms p95 "
+              f"{ttft[0.95] * 1e3} ms; {st.prefill_chunks} prefill chunks, "
+              f"{st.decode_steps} decode steps, prefix hits "
+              f"{st.prefix_hits}; peak device memory {peak / 2**30} GiB; "
+              f"tokens as the held run's: True  [{gpu}]")
+        print(f"[moe] launches per decode step (fused linear, paged "
+              f"decode): median {statistics.median(p[0] for p in per_step)}"
+              f", {statistics.median(p[1] for p in per_step)} over "
+              f"{len(per_step)} steps  [{gpu}]")
+        assert per_step and all(p == (192, 48) for p in per_step), per_step
+
+        # a session migrated mid-decode 4 -> 2 slots through an encrypted
+        # wire (pool blocks only: the kind has no per-slot state), the
+        # cache off (the move reschedules the source's queue); held, then
+        # unheld for the ms
+        mig = dict(rid=0, label="moe", expect=(None, None, 8))
+        mgeom = dict(geom, prefix_cache=False)
+        migrate(cfg, params, trace, off[4], mgeom, directory / "held", gpu,
+                **mig)
+        with holds.off():
+            migrate(cfg, params, trace, off[4], mgeom, directory / "unheld",
+                    gpu, **mig)
+        free()
+    holds.check(gpu, "moe")
+    shutil.rmtree(directory, ignore_errors=True)
+
+    # the kernel path against the plain path, bf16 at this arch's limits,
+    # with the control that rounds one way; then f32 at 8 of 48 layers
+    pparams = lm.pack_params(cfg, params)
+    toks = torch.from_numpy(trace[0].prompt[None, :cfg.prefill_chunk]
+                            .copy())
+    nxt = int(trace[0].prompt[cfg.prefill_chunk])
+    check_paths(cfg, pparams, toks, nxt, gpu)
+    try:
+        with attention_rounding_up(1):
+            check_paths(cfg, pparams, toks, nxt, gpu)
+        failed = ""
+    except AssertionError as e:
+        failed = str(e)
+    print(f"[moe] control, paged decode one ulp up at every element: "
+          f"check_paths failed with {failed!r}  [{gpu}]")
+    assert "inputs drifted" in failed and "rounds one way" in failed, \
+        "check_paths' bf16 holds must each fail a kernel that rounds one way"
+    del pparams, params
+    free()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=8)
+    params32 = lm.init_params(cfg32, SEED, device="cuda")
+    check_paths(cfg32, lm.pack_params(cfg32, params32), toks, nxt, gpu)
+    del params32
+    free()
+    return launches
+
+
+def llama4_serving(gpu: str) -> dict:
+    """Phase 3d, llama4-scout-17b-a16e+xnor at full width (d 5120, 40 heads
+    over 8 KV heads, 16 experts of d_ff 8192, top-1, vocab 202,048) and 4
+    of its 48 layers (21 GB of bf16; the full 203 GB fits no single
+    card), the attention packed at load: a 2-slot paged engine serves 4
+    short requests with every launch of the three kernels held against
+    its plain version, and a 1-slot engine gives the same tokens.  ->
+    launch counts of the three kernels."""
+    import gc
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine, synthetic_trace
+
+    cfg = dataclasses.replace(configs.get("llama4-scout-17b-a16e+xnor"),
+                              n_layers=4)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+            cfg.n_experts, cfg.top_k, cfg.d_ff_expert, cfg.vocab) == (
+        5120, 40, 8, 128, 16, 1, 8192, 202048)
+    trace = synthetic_trace(4, cfg.vocab, seed=SEED + 4,
+                            prompt_lens=(8, 16, 24, 40), new_tokens=(8, 12))
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[llama4] init {cfg.name} at 4 of 48 layers: "
+          f"{lm.pdefs.count(lm.param_defs(cfg))} params, "
+          f"{torch.cuda.memory_allocated() / 2**30} GiB on the card, in "
+          f"{time.perf_counter() - t0} s")
+    got = {}
+    with LaunchHolds() as holds:
+        kernels = [holds.orig[n] for n in ("pack", "xnor_linear_fused",
+                                           "paged_decode_attention")]
+        holds.active = True
+        for f in kernels:
+            f.launches = 0
+        for slots in (2, 1):
+            eng = ServeEngine(cfg, params, slots=slots, s_max=64,
+                              device="cuda")
+            for r in trace:
+                eng.submit(r)
+            rep = eng.run()
+            torch.cuda.synchronize()
+            assert all(s.done and len(s.tokens) == s.request.max_new_tokens
+                       for s in rep.sessions.values())
+            got[slots] = {r.rid: rep.tokens(r.rid).tolist() for r in trace}
+            if slots == 2:
+                launches = {f.__name__: f.launches for f in kernels}
+            del eng
+    holds.check(gpu, "llama4")
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched on the main path"
+    print(f"[llama4] main-path launches (2 slots) {launches}; 1-slot tokens "
+          f"as the 2-slot ones' on "
+          f"{sum(got[1][r] == got[2][r] for r in got[2])}/4  [{gpu}]")
+    assert got[1] == got[2], "llama4: the 1-slot engine's tokens differ"
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2163,7 +2717,7 @@ def flip_member_byte(npz: Path, member: str, index: int) -> None:
 
 def checkpoint_layer(gpu: str) -> dict:
     """Phase 7: save, delta, check, tamper, restore and restore_packed of
-    the bf16 qwen2-7b tree (full width, 16 of its 28 layers) through one
+    the bf16 qwen2-7b tree (full width, 8 of its 28 layers) through one
     CimEngine on the card."""
     import shutil
 
@@ -2180,10 +2734,10 @@ def checkpoint_layer(gpu: str) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine, synthetic_trace
 
-    # the tree at full width, its depth cut from 28 layers to 16 (9.6 GB)
-    # to keep the script near 400 s once phase 3c joined it; phase 4 still
+    # the tree at full width, its depth cut from 28 layers to 8 (5.9 GB)
+    # to keep the script near 450 s with phases 3c and 3d; phase 4 still
     # streams the full 15.2 GB tree
-    cfg = dataclasses.replace(configs.get("qwen2-7b+xnor"), n_layers=16)
+    cfg = dataclasses.replace(configs.get("qwen2-7b+xnor"), n_layers=8)
     directory = ROOT / "experiments" / "chip_smoke_ckpt"
     shutil.rmtree(directory, ignore_errors=True)
     params = lm.init_params(cfg, SEED, device="cuda")
@@ -2376,7 +2930,7 @@ def monte_carlo(gpu: str) -> None:
 
 
 LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")   # launch order per layer
-KIND_LINEARS = {"attn": LINEARS, "local": LINEARS,
+KIND_LINEARS = {"attn": LINEARS, "local": LINEARS, "moe": LINEARS[:4],
                 "rglru": ("w_gate", "w_x", "w_r", "w_i", "w_out", "w1", "w3",
                           "w2")}
 
@@ -2404,16 +2958,41 @@ BF16_ATTN_Z = 4.0
 # at most 1.8e-5 and |z| at most 1.42 at 5 differing elements; the
 # one-ulp-up controls drift 5.9e-3 and 4.5e-3 and read z 284 and 201)
 BF16_LIMITS = {"qwen2-7b+xnor": (BF16_PATH_LOGITS, BF16_TRACK, BF16_ATTN_Z),
-               "recurrentgemma-2b+xnor": (1e-3, 5e-4, 4.0)}
+               "recurrentgemma-2b+xnor": (1e-3, 5e-4, 4.0),
+               "moonshot-v1-16b-a3b+xnor": (7e-3, 2e-3, 4.0)}
+# moonshot-v1-16b-a3b+xnor's, from ``--path-readings
+# moonshot-v1-16b-a3b+xnor`` (PERF.md §6: over 12 prompts the kernel path
+# read logits 0 on 11 and 3.5e-3 on one, where no sign bit or expert
+# choice differs, drift at most 1.1e-3 and |z| at most 1.67; the one-ulp-up
+# controls drift 4.0e-3-5.8e-3 and read z 440-623)
+
+
+class Inputs(list):
+    """One run's fused-linear inputs in launch order, and ``routes``: each
+    routed layer's (layer, expert choices) in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.routes = []
 
 
 def first_flip(xs_a, xs_b, names):
     """Walk two runs' fused-linear inputs launch by launch: the largest
     relative L2 gap up to and including the first launch whose sign bits
-    differ, and where that first differing bit is (None if none does);
-    ``names`` gives each launch's (layer, linear)."""
+    differ, and where that first difference is (None if none does);
+    ``names`` gives each launch's (layer, linear).  A routed layer whose
+    expert choices differ is a difference too, a discrete one like a sign
+    bit: the walk ends before the next layer's launches."""
+    import torch
+
+    stop = next((la for (la, a), (_, b) in zip(getattr(xs_a, "routes", []),
+                                               getattr(xs_b, "routes", []))
+                 if not torch.equal(a, b)), None)
     drift = 0.0
     for i, (a, b) in enumerate(zip(xs_a, xs_b)):
+        if stop is not None and names[i][0] > stop:
+            return drift, dict(launch=i, routed_layer=stop,
+                               expert_choices="differ")
         drift = max(drift, ((a - b).norm() / b.norm()).item())
         diff = (a >= 0) != (b >= 0)
         if diff.any():
@@ -2423,6 +3002,8 @@ def first_flip(xs_a, xs_b, names):
                 x_a=a[r, c].item(), x_b=b[r, c].item(),
                 row_mean_abs=b[r].abs().mean().item(),
                 bits=int(diff.sum()))
+    if stop is not None:
+        return drift, dict(routed_layer=stop, expert_choices="differ")
     return drift, None
 
 
@@ -2474,9 +3055,8 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
     from repro_torch.kernels import paged_attn as kpaged
     from repro_torch.kernels.xnor_gemm import linear_kernel_order
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models import lm
-
-    from repro_torch.models import blocks
+    from repro_torch.models import blocks, lm
+    from repro_torch.models import moe as moe_mod
 
     f32 = cfg.dtype == torch.float32
     tol_lin = 2e-5 if f32 else 2 ** -8
@@ -2487,7 +3067,9 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
     ref_linear, fused = ref.xnor_linear_fused, ops.xnor_linear_fused
     name = f"{cfg.name} {str(cfg.dtype)[6:]} seed {seed}"
     names = launch_names(cfg)
-    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds())
+    n_attn = sum(k in ("attn", "local", "moe") for k in cfg.layer_kinds())
+    moe_layers = [i for i, k in enumerate(cfg.layer_kinds()) if k == "moe"]
+    route = moe_mod.route
 
     bs = cfg.block_size
     (cls, w), = lm.paged_table_widths(cfg, 128, bs, cfg.prefill_chunk).items()
@@ -2534,8 +3116,14 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
 
     def run(step, state, *, kernel, plain=linear_kernel_order, scale=1.0,
             kernel_attn=False):
-        """-> (logits (1, 1, V) f32, state after, fused-linear inputs)."""
-        xs = []
+        """-> (logits (1, 1, V) f32, state after, fused-linear inputs and
+        expert choices)."""
+        xs = Inputs()
+
+        def routed(*args, **kw):
+            r = route(*args, **kw)
+            xs.routes.append((moe_layers[len(xs.routes)], r.idx.clone()))
+            return r
 
         def lin(x, pb, beta, valid_k):
             xs.append(x.float().clone())
@@ -2559,7 +3147,8 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
                 blocks.state_map(torch.clone, st)
                 for st in state.seg_states])
         patches = [mock.patch.object(ops, "xnor_linear_fused", lin),
-                   mock.patch.object(ref, "xnor_linear_fused", plain)]
+                   mock.patch.object(ref, "xnor_linear_fused", plain),
+                   mock.patch.object(moe_mod, "route", routed)]
         if kernel or kernel_attn:
             patches.append(mock.patch.object(attn_mod, "paged_attn",
                                              types.SimpleNamespace(
@@ -2579,6 +3168,7 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
                 logits, state = lm.paged_decode_step(
                     cfg, params, tok, state, {cls: dtable}, active=active)
         assert len(xs) == len(names), len(xs)
+        assert len(xs.routes) == len(moe_layers), len(xs.routes)
         logits = logits[:1].float()
         assert torch.isfinite(logits).all()
         assert logits.shape == (1, 1, cfg.padded_vocab), logits.shape
@@ -2592,7 +3182,8 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
         r = rel(lk, other)
         print(f"[slice] {name} {step}, kernel path vs {what}, run apart: "
               f"logits relative L2 {r}; inputs tracked within {drift} up to "
-              f"the first differing sign bit {flip}  [{gpu}]")
+              f"the first differing sign bit or expert choice {flip}  "
+              f"[{gpu}]")
         return drift, flip, r
 
     start = None                 # the decode step starts from the plain
@@ -2745,31 +3336,52 @@ def main() -> int:
         for row in ptxas_summary(cuda.build_log(), source):
             print(f"[ptxas] {source}.cu {row}")
     print(f"[sass] flash_attn: {sass_counts(cuda.build()['flash_attn'])}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 products
+    torch.backends.cudnn.allow_tf32 = False         # stay f32 on the card,
+    # and bf16 products (the experts') sum in f32, as the reference's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if sys.argv[1:2] == ["--path-readings"]:
         path_readings(gpu, *sys.argv[2:3])
         return 0
     if sys.argv[1:] == ["--paged-plans"]:
         paged_plans(gpu)
         return 0
+    if sys.argv[1:] == ["--slot-bits"]:
+        slot_bits(gpu)
+        return 0
+    if sys.argv[1:] == ["--moe"]:
+        moe_arch_kernels(gpu)
+        t = time.perf_counter()
+        print(f"[moe] phase 3d launches {moe_serving(gpu)}; llama4 "
+              f"{llama4_serving(gpu)} ({time.perf_counter() - t} s)")
+        return 0
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 products
-    torch.backends.cudnn.allow_tf32 = False         # stay f32 on the card
-    rec = kernel_checks(gpu)
-    paged_long(gpu)
-    other_arch_kernels(gpu)
-    rec.update(integer_kernel_checks(gpu, LINEAR_SHAPES))
-    rec.update(flash_checks(gpu))
-    launches = serve_slice(gpu)
-    tier = serving_tier(gpu)            # launches of its five kernels
-    recurrent = recurrent_serving(gpu)  # and of its three
-    launches.update(integer_chain(gpu))
-    launches["xnor_gemm"] = binary_layers(gpu, LINEAR_SHAPES)["xnor_gemm"]
-    launches.update(long_context(gpu))
-    for path in (tier, recurrent):      # the path that runs each most
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        print(f"[time] {phase.__name__}: {time.perf_counter() - t} s")
+        return out
+
+    rec = timed(kernel_checks, gpu)
+    timed(paged_long, gpu)
+    timed(other_arch_kernels, gpu)
+    timed(moe_arch_kernels, gpu)
+    rec.update(timed(integer_kernel_checks, gpu, LINEAR_SHAPES))
+    rec.update(timed(flash_checks, gpu))
+    launches = timed(serve_slice, gpu)
+    tier = timed(serving_tier, gpu)            # launches of its five kernels
+    recurrent = timed(recurrent_serving, gpu)  # and of its three
+    moe = timed(moe_serving, gpu)              # and of the same three
+    timed(llama4_serving, gpu)
+    launches.update(timed(integer_chain, gpu))
+    launches["xnor_gemm"] = timed(binary_layers, gpu,
+                                  LINEAR_SHAPES)["xnor_gemm"]
+    launches.update(timed(long_context, gpu))
+    for path in (tier, recurrent, moe):  # the path that runs each most
         for name, n in path.items():
             launches[name] = max(launches[name], n)
-    checkpoint_layer(gpu)
-    monte_carlo(gpu)
+    timed(checkpoint_layer, gpu)
+    timed(monte_carlo, gpu)
     kernels = []
     for key in ("pack", "xnor_linear_fused", "paged_decode_attention",
                 "xnor_gemm", "bulk_xor", "parity_digest", "xor_cipher",

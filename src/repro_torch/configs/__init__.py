@@ -2,8 +2,9 @@
 
 ``get(name)`` also accepts ``<name>+xnor`` for the binary-quantized
 variant (the paper's technique as a config axis).  The port carries the
-archs whose block kinds it serves: the dense attention archs and the
-hybrid RecurrentGemma (``rglru`` + ``local``).
+archs whose block kinds it serves: the dense attention archs, the hybrid
+RecurrentGemma (``rglru`` + ``local``) and the mixture-of-experts archs
+(``moe``: Moonlight-16B-A3B, Llama-4-Scout).
 """
 
 from __future__ import annotations
@@ -16,10 +17,12 @@ from repro_torch.configs.qwen3_4b import CONFIG as qwen3_4b
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as phi4_mini_3_8b
 from repro_torch.configs.qwen3_14b import CONFIG as qwen3_14b
 from repro_torch.configs.recurrentgemma_2b import CONFIG as recurrentgemma_2b
+from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as moonshot
+from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as llama4_scout
 
 ALL: dict[str, ArchConfig] = {
     c.name: c for c in [qwen2_7b, qwen3_4b, phi4_mini_3_8b, qwen3_14b,
-                        recurrentgemma_2b]}
+                        recurrentgemma_2b, moonshot, llama4_scout]}
 
 
 def get(name: str) -> ArchConfig:

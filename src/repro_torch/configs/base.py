@@ -38,6 +38,13 @@ class ArchConfig:
     # kinds is one segment with its parameters stacked on a leading axis
     pattern: tuple = ("attn",)
 
+    # MoE (GShard top-k routing; experts and router stay full precision)
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
     # recurrent blocks (RG-LRU)
     conv_width: int = 4            # causal depthwise conv1d taps
     rglru_c: float = 8.0           # Griffin's fixed decay sharpness
@@ -105,6 +112,9 @@ class ArchConfig:
             prefill_chunk=8,
             name=self.name + "-smoke",
         )
+        if self.n_experts:
+            scale.update(n_experts=4, top_k=min(self.top_k, 2),
+                         d_ff_expert=32)
         if len(self.pattern) > 1:
             scale["n_layers"] = len(self.pattern)
         scale.update(over)

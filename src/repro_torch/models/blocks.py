@@ -8,6 +8,7 @@ Ported kinds:
   attn   GQA self-attention + SwiGLU FFN (dense transformers)
   local  sliding-window GQA + FFN (RecurrentGemma's attention layers)
   rglru  Griffin's recurrent block (conv1d + RG-LRU) + FFN
+  moe    GQA self-attention + top-k mixture-of-experts FFN
 
 Every kind implements:
   defs(cfg, n)                                stacked ParamDefs
@@ -31,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, registry, ssm
+from repro_torch.models import layers, moe, registry, ssm
 from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.models.params import ParamDef
 from repro_torch.models.registry import BlockContract, register
@@ -200,18 +201,33 @@ class PagedLayout:
             l[:, slot:slot + 1] = q.to(l.device, l.dtype)
 
 
-def _residual_ffn(cfg, p, x, a):
-    """The residual around a mixer's output ``a``, then the FFN.  ln2
-    reads the residual sum in f32, unrounded: XLA folds the bf16 rounding
-    of x + a into the norm's cast to f32 (it allows excess precision),
-    while the residual stream itself stays rounded."""
-    h = layers.rms_norm(x.float() + a, p["ln2"], dtype=x.dtype)
-    x = x + a
-    return x + layers.ffn(cfg, _sub(p, "ffn_"), h)
+class _FfnBlock(PagedLayout):
+    """A mixer's output ``a`` joins the residual, then the FFN, which a
+    kind overrides through :meth:`_ffn_defs` and :meth:`_ffn` (``MoeBlock``
+    routes it)."""
+
+    @classmethod
+    def _ffn_defs(cls, cfg, n):
+        return {f"ffn_{k}": v for k, v in layers.ffn_defs(cfg, n).items()}
+
+    @classmethod
+    def _ffn(cls, cfg, p, h, valid=None):
+        """The FFN of the normed residual ``h`` (dense SwiGLU); ``valid``
+        marks a chunk's real tokens, which only a routed FFN reads."""
+        return layers.ffn(cfg, _sub(p, "ffn_"), h)
+
+    @classmethod
+    def _residual_ffn(cls, cfg, p, x, a, valid=None):
+        """ln2 reads the residual sum in f32, unrounded: XLA folds the bf16
+        rounding of x + a into the norm's cast to f32 (it allows excess
+        precision), while the residual stream itself stays rounded."""
+        h = layers.rms_norm(x.float() + a, p["ln2"], dtype=x.dtype)
+        x = x + a
+        return x + cls._ffn(cfg, p, h, valid)
 
 
 @register
-class AttnBlock(PagedLayout):
+class AttnBlock(_FfnBlock):
     contract = BlockContract("attn", paged_kv=True, table_class="full",
                              prefix_shareable=True)
     window = 0
@@ -220,8 +236,7 @@ class AttnBlock(PagedLayout):
     def defs(cls, cfg, n):
         defs = {"ln1": _norm_def(cfg, n), "ln2": _norm_def(cfg, n)}
         defs |= {f"attn_{k}": v for k, v in attn_mod.attn_defs(cfg, n).items()}
-        defs |= {f"ffn_{k}": v for k, v in layers.ffn_defs(cfg, n).items()}
-        return defs
+        return defs | cls._ffn_defs(cfg, n)
 
     @classmethod
     def _win(cls, cfg) -> int:
@@ -241,7 +256,7 @@ class AttnBlock(PagedLayout):
             cap = min(opts.s_max, win) if win else opts.s_max
             state = _kv_from_seq(cfg, k, v, cap, rolling=bool(win))
         a = attn_mod.attention(cfg, ap, h, causal=True, window=win)
-        return _residual_ffn(cfg, p, x, a), state
+        return cls._residual_ffn(cfg, p, x, a), state
 
     @classmethod
     def decode(cls, cfg, p, x, state, pos, table, valid=None):
@@ -254,7 +269,7 @@ class AttnBlock(PagedLayout):
         else:
             a = attn_mod.paged_attention(cfg, _sub(p, "attn_"), h, state,
                                          table, pos, window=win, valid=valid)
-        return _residual_ffn(cfg, p, x, a)
+        return cls._residual_ffn(cfg, p, x, a)
 
     @classmethod
     def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table):
@@ -264,7 +279,7 @@ class AttnBlock(PagedLayout):
         h = layers.rms_norm(x, p["ln1"])
         a = attn_mod.paged_attention(cfg, _sub(p, "attn_"), h, state, table,
                                      pos0, window=cls._win(cfg), valid=valid)
-        return _residual_ffn(cfg, p, x, a)
+        return cls._residual_ffn(cfg, p, x, a, valid)
 
     @classmethod
     def state_spec(cls, cfg, n, batch, s_max, device):
@@ -282,7 +297,24 @@ class LocalBlock(AttnBlock):
 
 
 @register
-class RglruBlock(PagedLayout):
+class MoeBlock(AttnBlock):
+    """Attention, then a top-k mixture of experts in place of the dense
+    FFN; its decode state is the attention's paged KV."""
+    contract = BlockContract("moe", paged_kv=True, table_class="full",
+                             prefix_shareable=True, routed_experts=True)
+
+    @classmethod
+    def _ffn_defs(cls, cfg, n):
+        return {f"moe_{k}": v for k, v in moe.moe_defs(cfg, n).items()}
+
+    @classmethod
+    def _ffn(cls, cfg, p, h, valid=None):
+        # the aux loss has no consumer on the serving path
+        return moe.moe_ffn(cfg, _sub(p, "moe_"), h, valid=valid)[0]
+
+
+@register
+class RglruBlock(_FfnBlock):
     """Griffin's recurrent block: a gated branch gelu(h W_gate) times the
     RG-LRU over conv1d(h W_x), projected by W_out; then the FFN.  The
     state is per slot: ``(RGLRUState(h (B, d) f32), conv buffer (B, W-1,
@@ -303,7 +335,7 @@ class RglruBlock(PagedLayout):
             "w_r": lin(), "w_i": lin(),
             "lam": ParamDef((n, d), torch.float32, init="ones"),
             "w_out": lin(),
-        } | {f"ffn_{k}": v for k, v in layers.ffn_defs(cfg, n).items()}
+        } | cls._ffn_defs(cfg, n)
 
     @classmethod
     def _mix(cls, cfg, p, h):
@@ -323,8 +355,8 @@ class RglruBlock(PagedLayout):
         r, i = cls._gates(cfg, p, uc.to(u.dtype))
         st0 = ssm.RGLRUState.zeros(x.shape[0], cfg.d_model, x.device)
         y, st = ssm.rglru(uc, r, i, p["lam"], cfg.rglru_c, st0)
-        x = _residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
-                                                    cfg.quant))
+        x = cls._residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
+                                                        cfg.quant))
         state = None
         if opts.want_state:
             w1 = cfg.conv_width - 1
@@ -345,8 +377,8 @@ class RglruBlock(PagedLayout):
         uc, buf_new = ssm.conv1d_step(buf, u, p["conv_k"])
         r, i = cls._gates(cfg, p, uc)
         y, st_new = ssm.rglru_step(uc, r, i, p["lam"], cfg.rglru_c, st)
-        x = _residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
-                                                    cfg.quant))
+        x = cls._residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
+                                                        cfg.quant))
         st.h.copy_(st_new.h)
         buf.copy_(buf_new)
         return x
@@ -360,8 +392,8 @@ class RglruBlock(PagedLayout):
         r, i = cls._gates(cfg, p, uc.to(u.dtype))
         y, st_new = ssm.rglru(uc, r, i, p["lam"], cfg.rglru_c, st,
                               valid=valid)
-        x = _residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
-                                                    cfg.quant))
+        x = cls._residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
+                                                        cfg.quant))
         st.h.copy_(st_new.h)
         buf.copy_(ssm.conv1d_carry_out(buf, u, n_valid))
         return x

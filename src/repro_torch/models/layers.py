@@ -12,11 +12,29 @@ from repro_torch.core import xnor_layers
 from repro_torch.models.params import ParamDef
 
 
+def row_sum(x: torch.Tensor, staged: bool | None = None) -> torch.Tensor:
+    """``x.sum(-1, keepdim=True)``.  On the card (``staged``, by default
+    where ``x`` is a CUDA tensor) it sums in stages of 32 (zero-padded):
+    PyTorch's CUDA reduction sizes its thread block by the number of rows,
+    so a row's bits would depend on how many rows share the tensor — a
+    decode step's rows are the engine's slots (fault F4).  A 32-wide
+    reduction runs one row a warp whatever the row count.  On the CPU
+    torch's own sum, which reads each row alone."""
+    if not (x.is_cuda if staged is None else staged):
+        return x.sum(-1, keepdim=True)
+    while x.shape[-1] > 1:
+        pad = -x.shape[-1] % 32
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        x = x.reshape(*x.shape[:-1], -1, 32).sum(-1)
+    return x
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
              dtype: torch.dtype | None = None) -> torch.Tensor:
     """RMSNorm in f32, rounded to ``dtype`` (``x.dtype`` by default)."""
     x32 = x.float()
-    var = (x32 * x32).sum(-1, keepdim=True) * (1.0 / x.shape[-1])
+    var = row_sum(x32 * x32) * (1.0 / x.shape[-1])
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(dtype or x.dtype)
 
 

@@ -1,6 +1,7 @@
 """The port's configs against the reference's, and the two dense configs
 this port adds beside qwen2-7b / qwen3-4b (phi4-mini-3.8b, qwen3-14b),
-served at their smoke size with the reference engine's greedy tokens.
+served at their smoke size with the reference engine's greedy tokens;
+the ``moe`` kind's contract and the MoE archs' parameter trees.
 
 Every ported arch must equal the reference's config field by field, full
 size and smoke; archs whose block kinds the port does not serve stay out
@@ -29,9 +30,10 @@ PORTED = sorted(configs.ALL)
 
 
 def test_registry_lists_the_ported_archs():
-    assert PORTED == ["phi4-mini-3.8b", "qwen2-7b", "qwen3-14b", "qwen3-4b",
+    assert PORTED == ["llama4-scout-17b-a16e", "moonshot-v1-16b-a3b",
+                      "phi4-mini-3.8b", "qwen2-7b", "qwen3-14b", "qwen3-4b",
                       "recurrentgemma-2b"]
-    for name in ("xlstm-350m", "moonshot-v1-16b-a3b", "whisper-tiny"):
+    for name in ("xlstm-350m", "llama-3.2-vision-11b", "whisper-tiny"):
         with pytest.raises(KeyError):
             configs.get(name)
     for name in PORTED:           # no ported config names an unported kind
@@ -83,3 +85,36 @@ def test_smoke_greedy_tokens_match_reference(arch, dtype):
             == {rid: jrep.tokens(rid).tolist() for rid in jrep.sessions})
     assert rep.stats.prefix_hits == jrep.stats.prefix_hits > 0
     assert rep.stats.decode_steps == jrep.stats.decode_steps
+
+
+@pytest.mark.parametrize("kind", ["attn", "local", "rglru", "moe"])
+def test_contract_equals_the_references(kind):
+    """Every field of the port's contract is the reference's; the one the
+    port does not declare (``decodes``) is True for every ported kind."""
+    from repro.models import registry as jregistry
+    t, j = registry.contract(kind), jregistry.contract(kind)
+    for f in dataclasses.fields(t):
+        assert getattr(t, f.name) == getattr(j, f.name), (kind, f.name)
+    assert j.decodes
+    assert t.routed_experts == (kind == "moe")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b+xnor",
+                                  "llama4-scout-17b-a16e"])
+def test_from_jax_carries_the_moe_tree(arch, dtype):
+    """The reference's smoke tree converts leaf for leaf: the router in
+    f32, the experts in the config's dtype, bitwise."""
+    jcfg = jconfigs.get(arch).smoke(dtype=jnp.dtype(dtype))
+    cfg = configs.get(arch).smoke(dtype=getattr(torch, dtype))
+    jp = jax.tree.map(np.asarray, jlm.init_params(jcfg,
+                                                  jax.random.PRNGKey(3)))
+    tp = convert.from_jax(cfg, jp)
+    seg = tp["seg0_moe"]
+    assert seg["moe_router"].dtype == torch.float32
+    for k in ("moe_w1", "moe_w3", "moe_w2"):
+        assert seg[k].dtype == cfg.dtype
+    for k, v in seg.items():
+        want = np.asarray(jp["seg0_moe"][k]).astype(np.float32)
+        np.testing.assert_array_equal(v.float().numpy(), want, err_msg=k)
+    assert sorted(seg) == sorted(jp["seg0_moe"])

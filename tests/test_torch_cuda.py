@@ -141,6 +141,29 @@ def test_cuda_xnor_linear_fused_other_archs(gpu, m, k, n):
         torch.testing.assert_close(kk, pp, rtol=tol[0], atol=tol[1])
 
 
+# the attention projections of the mixture-of-experts archs (N, K):
+# moonshot-v1-16b-a3b's four (2048 -> 2048), llama4-scout's q/o and k/v
+MOE_LINEARS = [(2048, 2048), (5120, 5120), (1024, 5120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for n, k in MOE_LINEARS
+                                   for m in (4, 32)])
+def test_cuda_xnor_linear_fused_moe_archs(gpu, m, k, n):
+    """Bitwise against the plain version summed in the kernel's order and
+    within the reference's tolerances of the plain one, f32 and bf16."""
+    g = torch.Generator(device=gpu)
+    g.manual_seed(m * 11 + k + n)
+    pb, beta = xnor_layers.pack_weights(
+        torch.randn((n, k), generator=g, device=gpu))
+    for dtype, tol in ((torch.float32, (2e-5, 2e-5)),
+                       (torch.bfloat16, (2 ** -8, 1e-6))):
+        x = torch.randn((m, k), generator=g, device=gpu).to(dtype)
+        kk, pp = _kernel_and_plain(kxnor.xnor_linear_fused, x, pb, beta, k)
+        assert torch.equal(kk, kxnor.linear_kernel_order(x, pb, beta, k))
+        torch.testing.assert_close(kk, pp, rtol=tol[0], atol=tol[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,dtype", [(32, 60000, 64, torch.bfloat16),
                                          (4, 150000, 40, torch.bfloat16),
@@ -238,6 +261,38 @@ def test_cuda_paged_decode_rows_do_not_depend_on_the_batch(gpu, w, dtype):
                                         scale=dh ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(four[:2], two)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,i8,tol", [("f32", False, (2e-5, 2e-5)),
+                                          ("bf16", False, BF16_ULP),
+                                          ("bf16", True, BF16_ULP)])
+@pytest.mark.parametrize("w,pos", [(8, [0, 17, 127, 64]),
+                                   (2048, [32767, 17, 20000, 4095])])
+def test_cuda_paged_decode_g1(gpu, dtype, i8, tol, w, pos):
+    """moonshot-v1-16b-a3b's geometry: KV 16, G 1 (one query row a KV
+    head), dh 128, block 16, 4 slots, at W 8 and at W 2048 (a split
+    walk), against the plain version; rows 0-1 of the launch bitwise a
+    2-slot launch's."""
+    q, ck, cv, table, scale, out_scale = _case(
+        b=4, kv=16, g=1, dh=128, bs=16, w=w, i8=i8, seed=w)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    conv = (lambda a: torch.from_numpy(a).to(gpu)) if i8 else \
+        (lambda a: torch.from_numpy(a).to(gpu, tdt))
+    args = (torch.from_numpy(q).to(gpu, tdt), conv(ck), conv(cv),
+            torch.from_numpy(table).to(gpu),
+            torch.tensor(pos, dtype=torch.int32, device=gpu))
+    kk, pp = _kernel_and_plain(kpaged.paged_decode_attention, *args,
+                               scale=scale, out_scale=out_scale)
+    torch.testing.assert_close(kk.float(), pp.float(), rtol=tol[0],
+                               atol=tol[1])
+    # F2's invariant here too: rows 0-1 alone are the 4-slot launch's bits
+    tq, tk, tv, tt, tp = args
+    two = kpaged.paged_decode_attention(
+        tq[:2].contiguous(), tk, tv, tt[:2].contiguous(), tp[:2].contiguous(),
+        scale=scale, out_scale=out_scale)
+    torch.cuda.synchronize()
+    assert torch.equal(two, kk[:2])
 
 
 DH256 = [("f32", False, (2e-5, 2e-5)), ("bf16", False, BF16_ULP),
@@ -622,3 +677,104 @@ def test_cuda_router_kill_drill(gpu, tmp_path):
     assert router.scrub() == 0
     pb.view(-1)[0] ^= 1
     assert router.scrub() == 1
+
+
+def _moe_case(seed, d=2048, e=64, ff=1408):
+    """moonshot-v1-16b-a3b's MoE at full width (d 2048, 64 experts, top-6,
+    d_ff 1408), one layer, bf16 experts and an f32 router, on the CPU."""
+    import repro_torch.configs as configs
+    cfg = configs.get("moonshot-v1-16b-a3b")
+    g = torch.Generator()
+    g.manual_seed(seed)
+    p = {"router": torch.randn((d, e), generator=g) / d ** 0.5}
+    for k, shape in (("w1", (e, d, ff)), ("w3", (e, d, ff)),
+                     ("w2", (e, ff, d))):
+        p[k] = (torch.randn(shape, generator=g) / shape[1] ** 0.5).to(
+            torch.bfloat16)
+    return cfg, p, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,n_valid", [(4, 1, None), (1, 32, 32),
+                                         (1, 32, 19)])
+def test_cuda_moe_ffn_matches_the_cpu(gpu, b, s, n_valid, monkeypatch):
+    """``moe_ffn`` on the card against its CPU run on the same inputs, at a
+    decode step (4 slots, one token each: capacity 1) and a 32-token chunk
+    (capacity 3; ragged at 19): the same routing (experts, kept mask,
+    places) and y within 2^-7 (|y| + sum_j w_j |ye_j|), one bf16 ulp of y
+    and one of the expert outputs it sums (cuBLAS sums each product's
+    terms in its own order); the bf16 products reduce in f32."""
+    from repro_torch.models import moe
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    cfg, p, g = _moe_case(b * 100 + s)
+    x = torch.randn((b, s, cfg.d_model), generator=g).to(torch.bfloat16)
+    valid = None if n_valid is None else torch.arange(s)[None] < n_valid
+    y, aux = moe.moe_ffn(cfg, p, x, valid)
+    pc = {k: v.to(gpu) for k, v in p.items()}
+    vc = None if valid is None else valid.to(gpu)
+    yc, auxc = moe.moe_ffn(cfg, pc, x.to(gpu), vc)
+    tg = min(moe.group_len(cfg), s)
+    xg = x.reshape(b * s // tg, tg, -1)
+    vg = None if valid is None else valid.reshape(xg.shape[:2])
+    r = moe.route(cfg, p["router"], xg, vg)
+    rc = moe.route(cfg, pc["router"], xg.to(gpu),
+                   None if vg is None else vg.to(gpu))
+    assert torch.equal(rc.idx.cpu(), r.idx)
+    assert torch.equal(rc.keep.cpu(), r.keep)
+    assert torch.equal(rc.pos.cpu(), r.pos)
+    terms = moe.combine(cfg, r, moe.experts(cfg, p, xg, r).abs(),
+                        torch.bfloat16).reshape(y.shape)
+    bound = 2.0 ** -7 * (y.float().abs() + terms)
+    assert ((yc.cpu().float() - y.float()).abs() <= bound).all()
+    torch.testing.assert_close(auxc.cpu(), aux, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_rows_do_not_depend_on_the_batch(gpu, monkeypatch):
+    """A decode step's MoE at 1, 2 and 4 slots: each slot's row is the
+    same bits whatever the batch (each slot is its own dispatch group, and
+    the expert products' M grows with the slot count)."""
+    from repro_torch.models import moe
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    cfg, p, g = _moe_case(7)
+    pc = {k: v.to(gpu) for k, v in p.items()}
+    x = torch.randn((4, 1, cfg.d_model), generator=g).to(torch.bfloat16)
+    x = x.to(gpu)
+    four = moe.moe_ffn(cfg, pc, x)[0]
+    for n in (1, 2):
+        assert torch.equal(moe.moe_ffn(cfg, pc, x[:n].contiguous())[0],
+                           four[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [6, 64, 2048, 5120])
+def test_cuda_row_sums_do_not_depend_on_the_batch(gpu, d):
+    """Fault F4: PyTorch's CUDA sum over the last dim sizes its block by
+    the row count, so a (4, 2048) f32 tensor's row 1 summed other bits
+    than a (2, 2048) one's.  ``layers.row_sum`` (RMSNorm's sum of squares,
+    the router's softmax and gate sums) and the decode router give every
+    row the bits it has alone, at 2 to 32 rows, on f32 rows that are not
+    bf16 values (whose squares sum exactly in any order)."""
+    from repro_torch.models import layers, moe
+    import repro_torch.configs as configs
+    g = torch.Generator(device=gpu)
+    g.manual_seed(d)
+    x = torch.randn((32, 1, d), generator=g, device=gpu)
+    alone = torch.cat([layers.row_sum(x[j:j + 1] * x[j:j + 1])
+                       for j in range(32)])
+    for b in (2, 3, 4, 8, 16, 32):
+        assert torch.equal(layers.row_sum(x[:b] * x[:b]), alone[:b]), b
+    torch.testing.assert_close(alone, (x * x).sum(-1, keepdim=True),
+                               rtol=1e-5, atol=0)
+    if d == 2048:
+        cfg = configs.get("moonshot-v1-16b-a3b")
+        router = torch.randn((d, 64), generator=g, device=gpu) / d ** 0.5
+        xb = x.to(torch.bfloat16)
+        r1 = [moe.route(cfg, router, xb[j:j + 1]) for j in range(8)]
+        for b in (2, 4, 8):
+            rb = moe.route(cfg, router, xb[:b])
+            for j in range(b):
+                assert torch.equal(rb.probs[j:j + 1], r1[j].probs), (b, j)
+                assert torch.equal(rb.idx[j:j + 1], r1[j].idx), (b, j)
