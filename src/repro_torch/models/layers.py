@@ -12,29 +12,45 @@ from repro_torch.core import xnor_layers
 from repro_torch.models.params import ParamDef
 
 
-def row_sum(x: torch.Tensor, staged: bool | None = None) -> torch.Tensor:
-    """``x.sum(-1, keepdim=True)``.  On the card (``staged``, by default
-    where ``x`` is a CUDA tensor) it sums in stages of 32 (zero-padded):
-    PyTorch's CUDA reduction sizes its thread block by the number of rows,
-    so a row's bits would depend on how many rows share the tensor — a
-    decode step's rows are the engine's slots (fault F4).  A 32-wide
-    reduction runs one row a warp whatever the row count.  On the CPU
-    torch's own sum, which reads each row alone."""
-    if not (x.is_cuda if staged is None else staged):
-        return x.sum(-1, keepdim=True)
-    while x.shape[-1] > 1:
-        pad = -x.shape[-1] % 32
-        if pad:
-            x = torch.nn.functional.pad(x, (0, pad))
-        x = x.reshape(*x.shape[:-1], -1, 32).sum(-1)
-    return x
+# PyTorch's CUDA reduction spreads a row wider than a warp over 512 / rows
+# threads below 16 rows, and gives it one warp from 16 rows on (fault F4)
+SUM_ROWS = 16
+
+
+def row_sum(x: torch.Tensor, square: bool = False) -> torch.Tensor:
+    """``(x * x if square else x).sum(-1, keepdim=True)``, each row's bits
+    whatever the number of rows beside it.  On the card PyTorch's
+    reduction splits a row over more threads the fewer rows there are, so
+    a decode step's rows (the engine's slots) would change each other's
+    bits (fault F4); fewer than ``SUM_ROWS`` rows of more than 32 are
+    summed in a ``SUM_ROWS``-row buffer.  On the CPU torch's own sum,
+    which reads each row alone."""
+    n = x.shape[-1]
+    if not x.is_cuda or n <= 32 or x.numel() >= SUM_ROWS * n:
+        return (x * x if square else x).sum(-1, keepdim=True)
+    return _padded_sum(x, square)
+
+
+def _padded_sum(x: torch.Tensor, square: bool = False) -> torch.Tensor:
+    """``row_sum`` from a ``SUM_ROWS``-row buffer: ``x`` (or its square)
+    written into its first rows, one reduction; the other rows are left
+    unset and their sums dropped."""
+    flat = x.reshape(-1, x.shape[-1])
+    buf = flat.new_empty((SUM_ROWS, flat.shape[1]))
+    rows = buf[:flat.shape[0]]
+    if square:
+        torch.mul(flat, flat, out=rows)
+    else:
+        rows.copy_(flat)
+    return buf.sum(-1, keepdim=True)[:flat.shape[0]].reshape(
+        *x.shape[:-1], 1)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
              dtype: torch.dtype | None = None) -> torch.Tensor:
     """RMSNorm in f32, rounded to ``dtype`` (``x.dtype`` by default)."""
     x32 = x.float()
-    var = row_sum(x32 * x32) * (1.0 / x.shape[-1])
+    var = row_sum(x32, square=True) * (1.0 / x.shape[-1])
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(dtype or x.dtype)
 
 

@@ -14,14 +14,15 @@ three batched products a layer over every expert, and the dispatch and
 combine contractions.  Rounding follows the reference's jitted program:
 the router reads the ``cfg.dtype`` norm output cast to f32; routing,
 softmax, top-k and the gate normalization run in f32; each expert product
-rounds to ``cfg.dtype`` (``layers.silu_mul`` keeps the reference's SwiGLU
-chain); the combine weights round to ``cfg.dtype`` and each token's kept
-contributions are summed in f32 in ascending expert order and rounded
-once.
+rounds to ``cfg.dtype`` once, from an f32 sum (``layers.silu_mul`` keeps
+the reference's SwiGLU chain); the combine weights round to ``cfg.dtype``
+and each token's kept contributions are summed in f32 in ascending expert
+order and rounded once.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -104,9 +105,25 @@ def combine_weights(cfg, r: Routing) -> torch.Tensor:
     return torch.einsum("gtk,gtke,gtkc->gtec", r.gate, r.keep, pos_oh)
 
 
+@contextlib.contextmanager
+def _f32_reductions():
+    """cuBLAS may sum a bf16 product's split-K partials in bf16 (PyTorch's
+    default); the reference's expert products sum in f32 and round once.
+    The setting is PyTorch's, read at each launch, so it is held off for
+    the products alone and restored after."""
+    matmul = torch.backends.cuda.matmul
+    was = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = was
+
+
 def experts(cfg, p: dict, xg: torch.Tensor, r: Routing) -> torch.Tensor:
     """The capacity buffers through every expert: xg (G, T, d) -> ye
-    (E, G * C, d) in xg's dtype, three batched products."""
+    (E, G * C, d) in xg's dtype, three batched products, each summed in
+    f32."""
     g, _, d = xg.shape
     combine = combine_weights(cfg, r)
     c = combine.shape[-1]
@@ -114,8 +131,9 @@ def experts(cfg, p: dict, xg: torch.Tensor, r: Routing) -> torch.Tensor:
     # one token a (expert, group, place): the dispatch product is exact
     xe = torch.einsum("gtec,gtd->egcd", dispatch, xg).reshape(
         cfg.n_experts, g * c, d)
-    h = layers.silu_mul(torch.bmm(xe, p["w1"]), torch.bmm(xe, p["w3"]))
-    return torch.bmm(h, p["w2"])
+    with _f32_reductions():
+        h = layers.silu_mul(torch.bmm(xe, p["w1"]), torch.bmm(xe, p["w3"]))
+        return torch.bmm(h, p["w2"])
 
 
 def combine(cfg, r: Routing, ye: torch.Tensor, dtype) -> torch.Tensor:

@@ -697,16 +697,15 @@ def _moe_case(seed, d=2048, e=64, ff=1408):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,n_valid", [(4, 1, None), (1, 32, 32),
                                          (1, 32, 19)])
-def test_cuda_moe_ffn_matches_the_cpu(gpu, b, s, n_valid, monkeypatch):
+def test_cuda_moe_ffn_matches_the_cpu(gpu, b, s, n_valid):
     """``moe_ffn`` on the card against its CPU run on the same inputs, at a
     decode step (4 slots, one token each: capacity 1) and a 32-token chunk
     (capacity 3; ragged at 19): the same routing (experts, kept mask,
     places) and y within 2^-7 (|y| + sum_j w_j |ye_j|), one bf16 ulp of y
     and one of the expert outputs it sums (cuBLAS sums each product's
-    terms in its own order); the bf16 products reduce in f32."""
+    terms in its own order); PyTorch's settings as a user has them
+    (``moe.experts`` sums its products in f32 itself)."""
     from repro_torch.models import moe
-    monkeypatch.setattr(torch.backends.cuda.matmul,
-                        "allow_bf16_reduced_precision_reduction", False)
     cfg, p, g = _moe_case(b * 100 + s)
     x = torch.randn((b, s, cfg.d_model), generator=g).to(torch.bfloat16)
     valid = None if n_valid is None else torch.arange(s)[None] < n_valid
@@ -731,13 +730,11 @@ def test_cuda_moe_ffn_matches_the_cpu(gpu, b, s, n_valid, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_cuda_moe_rows_do_not_depend_on_the_batch(gpu, monkeypatch):
+def test_cuda_moe_rows_do_not_depend_on_the_batch(gpu):
     """A decode step's MoE at 1, 2 and 4 slots: each slot's row is the
     same bits whatever the batch (each slot is its own dispatch group, and
     the expert products' M grows with the slot count)."""
     from repro_torch.models import moe
-    monkeypatch.setattr(torch.backends.cuda.matmul,
-                        "allow_bf16_reduced_precision_reduction", False)
     cfg, p, g = _moe_case(7)
     pc = {k: v.to(gpu) for k, v in p.items()}
     x = torch.randn((4, 1, cfg.d_model), generator=g).to(torch.bfloat16)
@@ -764,8 +761,9 @@ def test_cuda_row_sums_do_not_depend_on_the_batch(gpu, d):
     x = torch.randn((32, 1, d), generator=g, device=gpu)
     alone = torch.cat([layers.row_sum(x[j:j + 1] * x[j:j + 1])
                        for j in range(32)])
-    for b in (2, 3, 4, 8, 16, 32):
+    for b in range(2, 33):
         assert torch.equal(layers.row_sum(x[:b] * x[:b]), alone[:b]), b
+        assert torch.equal(layers.row_sum(x[:b], square=True), alone[:b]), b
     torch.testing.assert_close(alone, (x * x).sum(-1, keepdim=True),
                                rtol=1e-5, atol=0)
     if d == 2048:

@@ -228,19 +228,22 @@ def test_zero_router_ties_pick_the_lower_index(case, dtype):
 
 
 @pytest.mark.parametrize("d", [1, 6, 31, 32, 33, 64, 2048, 2560, 5120])
-def test_staged_row_sum(d):
-    """``layers.row_sum`` in the card's staged order (fault F4), run on the
-    CPU: torch's sum within f32 rounding, each row's bits the same alone
-    and among 8 rows."""
+def test_padded_row_sum(d):
+    """``layers.row_sum``'s card form (fault F4: fewer than ``SUM_ROWS``
+    rows summed in a ``SUM_ROWS``-row buffer), run on the CPU: torch's sum
+    bit for bit, at 1 to 15 rows, whatever the buffer's unset rows hold;
+    with ``square``, RMSNorm's sum of squares."""
     from repro_torch.models import layers
     x = torch.from_numpy(np.random.default_rng(d).standard_normal(
-        (8, 3, d)).astype(np.float32))
-    got = layers.row_sum(x, staged=True)
-    assert got.shape == (8, 3, 1)
-    torch.testing.assert_close(got, x.sum(-1, keepdim=True), rtol=1e-5,
-                               atol=1e-5)
-    assert torch.equal(layers.row_sum(x[:1, :1], staged=True), got[:1, :1])
+        (5, 3, d)).astype(np.float32))
+    got = layers._padded_sum(x)
+    assert got.shape == (5, 3, 1)
+    assert torch.equal(got, x.sum(-1, keepdim=True))
+    assert torch.equal(layers._padded_sum(x[:1, :1]), got[:1, :1])
     assert torch.equal(layers.row_sum(x), x.sum(-1, keepdim=True))
+    sq = (x * x).sum(-1, keepdim=True)
+    assert torch.equal(layers._padded_sum(x, square=True), sq)
+    assert torch.equal(layers.row_sum(x, square=True), sq)
 
 
 def test_group_must_divide_the_tokens():
@@ -253,6 +256,35 @@ def test_group_must_divide_the_tokens():
                     torch.zeros(1, 600, 8))
     assert moe.capacity(cfg, 32) == 3 and moe.capacity(cfg, 1) == 1
     assert moe.capacity(cfg, 512) == int(512 * 6 / 64 * 1.25)
+
+
+@pytest.mark.parametrize("user", [True, False])
+def test_expert_products_sum_in_f32(user, monkeypatch):
+    """Each expert product runs with PyTorch's bf16 reduced-precision
+    reduction off (the reference sums in f32), and the caller's setting is
+    back once ``experts`` returns, also where it raises."""
+    matmul = torch.backends.cuda.matmul
+    monkeypatch.setattr(matmul, "allow_bf16_reduced_precision_reduction",
+                        user)
+    seen, bmm = [], torch.bmm
+
+    def recording(*a, **k):
+        seen.append(matmul.allow_bf16_reduced_precision_reduction)
+        return bmm(*a, **k)
+    monkeypatch.setattr(torch, "bmm", recording)
+    cfg = configs.get(MOONSHOT).smoke(dtype=torch.bfloat16)
+    tp = {k: torch.from_numpy(v).to(torch.float32 if k == "router"
+                                    else torch.bfloat16)
+          for k, v in _weights(cfg, np.random.default_rng(3)).items()}
+    xg = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    ye = moe.experts(cfg, tp, xg, moe.route(cfg, tp["router"], xg))
+    assert seen == [False] * 3 and ye.dtype == torch.bfloat16
+    assert matmul.allow_bf16_reduced_precision_reduction is user
+    tp["w2"] = tp["w2"][:, :1]
+    with pytest.raises(RuntimeError):
+        moe.experts(cfg, tp, xg, moe.route(cfg, tp["router"], xg))
+    assert matmul.allow_bf16_reduced_precision_reduction is user
 
 
 # -- the block ----------------------------------------------------------------
