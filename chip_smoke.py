@@ -5,10 +5,13 @@
     python3 chip_smoke.py --path-readings [ARCH]   # the readings behind
                                              # the limits of check_paths
                                              # (qwen2-7b+xnor by default,
-                                             # recurrentgemma-2b+xnor or
-                                             # moonshot-v1-16b-a3b+xnor)
+                                             # recurrentgemma-2b+xnor,
+                                             # moonshot-v1-16b-a3b+xnor or
+                                             # llama-3.2-vision-11b+xnor)
     python3 chip_smoke.py --moe              # phase 2's MoE shapes and
                                              # phase 3d alone
+    python3 chip_smoke.py --vlm              # phase 2's context-arch
+                                             # shapes and phase 3e alone
     python3 chip_smoke.py --slot-bits        # fault F4's probe: whether a
                                              # slot's bits hang on the batch
     python3 chip_smoke.py --paged-plans      # paged decode at W 2048, the
@@ -57,7 +60,18 @@ Phases (any failure raises and the script exits non-zero):
    decode step's 192 fused linears as a CUDA graph; paged decode at
    moonshot's geometry (B 4, KV 16, G 1, dh 128, bs 16) over W 8 and
    W 2048 in bf16, f32 and int8, held and timed against its byte bound,
-   SDPA and the plain version.
+   SDPA and the plain version.  The context archs (``vlm_arch_kernels``):
+   the fused linear at llama-3.2-vision-11b's and whisper-tiny's shapes,
+   M 4 and 32 and, where a linear reads a context, M 1,600 (the cross
+   layers' wk/wv) and M 1,500 (the encoder), bitwise in the kernel's
+   order; llama's M 4 and M 1,600 timed against their bounds; one
+   llama-3.2-vision decode step's 264 fused linears (7 a layer x 32 attn
+   + 5 a layer x 8 cross) as a CUDA graph; hazard H2's probe of decode
+   cross-attention (the batched form against each slot alone, reported;
+   the port's per-slot form held equal); paged decode at llama's
+   (KV 8, G 4, dh 128) and whisper's (KV 6, G 1, dh 64) geometry over
+   W 8 and W 2048 in bf16, f32 and int8, held and timed against its byte
+   bound, SDPA and the plain version.
 3. The serving slice: full-width, full-depth qwen2-7b+xnor in bf16, random
    weights from a seeded generator on the card, packed at load by the pack
    kernel, served by a 4-slot ServeEngine (s_max 128) over 8 requests of
@@ -108,6 +122,24 @@ Phases (any failure raises and the script exits non-zero):
    then llama4-scout-17b-a16e+xnor at full width and 4 of 48 layers, a
    2-slot and a 1-slot engine over 4 requests, every launch held, the
    same tokens.
+3e. The context archs (``whisper_serving``, ``vlm_serving``; the
+   engine gates of ``ctx_serving``): full-width, full-depth
+   whisper-tiny+xnor (a 4-layer encoder over 1,500 frames, 4 dec layers,
+   each request's frames encoded once at admission) and
+   llama-3.2-vision-11b+xnor (40 layers, 8 of them cross, over 1,600 x
+   4,096 patch embeddings a request; 18.6 GiB of bf16 weights), packed at
+   load, each served by a 4-slot paged ServeEngine (block 16, chunk 32,
+   s_max 128, prefix caching on) over phase 3's 8 requests with a seeded
+   context each, the shared-prefix half sharing one (``ctx_trace``):
+   every launch of pack, the fused linear and paged decode held
+   (``LaunchHolds``), a 2-slot engine with the same tokens, an unheld
+   timed run repeating them (tok/s, TTFT, peak memory; 36 + 4 and 264 +
+   32 launches every decode step), a session migrated mid-decode 4 -> 2
+   slots through an encrypted wire carrying its context and per-slot
+   ``ctx_kv``, held then unheld; whisper in f32 dense = paged =
+   ``generate_static``; llama-vision's ``check_paths`` in bf16 at its
+   limits with the control failing, and in f32 at full depth (a 39 GB
+   tree).
 4. The integer chain at checkpoint scale: the same seeded 7.6 B-parameter
    bf16 tree (15.2 GB), leaf by leaf through one CimEngine — digest,
    encrypt, decrypt, verify_copy of the decrypted leaf against the
@@ -249,6 +281,26 @@ def time_ms(fn, argsets, calls: int, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+def plain_step_ms(fn, calls) -> float:
+    """Device-clock ms of ``fn``'s plain version over ``calls`` in order,
+    one pass after a warm-up call, timed with CUDA events (the plain
+    path's many small launches are not captured in a graph)."""
+    import torch
+
+    from repro_torch.kernels import cuda
+    with cuda.plain_reference():
+        fn(*calls[0])
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for a in calls:
+            fn(*a)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def copies(make, nbytes: int):
@@ -495,9 +547,10 @@ def decode_step_linears(gpu: str, randn) -> None:
             nbytes += 4 * k * 2 + pb.numel() * 4 + n * 4 + 4 * n * 4
     step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    plain = plain_step_ms(kxnor.xnor_linear_fused, calls)
     print(f"[xnor_linear_fused decode step] {len(calls)} launches (7 a layer "
           f"x 28, M = 4) in one CUDA graph: {step} ms, bound {b_ms} ms "
-          f"({step / b_ms} x)  [{gpu}]")
+          f"({step / b_ms} x); the plain version {plain} ms  [{gpu}]")
     del calls
     torch.cuda.empty_cache()
 
@@ -891,10 +944,11 @@ def other_arch_kernels(gpu: str) -> dict:
     assert len(calls) == 200, len(calls)
     step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    plain = plain_step_ms(kxnor.xnor_linear_fused, calls)
     print(f"[xnor_linear_fused recurrentgemma decode step] {len(calls)} "
           f"launches (8 a rglru layer x 18, 7 a local layer x 8, M = 4) in "
-          f"one CUDA graph: {step} ms, bound {b_ms} ms ({step / b_ms} x)  "
-          f"[{gpu}]")
+          f"one CUDA graph: {step} ms, bound {b_ms} ms ({step / b_ms} x); "
+          f"the plain version {plain} ms  [{gpu}]")
     del calls
     torch.cuda.empty_cache()
 
@@ -1629,14 +1683,17 @@ def recurrent_trace(vocab: int) -> list:
 
 def migrate(cfg, params, trace, want, geom, directory, gpu, rid=8,
             label="recurrent", expect=("torch.float32", "torch.bfloat16",
-                                       130)) -> None:
+                                       130), ctx_kv=None) -> None:
     """A migration mid-decode: request ``rid`` (phase 3c: request 8, 2,100
     prompt tokens) exported after 4 decoded tokens from a 4-slot engine,
     saved encrypted, restored against a 2-slot engine's spec and imported
     there; both engines finish, and every request keeps ``want``'s tokens.
     ``expect`` is the wire's per-slot ``h`` and conv dtypes (None where
-    the kind has none) and its pool rows' width.  Prints the wire's
-    leaves, its bytes and the ms from export to import."""
+    the kind has none) and its pool rows' width; ``ctx_kv`` the dtype and
+    (T_ctx, KV, dh) of the cross layers' per-slot keys and values, which
+    travel beside the request's raw context (None: the kind has none).
+    Prints the wire's leaves, its bytes and the ms from export to
+    import."""
     import torch
 
     from repro_torch.checkpoint import ckpt
@@ -1661,13 +1718,22 @@ def migrate(cfg, params, trace, want, geom, directory, gpu, rid=8,
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     segs = wire["state"]["segs"]
-    leaves = {"h": {str(x[1][0].h.dtype) for x in segs if x[1] is not None},
-              "conv": {str(x[1][1].dtype) for x in segs if x[1] is not None},
+    rec = [x[1] for x in segs if x[1] is not None and hasattr(x[1][0], "h")]
+    kvs = [x[1] for x in segs if x[1] is not None
+           and not hasattr(x[1][0], "h")]
+    leaves = {"h": {str(x[0].h.dtype) for x in rec},
+              "conv": {str(x[1].dtype) for x in rec},
+              "ctx_kv": {(str(t.dtype), tuple(t.shape[2:])) for x in kvs
+                         for t in x},
               "ring": {tuple(x[0].k.shape) for x in segs
                        if x[0] is not None}}
     h, conv, width = expect
     assert leaves["h"] == ({h} if h else set()), leaves
     assert leaves["conv"] == ({conv} if conv else set()), leaves
+    assert leaves["ctx_kv"] == ({ctx_kv} if ctx_kv else set()), leaves
+    req = long_.request
+    assert ("ctx" in wire) == (req.ctx is not None) and (
+        req.ctx is None or wire["ctx"].shape == req.ctx.shape), wire.keys()
     assert leaves["ring"] and all(shape[1] == width
                                   for shape in leaves["ring"]), leaves
     nbytes = sum(f.stat().st_size for f in directory.rglob("*")
@@ -2013,9 +2079,11 @@ def moe_arch_kernels(gpu: str) -> dict:
         nbytes += 4 * k * 2 + pb.numel() * 4 + n * 4 + 4 * n * 2
     step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    plain = plain_step_ms(kxnor.xnor_linear_fused, calls)
     print(f"[xnor_linear_fused moonshot decode step] {len(calls)} launches "
           f"(4 a layer x 48, M = 4) in one CUDA graph: {step} ms, bound "
-          f"{b_ms} ms ({step / b_ms} x)  [{gpu}]")
+          f"{b_ms} ms ({step / b_ms} x); the plain version {plain} ms  "
+          f"[{gpu}]")
     del calls
     torch.cuda.empty_cache()
 
@@ -2259,6 +2327,432 @@ def llama4_serving(gpu: str) -> dict:
           f"{sum(got[1][r] == got[2][r] for r in got[2])}/4  [{gpu}]")
     assert got[1] == got[2], "llama4: the 1-slot engine's tokens differ"
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# llama-3.2-vision-11b's projections (the trunk's and the cross layers'
+# alike) and whisper-tiny's (encoder and decoder alike), (N, K); the ctx
+# projections run at M = the context's rows: the cross layers' wk/wv over
+# 1,600 patch rows, and every encoder linear over 1,500 frames
+VLM_LINEARS = {"llama-3.2-vision-11b": {"wq/wo": (4096, 4096),
+                                        "wk/wv": (1024, 4096),
+                                        "w1/w3": (14336, 4096),
+                                        "w2": (4096, 14336)},
+               "whisper-tiny": {"wq/wk/wv/wo": (384, 384),
+                                "w1/w3": (1536, 384), "w2": (384, 1536)}}
+VLM_CTX_ROWS = {"llama-3.2-vision-11b": (1600, ("wk/wv",)),
+                "whisper-tiny": (1500, ("wq/wk/wv/wo", "w1/w3", "w2"))}
+# decode attention: llama-3.2-vision's self-attention (KV 8, G 4, dh 128)
+# and whisper's decoder (KV 6, G 1, dh 64), 4 slots, bs 16
+VLM_PAGED = {"llama-3.2-vision-11b": dict(b=4, kv=8, g=4, dh=128, bs=16),
+             "whisper-tiny": dict(b=4, kv=6, g=1, dh=64, bs=16)}
+
+
+def vlm_arch_kernels(gpu: str) -> dict:
+    """Phase 2 for the context archs: the fused linear at
+    llama-3.2-vision-11b's and whisper-tiny's shapes, M 4 and 32 and, for
+    the linears that read a context, M 1,600 (the cross layers' wk/wv over
+    the patch rows) and M 1,500 (the encoder over the frames), f32 and
+    bf16, bitwise in the kernel's order and within 2e-5 / 2^-8 of the
+    plain version; llama's at M 4 and its ctx projection at M 1,600 timed
+    against their byte bounds; one llama-3.2-vision decode step's 264
+    fused linears (7 a layer x 32 attn + 5 a layer x 8 cross) as one CUDA
+    graph against the step's byte bound; paged decode at both archs'
+    geometry over W 8 and W 2048 tables (:func:`paged_readings`).  -> the
+    W 8 bf16 paged readings by arch."""
+    import torch
+
+    from repro_torch.core import xnor_layers
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import xnor_gemm as kxnor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 20)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def linear_bytes(m, n, k, kw):
+        return m * k * 2 + n * kw * 4 + n * 4 + m * n * 2
+
+    for arch, shapes in VLM_LINEARS.items():
+        ctx_m, ctx_names = VLM_CTX_ROWS[arch]
+        row = {}
+        for name, (n, k) in shapes.items():
+            pb, beta = xnor_layers.pack_weights(randn(n, k,
+                                                      dtype=torch.bfloat16))
+            ms = (4, 32) + ((ctx_m,) if name in ctx_names else ())
+            for m in ms:
+                for dt in (torch.float32, torch.bfloat16):
+                    x = randn(m, k, dtype=dt)
+                    kk = kxnor.xnor_linear_fused(x, pb, beta, k)
+                    with cuda.plain_reference():
+                        pp = kxnor.xnor_linear_fused(x, pb, beta, k)
+                    assert torch.equal(kk, kxnor.linear_kernel_order(
+                        x, pb, beta, k)), f"{arch} {name} M={m} {dt}"
+                    f32 = dt == torch.float32
+                    torch.testing.assert_close(
+                        kk, pp, rtol=2e-5 if f32 else 2 ** -8,
+                        atol=2e-5 if f32 else 1e-6)
+            if arch == "llama-3.2-vision-11b":
+                kw = pb.shape[1]
+                for m in (4, ctx_m) if name in ctx_names else (4,):
+                    sets = copies(lambda: (
+                        randn(m, k, dtype=torch.bfloat16),
+                        *xnor_layers.pack_weights(
+                            randn(n, k, dtype=torch.bfloat16)), k),
+                        linear_bytes(m, n, k, kw))
+                    ms_ = time_ms(kxnor.xnor_linear_fused, sets, 50)
+                    b_ms, b_by = bound(linear_bytes(m, n, k, kw),
+                                       2 * m * n * k, "int8")
+                    plain = plain_step_ms(kxnor.xnor_linear_fused,
+                                          sets[:2]) / 2
+                    row[f"{name} M={m}"] = dict(ms=ms_, plain_ms=plain,
+                                                bound_ms=b_ms, bound_by=b_by)
+                    del sets
+        print(f"[xnor_linear_fused {arch}] held bitwise in the kernel's "
+              f"order at {list(shapes.values())} (N, K), M 4 and 32, and M "
+              f"{ctx_m} at {list(ctx_names)}, f32 and bf16"
+              + (f"; bf16 timings {json.dumps(row)}" if row else "")
+              + f"  [{gpu}]")
+        torch.cuda.empty_cache()
+
+    # one llama-3.2-vision decode step: 32 attn layers x 7 linears and 8
+    # cross layers x 5 (their wk/wv ran over the context at prefill), each
+    # layer its own weights, M = 4, one CUDA graph
+    shapes = VLM_LINEARS["llama-3.2-vision-11b"]
+    per_layer = {"attn": ["wq/wo", "wk/wv", "wk/wv", "wq/wo", "w1/w3",
+                          "w1/w3", "w2"],
+                 "cross": ["wq/wo", "wq/wo", "w1/w3", "w1/w3", "w2"]}
+    kinds = (["attn"] * 4 + ["cross"]) * 8
+    calls, nbytes = [], 0
+    for kind in kinds:
+        for name in per_layer[kind]:
+            n, k = shapes[name]
+            pb, beta = xnor_layers.pack_weights(randn(n, k,
+                                                      dtype=torch.bfloat16))
+            calls.append((randn(4, k, dtype=torch.bfloat16), pb, beta, k))
+            nbytes += linear_bytes(4, n, k, pb.shape[1])
+    assert len(calls) == 264
+    step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    plain = plain_step_ms(kxnor.xnor_linear_fused, calls)
+    print(f"[xnor_linear_fused llama-3.2-vision decode step] {len(calls)} "
+          f"launches (7 a layer x 32 attn + 5 a layer x 8 cross, M = 4) in "
+          f"one CUDA graph: {step} ms, bound {b_ms} ms ({nbytes} bytes; "
+          f"{step / b_ms} x); the plain version {plain} ms  [{gpu}]")
+    del calls
+    torch.cuda.empty_cache()
+
+    cross_batch_probe(gpu, randn)
+    w8 = {}
+    for arch, geom in VLM_PAGED.items():
+        label = arch.split("-")[0] + f" (KV {geom['kv']}, G {geom['g']}, " \
+            f"dh {geom['dh']})"
+        w8[arch] = paged_readings(gpu, label, geom, 8, [127, 100, 64, 17],
+                                  randn, g)
+        paged_readings(gpu, label, geom, 2048, [32767, 20000, 4095, 17],
+                       randn, g)
+    return w8
+
+
+def cross_batch_probe(gpu: str, randn) -> None:
+    """Hazard H2 at decode: one cross-attention layer at each context
+    arch's full width, 8 slots, bf16 and f32.  Prints, for 2 to 8 slots,
+    how many output elements of the batched form (every slot's products
+    in one library call) differ from each slot run alone, and asserts
+    that the form the port takes on the card (``decode_cross_attention``:
+    each slot alone) differs in none."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.core import xnor_layers
+    from repro_torch.models import attention as attn_mod
+
+    for arch in VLM_PAGED:
+        for dt in (torch.bfloat16, torch.float32):
+            cfg = dataclasses.replace(configs.get(arch + "+xnor"), dtype=dt)
+            d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
+            kvd = cfg.n_kv_heads * cfg.d_head
+            p = {name: xnor_layers.pack_linear(randn(d, n, dtype=dt))
+                 for name, n in (("wq", hd), ("wk", kvd), ("wv", kvd))}
+            p["wo"] = xnor_layers.pack_linear(randn(hd, d, dtype=dt))
+            kv = [attn_mod.make_ctx_kv(   # per slot, as admission runs it
+                cfg, p, randn(1, cfg.n_ctx_tokens, d, dtype=dt) * 0.1)
+                for _ in range(8)]
+            kv = tuple(torch.cat(t) for t in zip(*kv))
+            x = randn(8, 1, d, dtype=dt)
+            alone = torch.cat([attn_mod.cross_attention(
+                cfg, p, x[j:j + 1], tuple(t[j:j + 1] for t in kv))
+                for j in range(8)])
+            batched, port = {}, {}
+            for b in range(2, 9):
+                sub = tuple(t[:b] for t in kv)
+                batched[b] = int((attn_mod.cross_attention(
+                    cfg, p, x[:b], sub) != alone[:b]).sum())
+                port[b] = int((attn_mod.decode_cross_attention(
+                    cfg, p, x[:b], sub) != alone[:b]).sum())
+            print(f"[cross_attention {arch} {str(dt)[6:]}] decode rows "
+                  f"differing from each slot alone, of {d} a slot, by "
+                  f"slots: batched form {batched}; the port's form "
+                  f"{port}  [{gpu}]")
+            assert not any(port.values()), port
+            del p, kv
+    torch.cuda.empty_cache()
+
+
+def ctx_trace(vocab: int, n_ctx: int, d_model: int) -> list:
+    """Phase 3's 8 requests, each with its own seeded (n_ctx, d_model)
+    context (0.1 x standard normal, f32); the shared-prefix half shares
+    one context, so its prefix blocks can be shared."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng([SEED, 0xC7C7, n_ctx])
+
+    def draw():
+        return (rng.standard_normal((n_ctx, d_model)) * 0.1).astype(
+            np.float32)
+    shared = draw()
+    return [Request(r.rid, r.prompt, r.max_new_tokens,
+                    ctx=shared if r.rid % 2 == 0 else draw())
+            for r in slice_trace(vocab)]
+
+
+def ctx_serving(gpu: str, arch: str, per_step: tuple, ctx_kv: tuple,
+                label: str):
+    """Phase 3e's engine gates on a context arch at full width and depth,
+    bf16 weights from a seeded generator on the card, packed at load: a
+    4-slot paged ServeEngine (block 16, chunk 32, s_max 128, prefix
+    caching on) over :func:`ctx_trace`, every launch of pack, the fused
+    linear and paged decode held against its plain version at every shape
+    (:class:`LaunchHolds`); a 2-slot engine repeating its tokens; one
+    unheld timed run repeating them (tok/s, TTFT, peak memory, ``per_step``
+    fused linears and paged decodes every decode step); a session migrated
+    mid-decode 4 -> 2 slots through an encrypted wire that carries its
+    context and the per-slot ``ctx_kv`` (``ctx_kv``: dtype, (T_ctx, KV,
+    dh)), held and then unheld.  -> (cfg, params, trace, launch counts)."""
+    import gc
+    import shutil
+    import statistics
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+
+    cfg = configs.get(arch)
+    trace = ctx_trace(cfg.vocab, cfg.n_ctx_tokens, cfg.d_model)
+    rids = [r.rid for r in trace]
+    geom = dict(slots=4, s_max=128, block_size=16, prefill_chunk=32)
+    directory = ROOT / "experiments" / f"chip_smoke_{label}"
+    shutil.rmtree(directory, ignore_errors=True)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def serve(eng):
+        for r in trace:
+            eng.submit(r)
+        rep = eng.run()
+        torch.cuda.synchronize()
+        assert all(s.done for s in rep.sessions.values())
+        return rep
+
+    def tokens(rep):
+        return {rid: rep.tokens(rid).tolist() for rid in rids}
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[{label}] init {cfg.name}: {lm.pdefs.count(lm.param_defs(cfg))} "
+          f"params, {torch.cuda.memory_allocated() / 2**30} GiB on the "
+          f"card, in {time.perf_counter() - t0} s")
+    with LaunchHolds() as holds:
+        kernels = [holds.orig[n] for n in ("pack", "xnor_linear_fused",
+                                           "paged_decode_attention")]
+        holds.active = True
+        for f in kernels:
+            f.launches = 0
+        eng = ServeEngine(cfg, params, device="cuda", **geom)
+        assert eng.prefix_caching, f"prefix caching must be on for {arch}"
+        assert eng._widths == {"full": 8}, eng._widths
+        held = serve(eng)
+        launches = {f.__name__: f.launches for f in kernels}
+        want = tokens(held)
+        for s in held.sessions.values():
+            assert len(s.tokens) == s.request.max_new_tokens
+            assert all(0 <= t < cfg.vocab for t in s.tokens)
+        for name, n in launches.items():
+            assert n > 0, f"kernel {name} never launched on the main path"
+        st = held.stats
+        assert st.prefix_hits > 0, "the shared prefix was never hit"
+        print(f"[{label}] main-path launches (held run) {launches}; prefix "
+              f"hits {st.prefix_hits}, cow {st.cow_copies}  [{gpu}]")
+        del eng
+        free()
+        two = tokens(serve(ServeEngine(cfg, params, device="cuda",
+                                       **dict(geom, slots=2))))
+        print(f"[{label}] held: the 2-slot engine's tokens as the 4-slot "
+              f"one's on {sum(two[r] == want[r] for r in rids)}/8  [{gpu}]")
+        assert two == want, "the 2-slot engine's tokens differ"
+        free()
+
+        # the unheld timed run, launches read around every decode step
+        with holds.off():
+            torch.cuda.reset_peak_memory_stats()
+            eng = ServeEngine(cfg, params, device="cuda", **geom)
+            counts, decode_once = [], eng._decode_once
+
+            def counted():
+                before = [f.launches for f in kernels[1:]]
+                decode_once()
+                counts.append(tuple(f.launches - b for f, b in
+                                    zip(kernels[1:], before)))
+            eng._decode_once = counted
+            rep = serve(eng)
+            del eng._decode_once
+            peak = torch.cuda.max_memory_allocated()
+            del eng
+        assert tokens(rep) == want, "the unheld run's tokens differ"
+        ttft = rep.ttft_quantiles((0.5, 0.95))
+        st = rep.stats
+        print(f"[{label}] unheld run: {rep.generated} tokens in {rep.wall} s "
+              f"-> {rep.tok_per_s} tok/s; TTFT p50 {ttft[0.5] * 1e3} ms p95 "
+              f"{ttft[0.95] * 1e3} ms; {st.prefill_chunks} prefill chunks, "
+              f"{st.decode_steps} decode steps, prefix hits "
+              f"{st.prefix_hits}; peak device memory {peak / 2**30} GiB; "
+              f"tokens as the held run's: True  [{gpu}]")
+        print(f"[{label}] launches per decode step (fused linear, paged "
+              f"decode): median {statistics.median(p[0] for p in counts)}, "
+              f"{statistics.median(p[1] for p in counts)} over "
+              f"{len(counts)} steps  [{gpu}]")
+        assert counts and all(p == per_step for p in counts), counts
+
+        # a session migrated mid-decode 4 -> 2 slots through an encrypted
+        # wire: attention blocks, the per-slot ctx_kv and the raw context;
+        # held, then unheld for the ms
+        mig = dict(rid=0, label=label, expect=(None, None, 8), ctx_kv=ctx_kv)
+        migrate(cfg, params, trace, want, geom, directory / "held", gpu,
+                **mig)
+        with holds.off():
+            migrate(cfg, params, trace, want, geom, directory / "unheld",
+                    gpu, **mig)
+        free()
+    holds.check(gpu, label)
+    shutil.rmtree(directory, ignore_errors=True)
+    return cfg, params, trace, launches
+
+
+def whisper_serving(gpu: str) -> dict:
+    """Phase 3e, whisper-tiny+xnor at full width and depth (a 4-layer
+    encoder over 1,500 frames, 4 ``dec`` layers: d 384, 6 heads of 64,
+    vocab 51,865), each request's frames encoded once at admission:
+    :func:`ctx_serving`'s gates with 36 fused linears and 4 paged decodes
+    every decode step, and in f32 the dense layout, the paged one and
+    ``generate_static`` giving the same tokens.  -> launch counts of the
+    three kernels."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import serve_step
+
+    cfg, params, trace, launches = ctx_serving(
+        gpu, "whisper-tiny+xnor", (36, 4),
+        ("torch.bfloat16", (1500, 6, 64)), "whisper")
+    assert (cfg.n_layers, cfg.encoder_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.vocab,
+            cfg.n_ctx_tokens) == (4, 4, 384, 6, 6, 64, 1536, 51865, 1500)
+    del params
+    rids = [r.rid for r in trace]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = lm.init_params(cfg32, SEED, device="cuda")
+
+    def tokens(eng):
+        for r in trace:
+            eng.submit(r)
+        rep = eng.run()
+        return {rid: rep.tokens(rid).tolist() for rid in rids}
+    f32 = dict(slots=4, s_max=128, device="cuda")
+    paged = tokens(ServeEngine(cfg32, params32, **f32))
+    eng = ServeEngine(cfg32, params32, paged=False, **f32)
+    dense = tokens(eng)
+    static = {r.rid: serve_step.generate_static(
+        cfg32, eng.params, torch.from_numpy(r.prompt[None]).cuda(),
+        r.max_new_tokens, ctx=torch.from_numpy(r.ctx[None]).cuda()
+    )[0].tolist() for r in trace}
+    print(f"[whisper] f32 greedy: dense = paged on "
+          f"{sum(dense[x] == paged[x] for x in rids)}/8, generate_static = "
+          f"dense on {sum(static[x] == dense[x] for x in rids)}/8  [{gpu}]")
+    assert dense == paged, "f32: the dense layout's tokens differ from paged"
+    assert static == dense, "f32: generate_static differs from the engine"
+    del eng, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vlm_serving(gpu: str) -> dict:
+    """Phase 3e, llama-3.2-vision-11b+xnor at full width and depth (40
+    layers, every 5th ``cross``: d 4096, 32 heads over 8 KV heads of 128,
+    d_ff 14,336, vocab 128,256), each request with its own 1,600 x 4,096
+    context of patch embeddings: :func:`ctx_serving`'s gates with 264
+    fused linears and 32 paged decodes every decode step; then
+    :func:`check_paths` on the first request's prompt and context in bf16
+    at this arch's limits with the one-ulp-up control failing them, and
+    in f32 at full depth (a 39 GB tree).  -> launch counts of the three
+    kernels."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import lm
+
+    cfg, params, trace, launches = ctx_serving(
+        gpu, "llama-3.2-vision-11b+xnor", (264, 32),
+        ("torch.bfloat16", (1600, 8, 128)), "vlm")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_head, cfg.d_ff, cfg.vocab, cfg.n_ctx_tokens,
+            cfg.dtype) == (40, 4096, 32, 8, 128, 14336, 128256, 1600,
+                           torch.bfloat16)
+    assert sum(n for k, n in cfg.segments() if k == "cross") == 8
+
+    # the kernel path against the plain path, bf16 at this arch's limits,
+    # with the control that rounds one way; then f32 at full depth
+    pparams = lm.pack_params(cfg, params)
+    toks = torch.from_numpy(trace[0].prompt[None, :cfg.prefill_chunk]
+                            .copy())
+    nxt = int(trace[0].prompt[cfg.prefill_chunk])
+    ctx = torch.from_numpy(trace[0].ctx[None])
+    check_paths(cfg, pparams, toks, nxt, gpu, ctx=ctx)
+    try:
+        with attention_rounding_up(1):
+            check_paths(cfg, pparams, toks, nxt, gpu, ctx=ctx)
+        failed = ""
+    except AssertionError as e:
+        failed = str(e)
+    print(f"[vlm] control, paged decode one ulp up at every element: "
+          f"check_paths failed with {failed!r}  [{gpu}]")
+    assert "inputs drifted" in failed and "rounds one way" in failed, \
+        "check_paths' bf16 holds must each fail a kernel that rounds one way"
+    del pparams, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = lm.init_params(cfg32, SEED, device="cuda")
+    pparams32 = lm.pack_params(cfg32, params32)
+    del params32
+    check_paths(cfg32, pparams32, toks, nxt, gpu, ctx=ctx)
+    del pparams32
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2932,13 +3426,26 @@ def monte_carlo(gpu: str) -> None:
 LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")   # launch order per layer
 KIND_LINEARS = {"attn": LINEARS, "local": LINEARS, "moe": LINEARS[:4],
                 "rglru": ("w_gate", "w_x", "w_r", "w_i", "w_out", "w1", "w3",
+                          "w2"),
+                # a prefill chunk projects ctx_kv (wk, wv over the context's
+                # rows) before the queries; decode reads ctx_kv as state
+                "cross": ("wk", "wv", "wq", "wo", "w1", "w3", "w2"),
+                "dec": ("wq", "wk", "wv", "wo", "x_wk", "x_wv", "x_wq",
+                        "x_wo", "w1", "w3", "w2")}
+DECODE_LINEARS = {"cross": ("wq", "wo", "w1", "w3", "w2"),
+                  "dec": ("wq", "wk", "wv", "wo", "x_wq", "x_wo", "w1", "w3",
                           "w2")}
+ATTN_KINDS = ("attn", "local", "moe", "dec")     # kinds that run paged decode
 
 
-def launch_names(cfg) -> list:
-    """(layer, linear) of each fused-linear launch of one step, in order."""
+def launch_names(cfg, step: str = "prefill_chunk") -> list:
+    """(layer, linear) of each fused-linear launch of one step, in order:
+    a prefill chunk's or a decode step's (``step == "decode_step"``)."""
+    table = KIND_LINEARS
+    if step == "decode_step":
+        table = KIND_LINEARS | DECODE_LINEARS
     return [(i, lin) for i, kind in enumerate(cfg.layer_kinds())
-            for lin in KIND_LINEARS[kind]]
+            for lin in table[kind]]
 
 
 # check_paths' bf16 limits, from ``--path-readings`` (PERF.md §6: over 12
@@ -2959,12 +3466,17 @@ BF16_ATTN_Z = 4.0
 # one-ulp-up controls drift 5.9e-3 and 4.5e-3 and read z 284 and 201)
 BF16_LIMITS = {"qwen2-7b+xnor": (BF16_PATH_LOGITS, BF16_TRACK, BF16_ATTN_Z),
                "recurrentgemma-2b+xnor": (1e-3, 5e-4, 4.0),
-               "moonshot-v1-16b-a3b+xnor": (7e-3, 2e-3, 4.0)}
+               "moonshot-v1-16b-a3b+xnor": (7e-3, 2e-3, 4.0),
+               "llama-3.2-vision-11b+xnor": (1e-3, 5e-4, 4.0)}
 # moonshot-v1-16b-a3b+xnor's, from ``--path-readings
 # moonshot-v1-16b-a3b+xnor`` (PERF.md §6: over 12 prompts the kernel path
 # read logits 0 on 11 and 3.5e-3 on one, where no sign bit or expert
 # choice differs, drift at most 1.1e-3 and |z| at most 1.67; the one-ulp-up
-# controls drift 4.0e-3-5.8e-3 and read z 440-623)
+# controls drift 4.0e-3-5.8e-3 and read z 440-623); llama-3.2-vision-11b
+# +xnor's, from ``--path-readings llama-3.2-vision-11b+xnor`` (PERF.md §6:
+# over 12 prompts, each with its own 1,600-row context, logits 0 on every
+# step, no sign bit differing, drift at most 2.8e-5 and |z| at most 1.60;
+# the controls drift 4.1e-3-5.8e-3 and read z 510-720)
 
 
 class Inputs(list):
@@ -3007,9 +3519,11 @@ def first_flip(xs_a, xs_b, names):
     return drift, None
 
 
-def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
+def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED,
+                ctx=None):
     """One prefill chunk and one decode step, kernel path against plain
-    path.
+    path; ``ctx`` (1, T_ctx, d) is the prompt's context for a vlm arch (the
+    cross layers' ctx_kv projections are launches of the chunk).
 
     Held per launch: every fused linear and paged attention of the kernel
     path against its plain version on the same inputs (the fused linear
@@ -3066,8 +3580,9 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
     logit_tol = 1e-3 if f32 else bf16_logits
     ref_linear, fused = ref.xnor_linear_fused, ops.xnor_linear_fused
     name = f"{cfg.name} {str(cfg.dtype)[6:]} seed {seed}"
-    names = launch_names(cfg)
-    n_attn = sum(k in ("attn", "local", "moe") for k in cfg.layer_kinds())
+    step_names = {step: launch_names(cfg, step)
+                  for step in ("prefill_chunk", "decode_step")}
+    n_attn = sum(k in ATTN_KINDS for k in cfg.layer_kinds())
     moe_layers = [i for i, k in enumerate(cfg.layer_kinds()) if k == "moe"]
     route = moe_mod.route
 
@@ -3119,6 +3634,7 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
         """-> (logits (1, 1, V) f32, state after, fused-linear inputs and
         expert choices)."""
         xs = Inputs()
+        names = step_names[step]
 
         def routed(*args, **kw):
             r = route(*args, **kw)
@@ -3163,7 +3679,8 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
             if step == "prefill_chunk":
                 logits, state = lm.prefill_chunk_step(
                     cfg, params, toks.cuda(), state, 0, toks.shape[1],
-                    {cls: table[:1]}, fresh=True)
+                    {cls: table[:1]}, fresh=True,
+                    ctx=None if ctx is None else ctx.cuda())
             else:
                 logits, state = lm.paged_decode_step(
                     cfg, params, tok, state, {cls: dtable}, active=active)
@@ -3178,7 +3695,7 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
         return ((a - b).norm() / b.norm()).item()
 
     def walk(step, lk, xk, other, xo, what):
-        drift, flip = first_flip(xk, xo, names)
+        drift, flip = first_flip(xk, xo, step_names[step])
         r = rel(lk, other)
         print(f"[slice] {name} {step}, kernel path vs {what}, run apart: "
               f"logits relative L2 {r}; inputs tracked within {drift} up to "
@@ -3207,6 +3724,7 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
                 fails.append(f"{step}: no sign bit differs, logits {r} "
                              f"(kernel's attention values)")
         if f32:
+            names = step_names[step]
             lr, _, xr = run(step, start, kernel=False, plain=ref_linear)
             drift, flip = first_flip(xk, xr, names)
             print(f"[slice] {name} {step}, kernel path vs plain path with "
@@ -3222,7 +3740,7 @@ def check_paths(cfg, params, toks, nxt: int, gpu: str, seed: int = SEED):
                   f"{drift} up to the first differing sign bit {flip}  "
                   f"[{gpu}]")
         start = after
-    assert held == {"xnor_linear_fused": 2 * len(names),
+    assert held == {"xnor_linear_fused": sum(map(len, step_names.values())),
                     "paged_decode_attention": n_attn}, held
     print(f"[slice] {name}: {held} launches of one prefill chunk + one "
           f"decode step each held against the plain version on the same "
@@ -3294,6 +3812,14 @@ def path_readings(gpu: str, arch: str = "qwen2-7b+xnor",
     rng = np.random.default_rng([SEED, 0xBF16])
     prompts += [rng.integers(0, cfg.vocab, size=cfg.prefill_chunk + 1)
                 .astype(np.int32) for _ in range(n_prompts - 1)]
+    ctxs = [None] * len(prompts)
+    if cfg.n_ctx_tokens:            # the first prompt's is phase 3e's
+        ctxs = [torch.from_numpy(ctx_trace(cfg.vocab, cfg.n_ctx_tokens,
+                                           cfg.d_model)[0].ctx[None])]
+        crng = np.random.default_rng([SEED, 0xC7F])
+        ctxs += [torch.from_numpy((crng.standard_normal(
+            (1, cfg.n_ctx_tokens, cfg.d_model)) * 0.1).astype(np.float32))
+            for _ in prompts[1:]]
     for label, every in (("kernel", 0), ("one ulp up, every element", 1),
                          ("one ulp up, every other element", 2)):
         for i, p in enumerate(prompts):
@@ -3303,7 +3829,8 @@ def path_readings(gpu: str, arch: str = "qwen2-7b+xnor",
                 with (attention_rounding_up(every) if every else
                       contextlib.nullcontext()):
                     check_paths(cfg, params, toks,
-                                int(p[cfg.prefill_chunk]), gpu)
+                                int(p[cfg.prefill_chunk]), gpu,
+                                ctx=ctxs[i])
                 verdict = "passed"
             except AssertionError as e:
                 verdict = f"FAILED {e}"
@@ -3347,6 +3874,13 @@ def main() -> int:
     if sys.argv[1:] == ["--slot-bits"]:
         slot_bits(gpu)
         return 0
+    if sys.argv[1:] == ["--vlm"]:
+        t = time.perf_counter()
+        vlm_arch_kernels(gpu)
+        print(f"[vlm] phase 3e launches: whisper {whisper_serving(gpu)}, "
+              f"llama-3.2-vision {vlm_serving(gpu)} "
+              f"({time.perf_counter() - t} s)")
+        return 0
     if sys.argv[1:] == ["--moe"]:
         moe_arch_kernels(gpu)
         t = time.perf_counter()
@@ -3364,6 +3898,7 @@ def main() -> int:
     timed(paged_long, gpu)
     timed(other_arch_kernels, gpu)
     timed(moe_arch_kernels, gpu)
+    timed(vlm_arch_kernels, gpu)
     rec.update(timed(integer_kernel_checks, gpu, LINEAR_SHAPES))
     rec.update(timed(flash_checks, gpu))
     launches = timed(serve_slice, gpu)
@@ -3371,11 +3906,14 @@ def main() -> int:
     recurrent = timed(recurrent_serving, gpu)  # and of its three
     moe = timed(moe_serving, gpu)              # and of the same three
     timed(llama4_serving, gpu)
+    whisper = timed(whisper_serving, gpu)      # phase 3e
+    vlm = timed(vlm_serving, gpu)
     launches.update(timed(integer_chain, gpu))
     launches["xnor_gemm"] = timed(binary_layers, gpu,
                                   LINEAR_SHAPES)["xnor_gemm"]
     launches.update(timed(long_context, gpu))
-    for path in (tier, recurrent, moe):  # the path that runs each most
+    for path in (tier, recurrent, moe, whisper, vlm):  # the path that runs
+        # each kernel most
         for name, n in path.items():
             launches[name] = max(launches[name], n)
     timed(checkpoint_layer, gpu)

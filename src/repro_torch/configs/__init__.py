@@ -3,8 +3,10 @@
 ``get(name)`` also accepts ``<name>+xnor`` for the binary-quantized
 variant (the paper's technique as a config axis).  The port carries the
 archs whose block kinds it serves: the dense attention archs, the hybrid
-RecurrentGemma (``rglru`` + ``local``) and the mixture-of-experts archs
-(``moe``: Moonlight-16B-A3B, Llama-4-Scout).
+RecurrentGemma (``rglru`` + ``local``), the mixture-of-experts archs
+(``moe``: Moonlight-16B-A3B, Llama-4-Scout), the vision-language
+Llama-3.2-Vision (``cross``) and the encoder-decoder Whisper (``enc`` +
+``dec``).
 """
 
 from __future__ import annotations
@@ -19,10 +21,13 @@ from repro_torch.configs.qwen3_14b import CONFIG as qwen3_14b
 from repro_torch.configs.recurrentgemma_2b import CONFIG as recurrentgemma_2b
 from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as moonshot
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as llama4_scout
+from repro_torch.configs.llama_3_2_vision_11b import CONFIG as llama_vision
+from repro_torch.configs.whisper_tiny import CONFIG as whisper_tiny
 
 ALL: dict[str, ArchConfig] = {
     c.name: c for c in [qwen2_7b, qwen3_4b, phi4_mini_3_8b, qwen3_14b,
-                        recurrentgemma_2b, moonshot, llama4_scout]}
+                        recurrentgemma_2b, moonshot, llama4_scout,
+                        llama_vision, whisper_tiny]}
 
 
 def get(name: str) -> ArchConfig:

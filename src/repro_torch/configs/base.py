@@ -45,6 +45,11 @@ class ArchConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
 
+    # cross-attention context (vlm) / encoder-decoder (audio)
+    n_ctx_tokens: int = 0          # modality tokens a request brings (patch
+                                   # embeddings or encoder frames)
+    encoder_layers: int = 0        # > 0: enc-dec; the encoder runs "enc"
+
     # recurrent blocks (RG-LRU)
     conv_width: int = 4            # causal depthwise conv1d taps
     rglru_c: float = 8.0           # Griffin's fixed decay sharpness
@@ -87,6 +92,13 @@ class ArchConfig:
                 segs.append((k, 1))
         return segs
 
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    def encoder_segments(self) -> list[tuple[str, int]]:
+        """The encoder's depth plan for enc-dec archs, [] otherwise."""
+        return [("enc", self.encoder_layers)] if self.is_encdec() else []
+
     # --- derived ------------------------------------------------------------
     @property
     def q_per_kv(self) -> int:
@@ -115,6 +127,10 @@ class ArchConfig:
         if self.n_experts:
             scale.update(n_experts=4, top_k=min(self.top_k, 2),
                          d_ff_expert=32)
+        if self.n_ctx_tokens:
+            scale.update(n_ctx_tokens=16)
+        if self.encoder_layers:
+            scale.update(encoder_layers=2)
         if len(self.pattern) > 1:
             scale["n_layers"] = len(self.pattern)
         scale.update(over)

@@ -2,10 +2,11 @@
 device time of the kernels it launches.
 
 Builds the serving engine for an arch (full size unless ``--smoke``),
-admits ``--slots`` requests, runs until every slot is decoding, then times
-``--steps`` decode steps without a profiler (wall, host clock around work
-that ends in a synchronize) and ``--steps`` more under ``torch.profiler``
-(device time by kernel).  Prints the median step wall time, the device
+admits ``--slots`` requests (each with a seeded context, 0.1 x standard
+normal, where the arch takes one), runs until every slot is decoding,
+then times ``--steps`` decode steps without a profiler (wall, host clock
+around work that ends in a synchronize) and ``--steps`` more under
+``torch.profiler`` (device time by kernel).  Prints the median step wall time, the device
 busy time per step, their ratio (the device's busy share; the rest is
 idle, waiting for the host), the kernel launches per step, and the
 kernels by device time.
@@ -47,9 +48,13 @@ def main(argv=None) -> int:
                       + 8, device=args.device)
     rng = np.random.default_rng(args.seed)
     for rid in range(args.slots):
-        eng.submit(Request(rid, rng.integers(0, cfg.vocab,
-                                             size=args.prompt_len),
-                           max_new_tokens=3 * args.steps + 8))
+        prompt = rng.integers(0, cfg.vocab, size=args.prompt_len)
+        ctx = None
+        if cfg.n_ctx_tokens:
+            ctx = (rng.standard_normal((cfg.n_ctx_tokens, cfg.d_model))
+                   .astype(np.float32) * 0.1)
+        eng.submit(Request(rid, prompt, max_new_tokens=3 * args.steps + 8,
+                           ctx=ctx))
     while eng._prefilling or not eng.pool.active:
         eng.step()
     sync = (torch.cuda.synchronize if eng.device.type == "cuda"

@@ -38,16 +38,24 @@ from repro_torch.train import serve_step
 
 def _run_static(cfg, params, args, pl: int, nt: int) -> int:
     """The static-batch loop: one batch of ``--slots`` uniform prompts of
-    ``--prompt-len`` tokens, ``--new-tokens`` tokens each."""
+    ``--prompt-len`` tokens, ``--new-tokens`` tokens each; a ctx arch's
+    contexts (0.1 x standard normal) come from a stream of their own, so
+    the prompts and the sampling key do not depend on them."""
     rng = np.random.default_rng(args.seed + 1)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (args.slots, pl))
                               .astype(np.int32)).to(args.device)
     key = (prng.PRNGKey(args.seed + 2, device=args.device)
            if args.temperature > 0 else None)
+    ctx = None
+    if cfg.n_ctx_tokens:
+        gen = torch.Generator(device=args.device)
+        gen.manual_seed(args.seed + 3)
+        ctx = torch.randn((args.slots, cfg.n_ctx_tokens, cfg.d_model),
+                          generator=gen, device=args.device) * 0.1
     if args.device != "cpu":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = serve_step.generate_static(cfg, params, prompt, nt,
+    out = serve_step.generate_static(cfg, params, prompt, nt, ctx=ctx,
                                      temperature=args.temperature, key=key,
                                      device=args.device)
     out = out.cpu()
@@ -165,6 +173,7 @@ def main(argv=None) -> int:
         args.requests, cfg.vocab, seed=args.seed,
         prompt_lens=tuple(sorted({max(2, pl // 4), max(3, pl // 2), pl})),
         new_tokens=tuple(sorted({max(2, nt // 2), nt})),
+        n_ctx_tokens=cfg.n_ctx_tokens, d_model=cfg.d_model,
         prefix_frac=args.prefix_frac, prefix_len=args.prefix_len)
     s_max = args.s_max or (args.prefix_len + pl + nt)
     if args.static:

@@ -1,5 +1,6 @@
 """GQA attention: full-sequence prefill, decode against a slot-dense KV
-cache, and decode / chunked prefill through the block-paged pool.
+cache, decode / chunked prefill through the block-paged pool, and
+cross-attention to a request's modality context.
 
 Layouts, as in the JAX package:
   q            (B, S, H, dh)
@@ -8,6 +9,8 @@ Layouts, as in the JAX package:
   KV cache     (B, KV, S_max, dh) — the dense decode layout
   paged pool   (n_blocks, KV, block_size, dh) — shared, no batch axis,
                addressed through per-slot int32 block tables
+  ctx_kv       (k, v) each (B, T_ctx, KV, dh) — the context's keys and
+               values, projected once a sequence (no RoPE)
 Scores accumulate in f32; softmax is f32.  The reference computes the
 dense products with ``einsum`` outside any kernel, so the dense path is
 plain PyTorch on every device, in the reference's rounding order.
@@ -32,7 +35,9 @@ def i8_encode(cfg, x: torch.Tensor) -> torch.Tensor:
                        -127, 127).to(torch.int8)
 
 
-def attn_defs(cfg, n: int) -> dict:
+def attn_defs(cfg, n: int, cross: bool = False) -> dict:
+    """Stacked projections; the cross projections (``cross``) carry no
+    q/k/v bias."""
     d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     defs = {
         "wq": ParamDef((n, d, H * dh), cfg.dtype, binarize=True),
@@ -40,7 +45,7 @@ def attn_defs(cfg, n: int) -> dict:
         "wv": ParamDef((n, d, KV * dh), cfg.dtype, binarize=True),
         "wo": ParamDef((n, H * dh, d), cfg.dtype, binarize=True),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         defs |= {
             "bq": ParamDef((n, H * dh), cfg.dtype, init="zeros"),
             "bk": ParamDef((n, KV * dh), cfg.dtype, init="zeros"),
@@ -55,17 +60,19 @@ def attn_defs(cfg, n: int) -> dict:
 
 
 def _project_q(cfg, p, x, positions):
-    """-> (B, S, H, dh)"""
+    """-> (B, S, H, dh); ``positions`` None applies no RoPE."""
     b, s, _ = x.shape
     q = layers.linear(x, p["wq"], cfg.quant, p.get("bq"))
     q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["q_norm"])
+    if positions is None:
+        return q
     return layers.apply_rope(q, positions, cfg.rope_theta)
 
 
 def _project_kv(cfg, p, x, positions):
-    """-> k, v each (B, S, KV, dh)"""
+    """-> k, v each (B, S, KV, dh); ``positions`` None applies no RoPE."""
     b, s, _ = x.shape
     k = layers.linear(x, p["wk"], cfg.quant, p.get("bk"))
     v = layers.linear(x, p["wv"], cfg.quant, p.get("bv"))
@@ -73,6 +80,8 @@ def _project_kv(cfg, p, x, positions):
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         k = layers.rms_norm(k, p["k_norm"])
+    if positions is None:
+        return k, v
     return layers.apply_rope(k, positions, cfg.rope_theta), v
 
 
@@ -126,6 +135,46 @@ def attention(cfg, p: dict, x: torch.Tensor, *, causal: bool = True,
     out = _sdpa(cfg, q, k, v, mask)
     return layers.linear(out.reshape(b, s, cfg.n_heads * cfg.d_head),
                          p["wo"], cfg.quant)
+
+
+def cross_attention(cfg, p: dict, x: torch.Tensor, ctx_kv,
+                    per_slot: bool = False) -> torch.Tensor:
+    """x (B, S, d) attends to every context token, no mask and no RoPE
+    across modalities: ``ctx_kv`` is (k, v) each (B, T_ctx, KV, dh) from
+    :func:`make_ctx_kv`.  -> (B, S, d).  The reference computes it with
+    its ``_sdpa`` einsums outside any kernel, so the port is plain PyTorch
+    on every device, in the same rounding order.  ``per_slot`` runs each
+    row's products and softmax alone, at the shapes of a batch of one."""
+    b, s, _ = x.shape
+    q = _project_q(cfg, p, x, None)
+    if per_slot:
+        out = torch.cat([_sdpa(cfg, q[j:j + 1], *_expand_kv(
+            cfg, ctx_kv[0][j:j + 1], ctx_kv[1][j:j + 1]), None)
+            for j in range(b)])
+    else:
+        out = _sdpa(cfg, q, *_expand_kv(cfg, *ctx_kv), None)
+    return layers.linear(out.reshape(b, s, cfg.n_heads * cfg.d_head),
+                         p["wo"], cfg.quant)
+
+
+def make_ctx_kv(cfg, p: dict, ctx: torch.Tensor):
+    """The context's keys and values: ctx (B, T_ctx, d) -> (k, v) each
+    (B, T_ctx, KV, dh), projected once and kept as per-slot state."""
+    return _project_kv(cfg, p, ctx, None)
+
+
+def decode_cross_attention(cfg, p: dict, x: torch.Tensor,
+                           ctx_kv) -> torch.Tensor:
+    """One token per slot against the slot's resident ``ctx_kv``.  On the
+    card each slot's score and P.V products and softmax run alone: the
+    library products over B x H rows pick their kernel, and with it the
+    order of their sums, by the batch (hazard H2; phase 2 of
+    ``chip_smoke.py`` prints how far the batched form departs), and a
+    session must keep its bits in an engine of other ``slots``.  The
+    projections are row by row already.  The CPU keeps the batched
+    form."""
+    return cross_attention(cfg, p, x, ctx_kv,
+                           per_slot=x.is_cuda and x.shape[0] > 1)
 
 
 class KVCache(NamedTuple):

@@ -9,20 +9,28 @@ Ported kinds:
   local  sliding-window GQA + FFN (RecurrentGemma's attention layers)
   rglru  Griffin's recurrent block (conv1d + RG-LRU) + FFN
   moe    GQA self-attention + top-k mixture-of-experts FFN
+  cross  cross-attention to the request's context + FFN (Llama-3.2-Vision)
+  enc    bidirectional self-attention + FFN (Whisper's encoder)
+  dec    self-attention + cross-attention to the encoded frames + FFN
+         (Whisper's decoder)
 
 Every kind implements:
   defs(cfg, n)                                stacked ParamDefs
-  fwd(cfg, p, x, opts)                        full sequence -> (x, state)
-  decode(cfg, p, x, state, pos, table, valid) one token per slot; dense
+  fwd(cfg, p, x, opts, ctx)                   full sequence -> (x, state)
+  decode(cfg, p, x, state, pos, table, valid, ctx)
+                                              one token per slot; dense
                                               cache when ``table`` is None
-  chunk(cfg, p, x, state, pos0, valid, n_valid, table)
+  chunk(cfg, p, x, state, pos0, valid, n_valid, table, ctx)
                                               one chunked-prefill piece
   state_spec(cfg, n, batch, s_max, device)    dense decode state
 and, from :class:`PagedLayout`, the paged state its contract implies
 (``paged_state_spec``, ``paged_split`` / ``paged_merge``) and the session
 migration surface (``export_slot`` / ``import_slot``).  A state is a tree
 of tuples and NamedTuples over tensors, layer-stacked on axis 0 (per-slot
-leaves carry the batch on axis 1); it is updated in place.
+leaves carry the batch on axis 1); it is updated in place.  ``ctx`` is
+the request's modality context, (B, T_ctx, d) in the config's dtype: raw
+patch embeddings for ``cross``, encoded frames for ``dec``; None for the
+kinds that do not read it.
 """
 
 from __future__ import annotations
@@ -131,7 +139,11 @@ class PagedLayout:
 
     Kinds with ``per_slot_state`` may override :meth:`slot_spec` (default:
     the dense :meth:`state_spec`, right whenever the dense state is all
-    per-slot)."""
+    per-slot).  A kind whose decode never writes its per-slot state (a
+    context's keys and values) sets :attr:`decode_writes_slot` False, so
+    the decode step does not copy that state to freeze inactive slots."""
+
+    decode_writes_slot = True
 
     @classmethod
     def slot_spec(cls, cfg, n, batch, device):
@@ -216,13 +228,19 @@ class _FfnBlock(PagedLayout):
         marks a chunk's real tokens, which only a routed FFN reads."""
         return layers.ffn(cfg, _sub(p, "ffn_"), h)
 
+    @staticmethod
+    def _add_norm(x, a, scale):
+        """-> (x + a, RMSNorm of the sum): the norm reads the residual sum
+        in f32, unrounded — XLA folds the bf16 rounding of x + a into the
+        norm's cast to f32 (it allows excess precision) — while the
+        residual stream itself stays rounded."""
+        return x + a, layers.rms_norm(x.float() + a, scale, dtype=x.dtype)
+
     @classmethod
     def _residual_ffn(cls, cfg, p, x, a, valid=None):
-        """ln2 reads the residual sum in f32, unrounded: XLA folds the bf16
-        rounding of x + a into the norm's cast to f32 (it allows excess
-        precision), while the residual stream itself stays rounded."""
-        h = layers.rms_norm(x.float() + a, p["ln2"], dtype=x.dtype)
-        x = x + a
+        """The mixer's output ``a`` joins the residual; ln2 of the sum
+        (:meth:`_add_norm`) feeds the FFN."""
+        x, h = cls._add_norm(x, a, p["ln2"])
         return x + cls._ffn(cfg, p, h, valid)
 
 
@@ -230,6 +248,7 @@ class _FfnBlock(PagedLayout):
 class AttnBlock(_FfnBlock):
     contract = BlockContract("attn", paged_kv=True, table_class="full",
                              prefix_shareable=True)
+    causal = True
     window = 0
 
     @classmethod
@@ -243,7 +262,7 @@ class AttnBlock(_FfnBlock):
         return cfg.local_window if cls.window else 0
 
     @classmethod
-    def fwd(cls, cfg, p, x, opts: FwdOpts):
+    def fwd(cls, cfg, p, x, opts: FwdOpts, ctx=None):
         """Full-sequence prefill: x (B, S, d) -> (x, KVCache or None); a
         window's cache holds min(s_max, window) positions as a ring."""
         h = layers.rms_norm(x, p["ln1"])
@@ -255,11 +274,11 @@ class AttnBlock(_FfnBlock):
             k, v = attn_mod._project_kv(cfg, ap, h, positions)
             cap = min(opts.s_max, win) if win else opts.s_max
             state = _kv_from_seq(cfg, k, v, cap, rolling=bool(win))
-        a = attn_mod.attention(cfg, ap, h, causal=True, window=win)
+        a = attn_mod.attention(cfg, ap, h, causal=cls.causal, window=win)
         return cls._residual_ffn(cfg, p, x, a), state
 
     @classmethod
-    def decode(cls, cfg, p, x, state, pos, table, valid=None):
+    def decode(cls, cfg, p, x, state, pos, table, valid=None, ctx=None):
         """One token per slot; ``table`` None reads the dense cache."""
         h = layers.rms_norm(x, p["ln1"])
         win = cls._win(cfg)
@@ -272,7 +291,7 @@ class AttnBlock(_FfnBlock):
         return cls._residual_ffn(cfg, p, x, a)
 
     @classmethod
-    def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table):
+    def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table, ctx=None):
         """One chunked-prefill piece: x (1, C, d) at positions
         pos0 .. pos0 + C - 1; ``valid`` (1, C) marks the first
         ``n_valid`` tokens, the real ones."""
@@ -294,6 +313,15 @@ class LocalBlock(AttnBlock):
     contract = BlockContract("local", paged_kv=True, table_class="win",
                              window=True)
     window = 1
+
+
+@register
+class EncBlock(AttnBlock):
+    """Whisper's encoder layer: bidirectional self-attention + FFN.  It
+    runs inside ``lm.encode`` only, never in the decode path."""
+    contract = BlockContract("enc", paged_kv=True, table_class="full",
+                             decodes=False)
+    causal = False
 
 
 @register
@@ -348,7 +376,7 @@ class RglruBlock(_FfnBlock):
                 layers.linear(uc, p["w_i"], cfg.quant))
 
     @classmethod
-    def fwd(cls, cfg, p, x, opts: FwdOpts):
+    def fwd(cls, cfg, p, x, opts: FwdOpts, ctx=None):
         h = layers.rms_norm(x, p["ln1"])
         g, u = cls._mix(cfg, p, h)
         uc = ssm.conv1d(u, p["conv_k"])
@@ -368,7 +396,7 @@ class RglruBlock(_FfnBlock):
         return x, state
 
     @classmethod
-    def decode(cls, cfg, p, x, state, pos, table, valid=None):
+    def decode(cls, cfg, p, x, state, pos, table, valid=None, ctx=None):
         """One token per slot; the state is written in place (the caller
         freezes inactive slots)."""
         st, buf = state
@@ -384,7 +412,7 @@ class RglruBlock(_FfnBlock):
         return x
 
     @classmethod
-    def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table):
+    def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table, ctx=None):
         st, buf = state
         h = layers.rms_norm(x, p["ln1"])
         g, u = cls._mix(cfg, p, h)
@@ -407,6 +435,149 @@ class RglruBlock(_FfnBlock):
                             device=device))
 
 
+def _ctx_kv_spec(cfg, n, batch, device) -> tuple:
+    """Zeroed per-slot ``ctx_kv``: (k, v) each (n, batch, T_ctx, KV, dh)
+    in the config's dtype."""
+    shp = (n, batch, cfg.n_ctx_tokens, cfg.n_kv_heads, cfg.d_head)
+    return (torch.zeros(shp, dtype=cfg.dtype, device=device),
+            torch.zeros(shp, dtype=cfg.dtype, device=device))
+
+
+def _keep_ctx_kv(state, ctx_kv) -> None:
+    """Write a chunk's ``ctx_kv`` into the slot's per-slot state."""
+    for leaf, t in zip(state, ctx_kv):
+        leaf.copy_(t)
+
+
+@register
+class CrossBlock(_FfnBlock):
+    """Cross-attention to the request's context + FFN (Llama-3.2-Vision's
+    image layers).  The state is per slot: the context's keys and values
+    ``ctx_kv``, (k, v) each (B, T_ctx, KV, dh), projected from the raw
+    context on every prefill chunk (as the reference does) and read, never
+    written, by decode.  ``ctx_kv`` is a pure function of the context, so a
+    prefix shared between requests of one context cannot go stale."""
+    contract = BlockContract("cross", per_slot_state=True,
+                             prefix_shareable=True)
+    decode_writes_slot = False
+
+    @classmethod
+    def defs(cls, cfg, n):
+        defs = {"ln1": _norm_def(cfg, n), "ln2": _norm_def(cfg, n)}
+        defs |= {f"attn_{k}": v
+                 for k, v in attn_mod.attn_defs(cfg, n, cross=True).items()}
+        return defs | cls._ffn_defs(cfg, n)
+
+    @classmethod
+    def fwd(cls, cfg, p, x, opts: FwdOpts, ctx=None):
+        ap = _sub(p, "attn_")
+        ctx_kv = attn_mod.make_ctx_kv(cfg, ap, ctx)
+        h = layers.rms_norm(x, p["ln1"])
+        a = attn_mod.cross_attention(cfg, ap, h, ctx_kv)
+        state = (tuple(t.contiguous() for t in ctx_kv) if opts.want_state
+                 else None)
+        return cls._residual_ffn(cfg, p, x, a), state
+
+    @classmethod
+    def decode(cls, cfg, p, x, state, pos, table, valid=None, ctx=None):
+        h = layers.rms_norm(x, p["ln1"])
+        a = attn_mod.decode_cross_attention(cfg, _sub(p, "attn_"), h, state)
+        return cls._residual_ffn(cfg, p, x, a)
+
+    @classmethod
+    def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table, ctx=None):
+        ap = _sub(p, "attn_")
+        ctx_kv = attn_mod.make_ctx_kv(cfg, ap, ctx)
+        _keep_ctx_kv(state, ctx_kv)
+        h = layers.rms_norm(x, p["ln1"])
+        a = attn_mod.cross_attention(cfg, ap, h, ctx_kv)
+        return cls._residual_ffn(cfg, p, x, a, valid)
+
+    @classmethod
+    def state_spec(cls, cfg, n, batch, s_max, device):
+        return _ctx_kv_spec(cfg, n, batch, device)
+
+
+@register
+class DecBlock(_FfnBlock):
+    """Whisper's decoder layer: causal self-attention, cross-attention to
+    the encoded frames (norm ``lnx``), FFN.  Its state is a ``(pool,
+    per_slot)`` pair: the self-attention's paged pool (or, dense, its
+    KVCache in ``kv_cache_dtype``) and the per-slot ``ctx_kv`` of the
+    encoded frames, which decode reads and never writes."""
+    contract = BlockContract("dec", paged_kv=True, per_slot_state=True,
+                             table_class="full", prefix_shareable=True)
+    decode_writes_slot = False
+
+    @classmethod
+    def defs(cls, cfg, n):
+        defs = {"ln1": _norm_def(cfg, n), "ln2": _norm_def(cfg, n)}
+        defs |= {f"attn_{k}": v for k, v in attn_mod.attn_defs(cfg, n).items()}
+        defs["lnx"] = _norm_def(cfg, n)
+        defs |= {f"xattn_{k}": v
+                 for k, v in attn_mod.attn_defs(cfg, n, cross=True).items()}
+        return defs | cls._ffn_defs(cfg, n)
+
+    @classmethod
+    def _cross_ffn(cls, cfg, p, x, a, ctx_kv, valid=None):
+        """The self-attention's output ``a`` joins the residual, lnx of the
+        sum reads the encoded frames' ``ctx_kv``, then the FFN."""
+        x, h = cls._add_norm(x, a, p["lnx"])
+        a = attn_mod.cross_attention(cfg, _sub(p, "xattn_"), h, ctx_kv)
+        return cls._residual_ffn(cfg, p, x, a, valid)
+
+    @classmethod
+    def fwd(cls, cfg, p, x, opts: FwdOpts, ctx=None):
+        h = layers.rms_norm(x, p["ln1"])
+        ap = _sub(p, "attn_")
+        self_state = None
+        if opts.want_state:
+            positions = torch.arange(h.shape[1], device=h.device)
+            k, v = attn_mod._project_kv(cfg, ap, h, positions)
+            self_state = _kv_from_seq(cfg, k, v, opts.s_max)
+        a = attn_mod.attention(cfg, ap, h, causal=True)
+        ctx_kv = attn_mod.make_ctx_kv(cfg, _sub(p, "xattn_"), ctx)
+        x = cls._cross_ffn(cfg, p, x, a, ctx_kv)
+        state = None
+        if opts.want_state:
+            state = (self_state, tuple(t.contiguous() for t in ctx_kv))
+        return x, state
+
+    @classmethod
+    def decode(cls, cfg, p, x, state, pos, table, valid=None, ctx=None):
+        self_cache, ctx_kv = state
+        h = layers.rms_norm(x, p["ln1"])
+        ap = _sub(p, "attn_")
+        if table is None:
+            a = attn_mod.decode_attention(cfg, ap, h, self_cache, pos)
+        else:
+            a = attn_mod.paged_attention(cfg, ap, h, self_cache, table, pos,
+                                         valid=valid)
+        return cls._cross_ffn(cfg, p, x, a, ctx_kv)
+
+    @classmethod
+    def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table, ctx=None):
+        """``ctx`` is the encoded frames (1, T, d), encoded once at
+        admission, not once a chunk."""
+        self_cache, ctx_state = state
+        h = layers.rms_norm(x, p["ln1"])
+        a = attn_mod.paged_attention(cfg, _sub(p, "attn_"), h, self_cache,
+                                     table, pos0, valid=valid)
+        ctx_kv = attn_mod.make_ctx_kv(cfg, _sub(p, "xattn_"), ctx)
+        _keep_ctx_kv(ctx_state, ctx_kv)
+        return cls._cross_ffn(cfg, p, x, a, ctx_kv, valid)
+
+    @classmethod
+    def slot_spec(cls, cfg, n, batch, device):
+        return _ctx_kv_spec(cfg, n, batch, device)
+
+    @classmethod
+    def state_spec(cls, cfg, n, batch, s_max, device):
+        # the self-cache honours kv_cache_dtype as AttnBlock's does
+        return (KVCache.zeros(cfg, batch, s_max, _kv_dtype(cfg), device, n),
+                cls.slot_spec(cfg, n, batch, device))
+
+
 # ---------------------------------------------------------------------------
 # segment machinery
 # ---------------------------------------------------------------------------
@@ -416,7 +587,8 @@ def segment_defs(cfg, segments=None) -> list:
             for kind, n in (segments or cfg.segments())]
 
 
-def segment_fwd(cfg, seg_params: list, x, opts: FwdOpts = FwdOpts()):
+def segment_fwd(cfg, seg_params: list, x, opts: FwdOpts = FwdOpts(),
+                ctx=None):
     """Every segment over a full sequence -> (x, per-segment layer-stacked
     states, or Nones without ``opts.want_state``)."""
     states = []
@@ -424,7 +596,7 @@ def segment_fwd(cfg, seg_params: list, x, opts: FwdOpts = FwdOpts()):
         block = registry.get(kind)
         sts = []
         for i in range(n):
-            x, st = block.fwd(cfg, layer_params(p, i), x, opts)
+            x, st = block.fwd(cfg, layer_params(p, i), x, opts, ctx)
             sts.append(st)
         states.append(_stack(sts))
     return x, states
@@ -449,36 +621,40 @@ def _freeze_inactive(per_slot, old, active: torch.Tensor) -> None:
 
 
 def segment_decode(cfg, seg_params: list, x, states: list, pos,
-                   tables: dict | None = None, active=None):
+                   tables: dict | None = None, active=None, ctx=None):
     """One token for every slot through every segment.  ``tables`` None
     reads the dense caches; otherwise the attn-family blocks go through
     their block tables.  ``active`` (B,) bool trash-routes inactive slots'
     paged writes (a dense cache's dead rows are inert by overwrite) and
-    keeps their per-slot state as it was."""
+    keeps their per-slot state as it was (a kind whose decode only reads
+    it needs no copy)."""
     valid = None if active is None else active[:, None]
     for ((kind, n), p), st in zip(seg_params, states):
         block = registry.get(kind)
         table = _block_table(block, tables)
         _, per_slot = block.paged_split(st)
         old = (None if per_slot is None or active is None
+               or not block.decode_writes_slot
                else state_map(torch.clone, per_slot))
         for i in range(n):
             x = block.decode(cfg, layer_params(p, i), x, _layer(st, i),
-                             pos, table, valid=valid)
+                             pos, table, valid=valid, ctx=ctx)
         if old is not None:
             _freeze_inactive(per_slot, old, active)
     return x
 
 
 def segment_chunk(cfg, seg_params: list, x, states: list, slot: int, pos0,
-                  valid, n_valid: int, tables: dict, fresh: bool = False):
+                  valid, n_valid: int, tables: dict, fresh: bool = False,
+                  ctx=None):
     """One chunked-prefill piece (B=1, S=C) through every segment.
 
     Per-slot leaves are viewed at ``slot`` (written in place), reset to
     their initial values when ``fresh`` (the request's first chunk
     overwrites what the slot's previous tenant left); shared pools pass
     whole (the block table confines writes to this slot's blocks).
-    ``tables`` rows are this slot's (1, W) rows."""
+    ``tables`` rows are this slot's (1, W) rows; ``ctx`` (1, T_ctx, d) is
+    the request's context."""
     for ((kind, n), p), st in zip(seg_params, states):
         block = registry.get(kind)
         table = _block_table(block, tables)
@@ -490,7 +666,7 @@ def segment_chunk(cfg, seg_params: list, x, states: list, slot: int, pos0,
         for i in range(n):
             st_i = block.paged_merge(_layer(shared, i), _layer(ps, i))
             x = block.chunk(cfg, layer_params(p, i), x, st_i, pos0, valid,
-                            n_valid, table)
+                            n_valid, table, ctx)
     return x
 
 

@@ -3,6 +3,7 @@ per-segment blocks, the full-precision head.
 
 Public surface:
   param_defs / abstract_params / init_params / pack_params
+  encode                                               (enc-dec archs)
   decode_state_spec / prefill / decode_step            (dense layout)
   paged_table_widths / paged_decode_state_spec
   paged_decode_step(cfg, params, token, state, tables, active)
@@ -12,6 +13,9 @@ Public surface:
 
 The resident state is updated in place: the caches are written by the
 scatter, ``pos`` by the step.  Each step returns the state it was given.
+``ctx`` is a request's modality context: (B, T_ctx, d) patch embeddings
+(vlm) or frame embeddings (enc-dec, encoded by :func:`encode`); None for
+text-only archs.
 """
 
 from __future__ import annotations
@@ -30,6 +34,12 @@ def param_defs(cfg) -> dict:
     defs: dict[str, Any] = {"embed": layers.embed_defs(cfg)}
     for i, (kind, n, d) in enumerate(blocks.segment_defs(cfg)):
         defs[f"seg{i}_{kind}"] = d
+    if cfg.is_encdec():
+        enc_segs = cfg.encoder_segments()
+        for i, (kind, n, d) in enumerate(blocks.segment_defs(cfg, enc_segs)):
+            defs[f"enc{i}_{kind}"] = d
+        defs["enc_norm"] = pdefs.ParamDef((cfg.d_model,), torch.float32,
+                                          init="ones")
     return defs
 
 
@@ -56,10 +66,21 @@ def pack_params(cfg, params) -> dict:
     return pdefs.pack(param_defs(cfg), params)
 
 
-def _seg_params(cfg, params):
-    """[((kind, n), stacked params), ...] in depth order."""
-    return [((kind, n), params[f"seg{i}_{kind}"])
-            for i, (kind, n) in enumerate(cfg.segments())]
+def _seg_params(cfg, params, enc: bool = False):
+    """[((kind, n), stacked params), ...] in depth order (the encoder's
+    with ``enc``)."""
+    segs = cfg.encoder_segments() if enc else cfg.segments()
+    prefix = "enc" if enc else "seg"
+    return [((kind, n), params[f"{prefix}{i}_{kind}"])
+            for i, (kind, n) in enumerate(segs)]
+
+
+def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
+    """The enc-dec encoder over frame embeddings (B, T, d) -> the encoded
+    frames (B, T, d) in the config's dtype, final-normed."""
+    x, _ = blocks.segment_fwd(cfg, _seg_params(cfg, params, enc=True),
+                              frames.to(cfg.dtype))
+    return layers.rms_norm(x, params["enc_norm"])
 
 
 class DecodeState(NamedTuple):
@@ -67,31 +88,48 @@ class DecodeState(NamedTuple):
                                # batch) or (B,) per slot
     seg_states: list           # per-segment layer-stacked state trees:
                                # caches / pools and per-slot leaves
+    ctx: Any = None            # (B, T_ctx, d) context, dense vlm layout
+                               # only (decode reads ctx_kv, not ctx)
 
 
 def decode_state_spec(cfg, batch: int, s_max: int, *, device,
                       per_slot_pos: bool = False) -> DecodeState:
     """Zeroed dense resident state: (n, batch, KV, s_max, dh) caches per
-    segment (a window's capped at the window), per-slot recurrent leaves,
-    and a scalar ``pos``, or a (batch,) vector with ``per_slot_pos``
-    (continuous batching)."""
+    segment (a window's capped at the window), per-slot recurrent and
+    ``ctx_kv`` leaves, and a scalar ``pos``, or a (batch,) vector with
+    ``per_slot_pos`` (continuous batching).  A vlm arch (context, no
+    encoder) also keeps the raw context resident, (batch, T_ctx, d)."""
     seg = blocks.segment_states(cfg, cfg.segments(), batch, s_max, device)
     pshape = (batch,) if per_slot_pos else ()
+    ctx = None
+    if cfg.n_ctx_tokens and not cfg.is_encdec():
+        ctx = torch.zeros((batch, cfg.n_ctx_tokens, cfg.d_model),
+                          dtype=cfg.dtype, device=device)
     return DecodeState(torch.zeros(pshape, dtype=torch.int32, device=device),
-                       seg)
+                       seg, ctx)
 
 
-def prefill(cfg, params, tokens: torch.Tensor, s_max: int):
+def prefill(cfg, params, tokens: torch.Tensor, s_max: int,
+            ctx: torch.Tensor | None = None):
     """tokens (B, S) -> (logits of the last position (B, 1, V), a fresh
     dense DecodeState of capacity ``s_max`` with scalar ``pos`` = S): the
-    caches (a window's as its ring) and the recurrent state after S."""
+    caches (a window's as its ring), the recurrent state after S and the
+    context's ``ctx_kv``.  ``ctx`` (B, T_ctx, d): an enc-dec arch's frames
+    are encoded first; the state keeps the context it read."""
+    if cfg.is_encdec():
+        if ctx is None:
+            raise ValueError(f"arch {cfg.name} needs encoder frames")
+        ctx = encode(cfg, params, ctx)
+    elif ctx is not None:
+        ctx = ctx.to(cfg.dtype)
     x = layers.embed(params["embed"], tokens).to(cfg.dtype)
     opts = blocks.FwdOpts(want_state=True, s_max=s_max)
-    x, states = blocks.segment_fwd(cfg, _seg_params(cfg, params), x, opts)
+    x, states = blocks.segment_fwd(cfg, _seg_params(cfg, params), x, opts,
+                                   ctx)
     logits = layers.logits(cfg, params["embed"], x[:, -1:])
     pos = torch.tensor(tokens.shape[1], dtype=torch.int32,
                        device=tokens.device)
-    return logits, DecodeState(pos, states)
+    return logits, DecodeState(pos, states, ctx)
 
 
 def decode_step(cfg, params, token: torch.Tensor, state: DecodeState,
@@ -103,7 +141,7 @@ def decode_step(cfg, params, token: torch.Tensor, state: DecodeState,
     x = layers.embed(params["embed"], token).to(cfg.dtype)
     x = blocks.segment_decode(cfg, _seg_params(cfg, params), x,
                               state.seg_states, state.pos, None,
-                              active=active)
+                              active=active, ctx=state.ctx)
     logits = layers.logits(cfg, params["embed"], x)
     state.pos.add_(1 if active is None else active.to(torch.int32))
     return logits, state
@@ -130,8 +168,9 @@ def paged_table_widths(cfg, s_max: int, block_size: int,
 
 def paged_decode_state_spec(cfg, batch: int, *, n_blocks: int,
                             block_size: int, device) -> DecodeState:
-    """Zeroed resident state: shared pools, per-slot recurrent leaves and
-    per-slot positions."""
+    """Zeroed resident state: shared pools, per-slot recurrent and
+    ``ctx_kv`` leaves and per-slot positions.  The raw context is never
+    resident: each prefill chunk receives it and projects ``ctx_kv``."""
     seg = blocks.segment_paged_states(cfg, cfg.segments(), batch, n_blocks,
                                       block_size, device)
     return DecodeState(torch.zeros((batch,), dtype=torch.int32,
@@ -146,7 +185,7 @@ def paged_decode_step(cfg, params, token: torch.Tensor, state: DecodeState,
     x = layers.embed(params["embed"], token).to(cfg.dtype)
     x = blocks.segment_decode(cfg, _seg_params(cfg, params), x,
                               state.seg_states, state.pos, tables,
-                              active=active)
+                              active=active, ctx=state.ctx)
     logits = layers.logits(cfg, params["embed"], x)
     state.pos.add_(1 if active is None else active.to(torch.int32))
     return logits, state
@@ -154,14 +193,18 @@ def paged_decode_step(cfg, params, token: torch.Tensor, state: DecodeState,
 
 def prefill_chunk_step(cfg, params, tokens: torch.Tensor, state: DecodeState,
                        slot: int, n_valid: int, tables: dict,
-                       fresh: bool = False, start: int = 0):
+                       fresh: bool = False, start: int = 0,
+                       ctx: torch.Tensor | None = None):
     """One chunked-prefill piece for resident slot ``slot``.
 
     tokens (1, C) hold positions ``pos0 .. pos0 + C - 1`` with
     ``pos0 = start`` on the request's first chunk (``fresh``; ``start`` is
     the prefix-cache skip point) and ``state.pos[slot]`` after; the first
     ``n_valid`` tokens are real.  ``fresh`` also resets the slot's
-    per-slot state.  ``tables`` rows are (1, W).
+    per-slot state.  ``tables`` rows are (1, W).  ``ctx`` (1, T_ctx, d) is
+    the request's context: raw patch embeddings (vlm) or the frames
+    :func:`encode` made once at admission (enc-dec); every chunk projects
+    the cross layers' ``ctx_kv`` from it into the slot's state.
     Returns (logits of the last valid position (1, 1, V), state)."""
     c = tokens.shape[1]
     dev = tokens.device
@@ -169,9 +212,11 @@ def prefill_chunk_step(cfg, params, tokens: torch.Tensor, state: DecodeState,
             else state.pos[slot:slot + 1].clone())
     valid = (torch.arange(c, device=dev) < n_valid)[None]       # (1, C)
     x = layers.embed(params["embed"], tokens).to(cfg.dtype)
+    if ctx is not None:
+        ctx = ctx.to(cfg.dtype)
     x = blocks.segment_chunk(cfg, _seg_params(cfg, params), x,
                              state.seg_states, slot, pos0, valid, n_valid,
-                             tables, fresh=fresh)
+                             tables, fresh=fresh, ctx=ctx)
     logits = layers.logits(cfg, params["embed"], x[:, n_valid - 1:n_valid])
     state.pos[slot:slot + 1] = pos0 + n_valid
     return logits, state
@@ -211,8 +256,8 @@ def export_slot(cfg, state: DecodeState, slot: int, ids: dict) -> dict:
     """One slot's complete state as a self-contained tree ``{"pos": (1,)
     int32, "segs": per-segment (shared, per_slot) pairs}``: paged blocks in
     table-row order (``ids`` maps table class -> the slot's (W,) row) and
-    per-slot leaves (the RG-LRU's f32 ``h``, the conv buffer) at batch
-    width 1.  A pure read; paged layout only."""
+    per-slot leaves (the RG-LRU's f32 ``h``, the conv buffer, a context's
+    ``ctx_kv``) at batch width 1.  A pure read; paged layout only."""
     segs = blocks.segment_export_slot(cfg, state.seg_states, slot, ids)
     return {"pos": state.pos[slot:slot + 1].clone(), "segs": segs}
 

@@ -9,6 +9,8 @@ read the declarations instead of switching on kind strings.
 ``window``            the table is a sliding-window ring (never shareable)
 ``prefix_shareable``  cached blocks fully encode the kind's sequential
                       state; fail-closed (default False)
+``decodes``           the kind runs in the decode path (False for the
+                      encoder's kind, which runs inside ``lm.encode`` only)
 ``routed_experts``    the kind's FFN routes each token to ``cfg.top_k``
                       of ``cfg.n_experts`` experts
 """
@@ -26,6 +28,7 @@ class BlockContract:
     table_class: str | None = None
     window: bool = False
     prefix_shareable: bool = False
+    decodes: bool = True
     routed_experts: bool = False
 
     def __post_init__(self):

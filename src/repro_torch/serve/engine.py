@@ -22,12 +22,17 @@ A FIFO request queue feeds a fixed pool of batch slots over one resident
   threefry twin (:mod:`repro_torch.core.prng`) keyed by the engine seed
   folded with a (request, step) seed, so a draw never depends on the slot
   or the batch — the contract session migration rests on;
+* **modality context**: a request of a vlm or enc-dec arch brings its
+  ``ctx`` (patch embeddings or frames); an enc-dec arch's frames are
+  encoded once at admission, and every prefill chunk projects the cross
+  layers' keys and values from it into the slot's state; prefix sharing
+  is keyed on the context as well as the tokens;
 * **session export/import** (paged layout): a live slot's blocks,
-  position, tokens and chunked-prefill progress lift out as a flat wire
-  tree and re-admit into any engine of the same (cfg, s_max, block_size,
-  prefill_chunk, temperature, seed), token-identically; the replicated
-  tier (:mod:`repro_torch.serve.router`) ships it as an encrypted
-  checkpoint.
+  per-slot state, position, tokens and chunked-prefill progress lift out
+  as a flat wire tree and re-admit into any engine of the same (cfg,
+  s_max, block_size, prefill_chunk, temperature, seed),
+  token-identically; the replicated tier
+  (:mod:`repro_torch.serve.router`) ships it as an encrypted checkpoint.
 
 With ``pack=True`` and a ``quant="xnor"`` arch the engine serves from
 packed weights (:func:`repro_torch.models.lm.pack_params`): sign planes +
@@ -71,11 +76,16 @@ def _sample_tokens(cfg, logits: torch.Tensor, key: torch.Tensor,
 def _insert_slot(resident: lm.DecodeState, one: lm.DecodeState,
                  slot: int) -> None:
     """Scatter a freshly prefilled batch-1 dense state into resident slot
-    ``slot``, in place (leaves are layer-stacked, batch at axis 1)."""
+    ``slot``, in place (leaves are layer-stacked, batch at axis 1; ``ctx``
+    and ``pos`` carry the batch at axis 0).  An enc-dec arch keeps no
+    resident context (its ``ctx_kv`` lives in the layers' states), so the
+    prefill's encoded frames are dropped."""
     for r, o in zip(resident.seg_states, one.seg_states):
         for rl, ol in zip(blocks.state_leaves(r), blocks.state_leaves(o)):
             rl[:, slot] = ol[:, 0]
     resident.pos[slot] = one.pos
+    if resident.ctx is not None:
+        resident.ctx[slot] = one.ctx[0]
 
 
 def _host(v) -> np.ndarray:
@@ -94,6 +104,8 @@ class _PrefillProgress:
     next_chunk: int
     rows: dict                  # this slot's (1, W) device table rows
     seeds: torch.Tensor | None  # (1,) device seed of the prefill sample
+    ctx: torch.Tensor | None    # (1, T_ctx, d) raw (vlm) or encoded
+                                # (enc-dec) context, or None
     skip: int = 0               # positions served from shared prefix blocks
     chain: list = dataclasses.field(default_factory=list)
                                 # full prompt's (key, parent, tokens) chain
@@ -199,9 +211,6 @@ class ServeEngine:
     def submit(self, request: Request) -> Session:
         if request.rid in self.sessions:
             raise ValueError(f"duplicate request id {request.rid}")
-        if request.ctx is not None:
-            raise NotImplementedError(
-                "modality context (vlm / enc-dec archs) is not ported yet")
         need = request.prompt.shape[0] + request.max_new_tokens - 1
         if need > self.s_max:
             raise ValueError(
@@ -259,11 +268,28 @@ class ServeEngine:
                 [seq, np.asarray(session.tokens[:-1], np.int32)])
         row = self._tables[self._share_cls][slot]
         for i, (key, parent, toks) in enumerate(
-                self._prefix.chain(seq[:written])):
+                self._prefix.chain(seq[:written], req.ctx)):
             bid = int(row[i])
             if self._prefix.register(key, parent, bid, toks):
                 self.blocks.set_cached(bid)
         self.stats.prefix_cached_blocks = len(self._prefix)
+
+    def _ctx_for(self, req: Request) -> torch.Tensor | None:
+        """The request's context on the device, (1, T_ctx, d): an enc-dec
+        arch's frames are encoded here once under the paged layout (its
+        chunks read the encoded frames; the dense prefill encodes them
+        itself).  An arch with ``n_ctx_tokens`` raises without one."""
+        if req.ctx is not None:
+            ctx = self._dev(np.asarray(req.ctx)[None])
+            if self.paged and self.cfg.is_encdec():
+                with torch.inference_mode():
+                    ctx = lm.encode(self.cfg, self.params, ctx)
+            return ctx
+        if self.cfg.n_ctx_tokens:
+            raise ValueError(
+                f"arch {self.cfg.name} needs per-request ctx; request "
+                f"{req.rid} has none")
+        return None
 
     def _post_prefill(self, session: Session, slot: int, tok: int) -> bool:
         """Record the prefill-sampled token; True when the request joins
@@ -300,8 +326,9 @@ class ServeEngine:
         chunked-prefill progress and timing.  Leaf names and dtypes are the
         reference's (``meta`` int64 (8,), ``times`` float64 (5,), ``tokens``
         and ``prompt`` int32, ``state`` as :func:`lm.export_slot`, on this
-        engine's device), so either package restores the other's wire.  A
-        pure read: the slot keeps running until :meth:`release_migrated`."""
+        engine's device, and the request's raw ``ctx`` where it has one),
+        so either package restores the other's wire.  A pure read: the
+        slot keeps running until :meth:`release_migrated`."""
         self._require_paged("export_session")
         session = self.sessions[rid]
         slot = session.slot
@@ -328,8 +355,11 @@ class ServeEngine:
         times = np.array([session.t_submit, _t(session.t_admit),
                           _t(session.t_first), _t(session.step_first),
                           _t(session.t_done)], np.float64)
-        return {"meta": meta, "times": times, "tokens": toks,
+        wire = {"meta": meta, "times": times, "tokens": toks,
                 "prompt": np.asarray(req.prompt, np.int32), "state": payload}
+        if req.ctx is not None:
+            wire["ctx"] = np.asarray(req.ctx)
+        return wire
 
     def export_spec(self, request: Request) -> dict:
         """The shape and dtype tree (``meta`` tensors) of
@@ -340,12 +370,16 @@ class ServeEngine:
 
         def like(shape, dtype):
             return torch.empty(shape, dtype=dtype, device="meta")
-        return {"meta": like((8,), torch.int64),
+        spec = {"meta": like((8,), torch.int64),
                 "times": like((5,), torch.float64),
                 "tokens": like((request.max_new_tokens,), torch.int32),
                 "prompt": like(request.prompt.shape, torch.int32),
                 "state": lm.export_slot_spec(self.cfg, self._state,
                                              self._widths)}
+        if request.ctx is not None:
+            c = np.asarray(request.ctx)
+            spec["ctx"] = like(c.shape, torch.from_numpy(c[:0]).dtype)
+        return spec
 
     def release_migrated(self, rid: int) -> None:
         """Drop a session exported elsewhere: free its slot and blocks
@@ -426,13 +460,13 @@ class ServeEngine:
             padded = np.zeros((n_chunks * c,), np.int32)
             padded[:n_suffix] = request.prompt[skip:]
             chain = ([] if self._prefix is None
-                     else self._prefix.chain(request.prompt))
+                     else self._prefix.chain(request.prompt, request.ctx))
             self._prefilling[slot] = _PrefillProgress(
                 session=session, padded=padded, p_len=n_suffix,
                 n_chunks=n_chunks, next_chunk=next_chunk,
                 rows=self._slot_table_rows(slot),
-                seeds=self._seeds([self._seed_for(rid, 0)]), skip=skip,
-                chain=chain)
+                seeds=self._seeds([self._seed_for(rid, 0)]),
+                ctx=self._ctx_for(request), skip=skip, chain=chain)
         self.stats.migrations_in += 1
         return session
 
@@ -454,7 +488,7 @@ class ServeEngine:
         p_len = req.prompt.shape[0]
         if self._prefix is None:
             return [], 0, None
-        ids, n_full, child = self._prefix.lookup(req.prompt)
+        ids, n_full, child = self._prefix.lookup(req.prompt, req.ctx)
         shared = list(ids)
         skip = n_full * self.block_size
         if child is not None and (n_full > 0 or child[1] > 0):
@@ -536,7 +570,7 @@ class ServeEngine:
             with torch.inference_mode():
                 logits, one = lm.prefill(self.cfg, self.params,
                                          self._dev(req.prompt[None, :]),
-                                         self.s_max)
+                                         self.s_max, ctx=self._ctx_for(req))
                 tok = _sample_tokens(
                     self.cfg, logits, self._key,
                     self._seeds([self._seed_for(req.rid, 0)]),
@@ -594,13 +628,13 @@ class ServeEngine:
             padded = np.zeros((n_chunks * c,), np.int32)
             padded[:n_suffix] = req.prompt[skip:]
             chain = ([] if self._prefix is None
-                     else self._prefix.chain(req.prompt))
+                     else self._prefix.chain(req.prompt, req.ctx))
             self._prefilling[slot] = _PrefillProgress(
                 session=session, padded=padded, p_len=n_suffix,
                 n_chunks=n_chunks, next_chunk=0,
                 rows=self._slot_table_rows(slot),
-                seeds=self._seeds([self._seed_for(req.rid, 0)]), skip=skip,
-                chain=chain)
+                seeds=self._seeds([self._seed_for(req.rid, 0)]),
+                ctx=self._ctx_for(req), skip=skip, chain=chain)
             self.stats.prefills += 1
 
     def _register_upto(self, prog: _PrefillProgress, slot: int,
@@ -630,7 +664,7 @@ class ServeEngine:
             n_valid = min(c, prog.p_len - j * c)
             logits, self._state = lm.prefill_chunk_step(
                 self.cfg, self.params, piece, self._state, slot, n_valid,
-                prog.rows, fresh=j == 0, start=prog.skip)
+                prog.rows, fresh=j == 0, start=prog.skip, ctx=prog.ctx)
             self.stats.prefill_chunks += 1
             prog.next_chunk += 1
             if self._prefix is not None:

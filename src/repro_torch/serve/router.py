@@ -12,8 +12,10 @@ per-step wall time:
 * **migration** moves a live session between replicas through an
   encrypted checkpoint: the source's :meth:`export_session` wire is
   written with :func:`repro_torch.checkpoint.ckpt.save` (first hop) or
-  :func:`~repro_torch.checkpoint.ckpt.save_delta` (later hops), whose
-  digests run the parity kernel and whose cipher runs the XOR cipher
+  :func:`~repro_torch.checkpoint.ckpt.save_delta` (later hops: leaves
+  unchanged since the previous hop, such as the prompt, a modality
+  context and its ``ctx_kv``, resolve through the chain), whose digests
+  run the parity kernel and whose cipher runs the XOR cipher
   kernel on the card; the destination restores it against a spec derived
   from (cfg, geometry, request), never from the file, and
   :meth:`import_session` re-admits it token-identically;
@@ -318,8 +320,9 @@ class Router:
             cache.digests(wire)        # prime: exact dirtiness on hop 2
             cache.mark_saved()
         else:
-            # delta against the previous hop: the prompt and any KV blocks
-            # unchanged since resolve through the chain, not re-stored
+            # delta against the previous hop: the prompt, the context,
+            # its ctx_kv and any KV blocks unchanged since resolve through
+            # the chain, not re-stored
             ckpt.save_delta(d, step, wire, root_key=self.root_key,
                             cache=cache)
         self._mig_step[rid] = step

@@ -25,8 +25,10 @@ from repro_torch.models.params import tree_map
 
 
 def prefill_step(cfg, params, batch: dict, s_max: int):
-    """batch {tokens (B, S)} -> (logits (B, 1, V), dense DecodeState)."""
-    return lm.prefill(cfg, params, batch["tokens"], s_max=s_max)
+    """batch {tokens (B, S), [ctx (B, T_ctx, d)]} -> (logits (B, 1, V),
+    dense DecodeState)."""
+    return lm.prefill(cfg, params, batch["tokens"], s_max=s_max,
+                      ctx=batch.get("ctx"))
 
 
 def decode_step(cfg, params, token: torch.Tensor, state: lm.DecodeState):
@@ -45,20 +47,26 @@ def sample(logits: torch.Tensor, key: torch.Tensor | None = None,
 
 @torch.inference_mode()
 def generate_static(cfg, params, prompt: torch.Tensor, n_new: int,
+                    ctx: torch.Tensor | None = None,
                     temperature: float = 0.0,
                     key: torch.Tensor | None = None, *,
                     device="cuda") -> torch.Tensor:
     """The static-batch loop: batch prefill, then one eager decode step
-    per token at uniform shapes -> (B, n_new) int32 on ``device``.  Logits
-    are sliced to the true vocab (pad ids are never sampled); the key is
-    folded with the step index before each decode draw."""
+    per token at uniform shapes -> (B, n_new) int32 on ``device``.  ``ctx``
+    (B, T_ctx, d) is each row's modality context (frames for an enc-dec
+    arch, encoded in the prefill).  Logits are sliced to the true vocab
+    (pad ids are never sampled); the key is folded with the step index
+    before each decode draw."""
     dev = resolve_device(device)
     params = tree_map(lambda t: t.to(dev), params)
     prompt = prompt.to(dev)
     if key is not None:
         key = key.to(dev)
     s_max = prompt.shape[1] + n_new
-    logits, state = prefill_step(cfg, params, {"tokens": prompt}, s_max)
+    batch = {"tokens": prompt}
+    if ctx is not None:
+        batch["ctx"] = ctx.to(dev)
+    logits, state = prefill_step(cfg, params, batch, s_max)
     tok = sample(logits[..., :cfg.vocab], key, temperature)
     out = [tok]
     for i in range(n_new - 1):
@@ -71,12 +79,14 @@ def generate_static(cfg, params, prompt: torch.Tensor, n_new: int,
 
 
 def generate(cfg, params, prompt: torch.Tensor, n_new: int,
-             temperature: float = 0.0, key: torch.Tensor | None = None, *,
+             ctx: torch.Tensor | None = None, temperature: float = 0.0,
+             key: torch.Tensor | None = None, *,
              device="cuda") -> torch.Tensor:
-    """Each prompt row as one engine request on ``device``, slot-dense
-    layout, float weights (``pack=False``): the reference's compatibility
-    contract; the engine seed is drawn from ``key`` as the reference draws
-    it -> (B, n_new) int32 on the host."""
+    """Each prompt row as one engine request on ``device`` (row ``i`` of
+    ``ctx`` its context), slot-dense layout, float weights
+    (``pack=False``): the reference's compatibility contract; the engine
+    seed is drawn from ``key`` as the reference draws it -> (B, n_new)
+    int32 on the host."""
     from repro_torch.serve import Request, ServeEngine
 
     b, p = prompt.shape
@@ -85,8 +95,10 @@ def generate(cfg, params, prompt: torch.Tensor, n_new: int,
                       temperature=temperature, seed=seed, pack=False,
                       paged=False, device=device)
     prompt_h = prompt.cpu().numpy().astype(np.int32)
+    ctx_h = None if ctx is None else ctx.cpu().numpy()
     for i in range(b):
-        eng.submit(Request(rid=i, prompt=prompt_h[i], max_new_tokens=n_new))
+        eng.submit(Request(rid=i, prompt=prompt_h[i], max_new_tokens=n_new,
+                           ctx=None if ctx_h is None else ctx_h[i]))
     report = eng.run()
     return torch.from_numpy(np.stack([report.tokens(i) for i in range(b)])
                             ).to(torch.int32)

@@ -1,7 +1,8 @@
 """The port's configs against the reference's, and the two dense configs
 this port adds beside qwen2-7b / qwen3-4b (phi4-mini-3.8b, qwen3-14b),
 served at their smoke size with the reference engine's greedy tokens;
-the ``moe`` kind's contract and the MoE archs' parameter trees.
+every ported kind's contract (``moe``, ``cross``, ``enc``, ``dec``
+among them) and the MoE archs' parameter trees.
 
 Every ported arch must equal the reference's config field by field, full
 size and smoke; archs whose block kinds the port does not serve stay out
@@ -30,14 +31,16 @@ PORTED = sorted(configs.ALL)
 
 
 def test_registry_lists_the_ported_archs():
-    assert PORTED == ["llama4-scout-17b-a16e", "moonshot-v1-16b-a3b",
-                      "phi4-mini-3.8b", "qwen2-7b", "qwen3-14b", "qwen3-4b",
-                      "recurrentgemma-2b"]
-    for name in ("xlstm-350m", "llama-3.2-vision-11b", "whisper-tiny"):
+    assert PORTED == ["llama-3.2-vision-11b", "llama4-scout-17b-a16e",
+                      "moonshot-v1-16b-a3b", "phi4-mini-3.8b", "qwen2-7b",
+                      "qwen3-14b", "qwen3-4b", "recurrentgemma-2b",
+                      "whisper-tiny"]
+    for name in ("xlstm-350m", "xlstm-350m+xnor"):
         with pytest.raises(KeyError):
             configs.get(name)
     for name in PORTED:           # no ported config names an unported kind
-        for kind, _ in configs.get(name).segments():
+        cfg = configs.get(name)
+        for kind, _ in cfg.segments() + cfg.encoder_segments():
             registry.get(kind)
 
 
@@ -87,15 +90,19 @@ def test_smoke_greedy_tokens_match_reference(arch, dtype):
     assert rep.stats.decode_steps == jrep.stats.decode_steps
 
 
-@pytest.mark.parametrize("kind", ["attn", "local", "rglru", "moe"])
+@pytest.mark.parametrize("kind", ["attn", "local", "rglru", "moe", "cross",
+                                  "enc", "dec"])
 def test_contract_equals_the_references(kind):
-    """Every field of the port's contract is the reference's; the one the
-    port does not declare (``decodes``) is True for every ported kind."""
+    """Every field of the port's contract is the reference's, and the port
+    declares every field the reference does; only the encoder's kind
+    does not decode."""
     from repro.models import registry as jregistry
     t, j = registry.contract(kind), jregistry.contract(kind)
+    assert {f.name for f in dataclasses.fields(t)} == \
+        {f.name for f in dataclasses.fields(j)}
     for f in dataclasses.fields(t):
         assert getattr(t, f.name) == getattr(j, f.name), (kind, f.name)
-    assert j.decodes
+    assert t.decodes == (kind != "enc")
     assert t.routed_experts == (kind == "moe")
 
 

@@ -776,3 +776,106 @@ def test_cuda_row_sums_do_not_depend_on_the_batch(gpu, d):
             for j in range(b):
                 assert torch.equal(rb.probs[j:j + 1], r1[j].probs), (b, j)
                 assert torch.equal(rb.idx[j:j + 1], r1[j].idx), (b, j)
+
+
+# the context archs' projections (N, K): llama-3.2-vision-11b's (trunk and
+# cross layers alike) and whisper-tiny's (encoder and decoder alike), with
+# the rows their context projections run at (the cross layers' wk/wv over
+# 1,600 patch rows, every encoder linear over 1,500 frames)
+CTX_LINEARS = [(4096, 4096, (4, 32)), (1024, 4096, (4, 32, 1600)),
+               (14336, 4096, (4, 32)), (4096, 14336, (4, 32)),
+               (384, 384, (4, 32, 1500)), (1536, 384, (4, 32, 1500)),
+               (384, 1536, (4, 32, 1500))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for n, k, ms in CTX_LINEARS
+                                   for m in ms])
+def test_cuda_xnor_linear_fused_ctx_archs(gpu, m, k, n):
+    """Bitwise against the plain version summed in the kernel's order and
+    within the reference's tolerances of the plain one, f32 and bf16, at
+    decode M, chunk M and the context projections' M 1,600 / 1,500."""
+    g = torch.Generator(device=gpu)
+    g.manual_seed(m * 13 + k + n)
+    pb, beta = xnor_layers.pack_weights(
+        torch.randn((n, k), generator=g, device=gpu))
+    for dtype, tol in ((torch.float32, (2e-5, 2e-5)),
+                       (torch.bfloat16, (2 ** -8, 1e-6))):
+        x = torch.randn((m, k), generator=g, device=gpu).to(dtype)
+        kk, pp = _kernel_and_plain(kxnor.xnor_linear_fused, x, pb, beta, k)
+        assert torch.equal(kk, kxnor.linear_kernel_order(x, pb, beta, k))
+        torch.testing.assert_close(kk, pp, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,i8,tol", [("f32", False, (2e-5, 2e-5)),
+                                          ("bf16", False, BF16_ULP),
+                                          ("bf16", True, BF16_ULP)])
+@pytest.mark.parametrize("w,pos", [(8, [0, 17, 127, 64]),
+                                   (2048, [32767, 17, 20000, 4095])])
+@pytest.mark.parametrize("kv,g,dh", [(8, 4, 128), (6, 1, 64)])
+def test_cuda_paged_decode_ctx_archs(gpu, kv, g, dh, dtype, i8, tol, w, pos):
+    """Paged decode at llama-3.2-vision-11b's self-attention geometry (KV
+    8, G 4, dh 128) and whisper-tiny's decoder (KV 6, G 1, dh 64, a head
+    width the kernel meets nowhere else), block 16, 4 slots, at W 8 and W
+    2048 (a split walk), bf16, f32 and int8 pools, against the plain
+    version; rows 0-1 of the launch bitwise a 2-slot launch's."""
+    q, ck, cv, table, scale, out_scale = _case(
+        b=4, kv=kv, g=g, dh=dh, bs=16, w=w, i8=i8, seed=w + dh)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    conv = (lambda a: torch.from_numpy(a).to(gpu)) if i8 else \
+        (lambda a: torch.from_numpy(a).to(gpu, tdt))
+    args = (torch.from_numpy(q).to(gpu, tdt), conv(ck), conv(cv),
+            torch.from_numpy(table).to(gpu),
+            torch.tensor(pos, dtype=torch.int32, device=gpu))
+    kk, pp = _kernel_and_plain(kpaged.paged_decode_attention, *args,
+                               scale=scale, out_scale=out_scale)
+    torch.testing.assert_close(kk.float(), pp.float(), rtol=tol[0],
+                               atol=tol[1])
+    tq, tk, tv, tt, tp = args
+    two = kpaged.paged_decode_attention(
+        tq[:2].contiguous(), tk, tv, tt[:2].contiguous(), tp[:2].contiguous(),
+        scale=scale, out_scale=out_scale)
+    torch.cuda.synchronize()
+    assert torch.equal(two, kk[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dtype", [
+    ("llama-3.2-vision-11b", torch.bfloat16),
+    ("llama-3.2-vision-11b", torch.float32),
+    ("whisper-tiny", torch.bfloat16)])
+def test_cuda_cross_attention_rows_do_not_depend_on_the_batch(gpu, arch,
+                                                              dtype):
+    """A decode step's cross-attention at full width (llama-3.2-vision: 32
+    heads over 8 KV heads of 128 and 1,600 context rows; whisper: 6 heads
+    of 64 over 1,500 frames) at 1 to 8 slots: each slot's output row is
+    the same bits whatever the batch (the session migration contract,
+    hazard H2: the score and P.V products and the softmax run over B x H
+    rows)."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.models import attention as attn_mod
+    cfg = dataclasses.replace(configs.get(arch + "+xnor"), dtype=dtype)
+    g = torch.Generator(device=gpu)
+    g.manual_seed(cfg.d_model)
+    d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
+    kvd = cfg.n_kv_heads * cfg.d_head
+    p = {name: xnor_layers.pack_linear(
+        (torch.randn((d, n), generator=g, device=gpu) / d ** 0.5).to(dtype))
+         for name, n in (("wq", hd), ("wk", kvd), ("wv", kvd))}
+    p["wo"] = xnor_layers.pack_linear(
+        (torch.randn((hd, d), generator=g, device=gpu) / hd ** 0.5).to(dtype))
+    ctx = torch.randn((8, cfg.n_ctx_tokens, d), generator=g,
+                      device=gpu).to(dtype) * 0.1
+    ctx_kv = tuple(torch.cat(t) for t in zip(*(      # per slot, as admitted
+        attn_mod.make_ctx_kv(cfg, p, ctx[j:j + 1]) for j in range(8))))
+    x = torch.randn((8, 1, d), generator=g, device=gpu).to(dtype)
+    alone = torch.cat([attn_mod.decode_cross_attention(
+        cfg, p, x[j:j + 1], tuple(t[j:j + 1] for t in ctx_kv))
+        for j in range(8)])
+    for b in range(2, 9):
+        out = attn_mod.decode_cross_attention(
+            cfg, p, x[:b], tuple(t[:b] for t in ctx_kv))
+        assert torch.equal(out, alone[:b]), b

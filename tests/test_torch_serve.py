@@ -152,16 +152,20 @@ def test_prefix_cache_off_same_tokens(setup):
 
 
 def test_engine_rejects_unported_modes(setup):
-    """Modality context (vlm / enc-dec archs) is not ported: a request
-    carrying one is refused (temperature > 0 is ported now)."""
+    """Modality context is ported now: a request carrying one is accepted,
+    and a text-only arch serves it as the reference does (its blocks read
+    no context); a request that does not fit ``s_max`` is refused."""
     cfg, tp, _, _ = setup
     eng = ServeEngine(cfg, tp, slots=1, s_max=16, device="cpu")
     from repro_torch.serve import Request
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(rid=1, prompt=np.arange(3), max_new_tokens=2,
-                           ctx=np.zeros((2, cfg.d_model), np.float32)))
+    ctx = np.zeros((2, cfg.d_model), np.float32)
+    eng.submit(Request(rid=1, prompt=np.arange(3), max_new_tokens=2,
+                       ctx=ctx))
     with pytest.raises(ValueError):         # does not fit s_max
         eng.submit(Request(rid=0, prompt=np.arange(12), max_new_tokens=8))
+    plain = ServeEngine(cfg, tp, slots=1, s_max=16, device="cpu")
+    plain.submit(Request(rid=1, prompt=np.arange(3), max_new_tokens=2))
+    assert eng.run().tokens(1).tolist() == plain.run().tokens(1).tolist()
 
 
 def test_pools_and_prefix_index_track_reference():
