@@ -68,7 +68,8 @@ Phases (any failure raises and the script exits non-zero):
    llama-3.2-vision decode step's 264 fused linears (7 a layer x 32 attn
    + 5 a layer x 8 cross) as a CUDA graph; hazard H2's probe of decode
    cross-attention (the batched form against each slot alone, reported;
-   the port's per-slot form held equal); paged decode at llama's
+   the port's per-slot form held equal to itself at a batch of one);
+   paged decode at llama's
    (KV 8, G 4, dh 128) and whisper's (KV 6, G 1, dh 64) geometry over
    W 8 and W 2048 in bf16, f32 and int8, held and timed against its byte
    bound, SDPA and the plain version.
@@ -136,8 +137,8 @@ Phases (any failure raises and the script exits non-zero):
    timed run repeating them (tok/s, TTFT, peak memory; 36 + 4 and 264 +
    32 launches every decode step), a session migrated mid-decode 4 -> 2
    slots through an encrypted wire carrying its context and per-slot
-   ``ctx_kv``, held then unheld; whisper in f32 dense = paged =
-   ``generate_static``; llama-vision's ``check_paths`` in bf16 at its
+   ``ctx_kv``, held then unheld; whisper in f32 dense = paged (4 and 2
+   slots) = ``generate_static``; llama-vision's ``check_paths`` in bf16 at its
    limits with the control failing, and in f32 at full depth (a 39 GB
    tree).
 4. The integer chain at checkpoint scale: the same seeded 7.6 B-parameter
@@ -2462,10 +2463,12 @@ def vlm_arch_kernels(gpu: str) -> dict:
 def cross_batch_probe(gpu: str, randn) -> None:
     """Hazard H2 at decode: one cross-attention layer at each context
     arch's full width, 8 slots, bf16 and f32.  Prints, for 2 to 8 slots,
-    how many output elements of the batched form (every slot's products
-    in one library call) differ from each slot run alone, and asserts
-    that the form the port takes on the card (``decode_cross_attention``:
-    each slot alone) differs in none."""
+    how many output elements of the batched form (``cross_attention``:
+    every slot's products in one library call) differ from each slot run
+    alone in that form, and asserts that the port's decode form
+    (``decode_cross_attention``: each slot alone, its query heads grouped
+    over the unexpanded KV heads) differs in none from itself at a batch
+    of one."""
     import torch
 
     import repro_torch.configs as configs
@@ -2485,20 +2488,26 @@ def cross_batch_probe(gpu: str, randn) -> None:
                 for _ in range(8)]
             kv = tuple(torch.cat(t) for t in zip(*kv))
             x = randn(8, 1, d, dtype=dt)
-            alone = torch.cat([attn_mod.cross_attention(
+            alone, port_alone = (torch.cat([f(
                 cfg, p, x[j:j + 1], tuple(t[j:j + 1] for t in kv))
-                for j in range(8)])
+                for j in range(8)]) for f in (
+                    attn_mod.cross_attention,
+                    attn_mod.decode_cross_attention))
             batched, port = {}, {}
             for b in range(2, 9):
                 sub = tuple(t[:b] for t in kv)
                 batched[b] = int((attn_mod.cross_attention(
                     cfg, p, x[:b], sub) != alone[:b]).sum())
                 port[b] = int((attn_mod.decode_cross_attention(
-                    cfg, p, x[:b], sub) != alone[:b]).sum())
+                    cfg, p, x[:b], sub) != port_alone[:b]).sum())
             print(f"[cross_attention {arch} {str(dt)[6:]}] decode rows "
                   f"differing from each slot alone, of {d} a slot, by "
                   f"slots: batched form {batched}; the port's form "
-                  f"{port}  [{gpu}]")
+                  f"{port}; the port's form alone against the batched "
+                  f"form alone: {int((port_alone != alone).sum())} "
+                  f"differ, max |d| "
+                  f"{float((port_alone.float() - alone.float()).abs().max())}"
+                  f"  [{gpu}]")
             assert not any(port.values()), port
             del p, kv
     torch.cuda.empty_cache()
@@ -2684,6 +2693,11 @@ def whisper_serving(gpu: str) -> dict:
         return {rid: rep.tokens(rid).tolist() for rid in rids}
     f32 = dict(slots=4, s_max=128, device="cuda")
     paged = tokens(ServeEngine(cfg32, params32, **f32))
+    two = tokens(ServeEngine(cfg32, params32, **dict(f32, slots=2)))
+    print(f"[whisper] f32 greedy: the 2-slot paged engine's tokens as the "
+          f"4-slot one's on {sum(two[x] == paged[x] for x in rids)}/8  "
+          f"[{gpu}]")
+    assert two == paged, "f32: the 2-slot engine's tokens differ"
     eng = ServeEngine(cfg32, params32, paged=False, **f32)
     dense = tokens(eng)
     static = {r.rid: serve_step.generate_static(

@@ -137,22 +137,15 @@ def attention(cfg, p: dict, x: torch.Tensor, *, causal: bool = True,
                          p["wo"], cfg.quant)
 
 
-def cross_attention(cfg, p: dict, x: torch.Tensor, ctx_kv,
-                    per_slot: bool = False) -> torch.Tensor:
+def cross_attention(cfg, p: dict, x: torch.Tensor, ctx_kv) -> torch.Tensor:
     """x (B, S, d) attends to every context token, no mask and no RoPE
     across modalities: ``ctx_kv`` is (k, v) each (B, T_ctx, KV, dh) from
     :func:`make_ctx_kv`.  -> (B, S, d).  The reference computes it with
     its ``_sdpa`` einsums outside any kernel, so the port is plain PyTorch
-    on every device, in the same rounding order.  ``per_slot`` runs each
-    row's products and softmax alone, at the shapes of a batch of one."""
+    on every device, in the same rounding order."""
     b, s, _ = x.shape
     q = _project_q(cfg, p, x, None)
-    if per_slot:
-        out = torch.cat([_sdpa(cfg, q[j:j + 1], *_expand_kv(
-            cfg, ctx_kv[0][j:j + 1], ctx_kv[1][j:j + 1]), None)
-            for j in range(b)])
-    else:
-        out = _sdpa(cfg, q, *_expand_kv(cfg, *ctx_kv), None)
+    out = _sdpa(cfg, q, *_expand_kv(cfg, *ctx_kv), None)
     return layers.linear(out.reshape(b, s, cfg.n_heads * cfg.d_head),
                          p["wo"], cfg.quant)
 
@@ -165,16 +158,31 @@ def make_ctx_kv(cfg, p: dict, ctx: torch.Tensor):
 
 def decode_cross_attention(cfg, p: dict, x: torch.Tensor,
                            ctx_kv) -> torch.Tensor:
-    """One token per slot against the slot's resident ``ctx_kv``.  On the
-    card each slot's score and P.V products and softmax run alone: the
-    library products over B x H rows pick their kernel, and with it the
-    order of their sums, by the batch (hazard H2; phase 2 of
-    ``chip_smoke.py`` prints how far the batched form departs), and a
-    session must keep its bits in an engine of other ``slots``.  The
-    projections are row by row already.  The CPU keeps the batched
-    form."""
-    return cross_attention(cfg, p, x, ctx_kv,
-                           per_slot=x.is_cuda and x.shape[0] > 1)
+    """One token per slot against the slot's resident ``ctx_kv``, x (B, S,
+    d) -> (B, S, d).  Each slot's score and P.V products and softmax run
+    alone, at a batch of one: library products over B x H rows pick their
+    kernel, and with it the order of their sums, by the batch (hazard H2;
+    phase 2 of ``chip_smoke.py`` prints how far the batched form departs),
+    and a session must keep its bits in an engine of other ``slots``.  The
+    projections are row by row already.  A KV head's G query heads read
+    its keys and values in place, not expanded as :func:`cross_attention`
+    expands them; scores and softmax are f32 and P is rounded to v's dtype
+    before P.V, as in ``_sdpa``."""
+    b, s, _ = x.shape
+    q = _project_q(cfg, p, x, None).reshape(b, s, cfg.n_kv_heads,
+                                            cfg.q_per_kv, cfg.d_head)
+    scale = cfg.d_head ** -0.5
+    out = []
+    for j in range(b):
+        k, v = (t[j:j + 1] for t in ctx_kv)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", q[j:j + 1].float(),
+                              k.float()) * scale
+        probs = torch.softmax(scores, dim=-1)
+        out.append(torch.einsum("bkgqs,bskd->bqkgd",
+                                probs.to(v.dtype).float(), v.float()))
+    out = torch.cat(out).to(q.dtype)
+    return layers.linear(out.reshape(b, s, cfg.n_heads * cfg.d_head),
+                         p["wo"], cfg.quant)
 
 
 class KVCache(NamedTuple):

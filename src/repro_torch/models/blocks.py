@@ -139,11 +139,7 @@ class PagedLayout:
 
     Kinds with ``per_slot_state`` may override :meth:`slot_spec` (default:
     the dense :meth:`state_spec`, right whenever the dense state is all
-    per-slot).  A kind whose decode never writes its per-slot state (a
-    context's keys and values) sets :attr:`decode_writes_slot` False, so
-    the decode step does not copy that state to freeze inactive slots."""
-
-    decode_writes_slot = True
+    per-slot)."""
 
     @classmethod
     def slot_spec(cls, cfg, n, batch, device):
@@ -458,8 +454,7 @@ class CrossBlock(_FfnBlock):
     written, by decode.  ``ctx_kv`` is a pure function of the context, so a
     prefix shared between requests of one context cannot go stale."""
     contract = BlockContract("cross", per_slot_state=True,
-                             prefix_shareable=True)
-    decode_writes_slot = False
+                             prefix_shareable=True, decode_writes_slot=False)
 
     @classmethod
     def defs(cls, cfg, n):
@@ -506,8 +501,8 @@ class DecBlock(_FfnBlock):
     KVCache in ``kv_cache_dtype``) and the per-slot ``ctx_kv`` of the
     encoded frames, which decode reads and never writes."""
     contract = BlockContract("dec", paged_kv=True, per_slot_state=True,
-                             table_class="full", prefix_shareable=True)
-    decode_writes_slot = False
+                             table_class="full", prefix_shareable=True,
+                             decode_writes_slot=False)
 
     @classmethod
     def defs(cls, cfg, n):
@@ -519,11 +514,13 @@ class DecBlock(_FfnBlock):
         return defs | cls._ffn_defs(cfg, n)
 
     @classmethod
-    def _cross_ffn(cls, cfg, p, x, a, ctx_kv, valid=None):
+    def _cross_ffn(cls, cfg, p, x, a, ctx_kv, cross, valid=None):
         """The self-attention's output ``a`` joins the residual, lnx of the
-        sum reads the encoded frames' ``ctx_kv``, then the FFN."""
+        sum reads the encoded frames' ``ctx_kv`` through ``cross`` (decode
+        passes :func:`attention.decode_cross_attention`, as the reference
+        does), then the FFN."""
         x, h = cls._add_norm(x, a, p["lnx"])
-        a = attn_mod.cross_attention(cfg, _sub(p, "xattn_"), h, ctx_kv)
+        a = cross(cfg, _sub(p, "xattn_"), h, ctx_kv)
         return cls._residual_ffn(cfg, p, x, a, valid)
 
     @classmethod
@@ -537,7 +534,7 @@ class DecBlock(_FfnBlock):
             self_state = _kv_from_seq(cfg, k, v, opts.s_max)
         a = attn_mod.attention(cfg, ap, h, causal=True)
         ctx_kv = attn_mod.make_ctx_kv(cfg, _sub(p, "xattn_"), ctx)
-        x = cls._cross_ffn(cfg, p, x, a, ctx_kv)
+        x = cls._cross_ffn(cfg, p, x, a, ctx_kv, attn_mod.cross_attention)
         state = None
         if opts.want_state:
             state = (self_state, tuple(t.contiguous() for t in ctx_kv))
@@ -553,7 +550,8 @@ class DecBlock(_FfnBlock):
         else:
             a = attn_mod.paged_attention(cfg, ap, h, self_cache, table, pos,
                                          valid=valid)
-        return cls._cross_ffn(cfg, p, x, a, ctx_kv)
+        return cls._cross_ffn(cfg, p, x, a, ctx_kv,
+                              attn_mod.decode_cross_attention)
 
     @classmethod
     def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table, ctx=None):
@@ -565,7 +563,8 @@ class DecBlock(_FfnBlock):
                                      table, pos0, valid=valid)
         ctx_kv = attn_mod.make_ctx_kv(cfg, _sub(p, "xattn_"), ctx)
         _keep_ctx_kv(ctx_state, ctx_kv)
-        return cls._cross_ffn(cfg, p, x, a, ctx_kv, valid)
+        return cls._cross_ffn(cfg, p, x, a, ctx_kv,
+                              attn_mod.cross_attention, valid)
 
     @classmethod
     def slot_spec(cls, cfg, n, batch, device):
@@ -634,7 +633,7 @@ def segment_decode(cfg, seg_params: list, x, states: list, pos,
         table = _block_table(block, tables)
         _, per_slot = block.paged_split(st)
         old = (None if per_slot is None or active is None
-               or not block.decode_writes_slot
+               or not block.contract.decode_writes_slot
                else state_map(torch.clone, per_slot))
         for i in range(n):
             x = block.decode(cfg, layer_params(p, i), x, _layer(st, i),

@@ -13,6 +13,11 @@ read the declarations instead of switching on kind strings.
                       encoder's kind, which runs inside ``lm.encode`` only)
 ``routed_experts``    the kind's FFN routes each token to ``cfg.top_k``
                       of ``cfg.n_experts`` experts
+``decode_writes_slot``
+                      decode writes the kind's per-slot state (False for
+                      a context's keys and values, which decode only
+                      reads: the decode step then copies nothing to keep
+                      inactive slots' rows)
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ class BlockContract:
     prefix_shareable: bool = False
     decodes: bool = True
     routed_experts: bool = False
+    decode_writes_slot: bool = True
 
     def __post_init__(self):
         if not self.kind:

@@ -93,15 +93,18 @@ def test_smoke_greedy_tokens_match_reference(arch, dtype):
 @pytest.mark.parametrize("kind", ["attn", "local", "rglru", "moe", "cross",
                                   "enc", "dec"])
 def test_contract_equals_the_references(kind):
-    """Every field of the port's contract is the reference's, and the port
-    declares every field the reference does; only the encoder's kind
-    does not decode."""
+    """Every field of the reference's contract is the port's, and the port
+    declares every field the reference does and one more,
+    ``decode_writes_slot``, False only for the kinds whose per-slot state
+    is a context's keys and values; only the encoder's kind does not
+    decode."""
     from repro.models import registry as jregistry
     t, j = registry.contract(kind), jregistry.contract(kind)
     assert {f.name for f in dataclasses.fields(t)} == \
-        {f.name for f in dataclasses.fields(j)}
-    for f in dataclasses.fields(t):
+        {f.name for f in dataclasses.fields(j)} | {"decode_writes_slot"}
+    for f in dataclasses.fields(j):
         assert getattr(t, f.name) == getattr(j, f.name), (kind, f.name)
+    assert t.decode_writes_slot == (kind not in ("cross", "dec"))
     assert t.decodes == (kind != "enc")
     assert t.routed_experts == (kind == "moe")
 

@@ -232,6 +232,42 @@ def test_block_chunk_and_paged_decode(kind, arch, seg, dtype):
         _hold(tst[0].v[1:1 + w], jst[0].v[1:1 + w], dtype, "pool v")
 
 
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("kind,arch,seg", [b for b in BLOCKS
+                                            if b[0] != "enc"])
+def test_block_decode_reads_the_context_one_slot_at_a_time(kind, arch, seg,
+                                                          paged,
+                                                          monkeypatch):
+    """A decode step, dense and paged, reaches the context through
+    ``decode_cross_attention`` (each slot alone, so a slot's bits do not
+    depend on the batch: hazard H2), as the reference's decode does, and
+    never through the batched ``cross_attention``, which prefill and
+    chunks use."""
+    _, _, cfg, tp = _setup(arch + "+xnor")
+    tpl = {k: v[0] for k, v in tp[seg].items()}
+    tb = blocks.registry.get(kind)
+    calls = []
+    for name in ("cross_attention", "decode_cross_attention"):
+        def counted(*a, _f=getattr(attn_mod, name), _n=name, **kw):
+            calls.append(_n)
+            return _f(*a, **kw)
+        monkeypatch.setattr(attn_mod, name, counted)
+    w, table = 3, None
+    if paged:
+        st = tb.paged_state_spec(cfg, 1, 2, 1 + 2 * w, 8, "cpu")
+        if tb.contract.paged_kv:
+            table = torch.arange(1, 1 + 2 * w, dtype=torch.int32
+                                 ).reshape(2, w)
+    else:
+        st = tb.state_spec(cfg, 1, 2, 16, "cpu")
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 1, cfg.d_model)).astype(np.float32))
+    y = tb.decode(cfg, tpl, x, blocks._layer(st, 0),
+                  torch.tensor([3, 5]), table)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    assert calls == ["decode_cross_attention"], calls
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("arch", [ENCDEC, ENCDEC + "+xnor"])
 def test_encode(arch, dtype):

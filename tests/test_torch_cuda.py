@@ -844,7 +844,8 @@ def test_cuda_paged_decode_ctx_archs(gpu, kv, g, dh, dtype, i8, tol, w, pos):
 @pytest.mark.parametrize("arch,dtype", [
     ("llama-3.2-vision-11b", torch.bfloat16),
     ("llama-3.2-vision-11b", torch.float32),
-    ("whisper-tiny", torch.bfloat16)])
+    ("whisper-tiny", torch.bfloat16),
+    ("whisper-tiny", torch.float32)])
 def test_cuda_cross_attention_rows_do_not_depend_on_the_batch(gpu, arch,
                                                               dtype):
     """A decode step's cross-attention at full width (llama-3.2-vision: 32
@@ -879,3 +880,52 @@ def test_cuda_cross_attention_rows_do_not_depend_on_the_batch(gpu, arch,
         out = attn_mod.decode_cross_attention(
             cfg, p, x[:b], tuple(t[:b] for t in ctx_kv))
         assert torch.equal(out, alone[:b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind,arch", [("cross", "llama-3.2-vision-11b"),
+                                       ("dec", "whisper-tiny")])
+def test_cuda_ctx_block_decode_rows_do_not_depend_on_the_batch(gpu, kind,
+                                                               arch, dtype):
+    """One layer of a context kind, binarized and packed at full width, in
+    the decode the engine runs on the card (``dec``: its self-attention
+    paged through the paged decode kernel, then cross-attention to the
+    slot's ``ctx_kv``; ``cross``: cross-attention alone), at 1 to 8
+    slots: each slot's output row is the same bits whatever the batch
+    (hazard H2 at the block, the session migration contract)."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.models import blocks, registry
+    from repro_torch.models import params as pdefs
+    cfg = dataclasses.replace(configs.get(arch + "+xnor"), dtype=dtype)
+    block = registry.get(kind)
+    defs = block.defs(cfg, 1)
+    g = torch.Generator(device=gpu)
+    g.manual_seed(cfg.d_model + 1)
+    p = blocks.layer_params(pdefs.pack(defs, pdefs.init(defs, g, gpu)), 0)
+    slots, bs, w = 8, 16, 2
+    state = block.paged_state_spec(cfg, 1, slots, 1 + slots * w, bs, gpu)
+    for leaf in blocks.state_leaves(state):
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=gpu))
+    start = [t.clone() for t in blocks.state_leaves(state)]
+    table = (torch.arange(slots * w, device=gpu, dtype=torch.int32)
+             .reshape(slots, w) + 1)
+    table = table if block.contract.paged_kv else None
+    pos = torch.tensor([5, 17, 30, 0, 9, 22, 13, 31], device=gpu)
+    x = torch.randn((slots, 1, cfg.d_model), generator=g,
+                    device=gpu).to(dtype)
+
+    def step(lo, hi):
+        for leaf, t in zip(blocks.state_leaves(state), start):
+            leaf.copy_(t)
+        shared, per_slot = block.paged_split(state)
+        st = block.paged_merge(shared, blocks.state_map(
+            lambda l: l[:, lo:hi], per_slot))
+        return block.decode(cfg, p, x[lo:hi], blocks._layer(st, 0),
+                            pos[lo:hi], None if table is None
+                            else table[lo:hi])
+    alone = torch.cat([step(j, j + 1) for j in range(slots)])
+    for b in range(2, slots + 1):
+        assert torch.equal(step(0, b), alone[:b]), b

@@ -1,8 +1,8 @@
-"""The slot-dense layout on Whisper at full precision (the frames encoded
+"""The slot-dense layout on Whisper, binarized and not (the frames encoded
 inside the exact-length prefill; no context kept resident, the decoder's
 ``ctx_kv`` per slot) against the reference's dense engine: greedy tokens
 identical on 8 traces in bf16, jitted (``test_torch_encdec_dense_f32.py``:
-f32, binarized)."""
+f32)."""
 
 import pytest
 
@@ -14,3 +14,10 @@ from test_torch_encdec_serve import ENCDEC
 @pytest.mark.parametrize("key", [7, 11])
 def test_bf16_dense_tokens_match_reference(params, key, trace_seed):
     check_tokens(params, ENCDEC, "bfloat16", key, trace_seed, paged=False)
+
+
+@pytest.mark.parametrize("trace_seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("key", [7, 11])
+def test_bf16_dense_binarized_tokens_match_reference(params, key, trace_seed):
+    check_tokens(params, ENCDEC + "+xnor", "bfloat16", key, trace_seed,
+                 paged=False)

@@ -1,5 +1,5 @@
-"""``test_torch_encdec_dense.py``'s token identity in f32, the arch
-binarized: the slot-dense engine on Whisper+xnor against the
+"""``test_torch_encdec_dense.py``'s token identity in f32, binarized and
+at full precision: the slot-dense engine on Whisper[+xnor] against the
 reference's on 8 traces."""
 
 import pytest
@@ -13,3 +13,10 @@ from test_torch_encdec_serve import ENCDEC
 def test_f32_dense_tokens_match_reference(params, key, trace_seed):
     check_tokens(params, ENCDEC + "+xnor", "float32", key, trace_seed,
                  paged=False)
+
+
+@pytest.mark.parametrize("trace_seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("key", [7, 11])
+def test_f32_dense_full_precision_tokens_match_reference(params, key,
+                                                         trace_seed):
+    check_tokens(params, ENCDEC, "float32", key, trace_seed, paged=False)

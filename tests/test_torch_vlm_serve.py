@@ -2,9 +2,10 @@
 per-request context of patch embeddings) against
 ``repro.serve.ServeEngine``: greedy tokens identical on 8 traces
 (parameter keys 7 and 11, trace seeds 0-3), each layout against the same
-layout of the reference (paged and binarized here, in bf16 jitted; f32 in
-``test_torch_vlm_serve_f32.py``; the slot-dense layout at full precision
-in ``test_torch_vlm_dense*.py``), with the scheduling counters the
+layout of the reference (paged here, in bf16 jitted; f32 in
+``test_torch_vlm_serve_f32.py``; the slot-dense layout in
+``test_torch_vlm_dense*.py``; every file binarized and at full
+precision), with the scheduling counters the
 reference reports.  Every request brings its own context and the
 shared-prefix half of the trace shares one, so prefix hits happen, keyed
 on the context as well as the tokens.
@@ -276,3 +277,10 @@ def test_bf16_paged_tokens_match_reference(params, key, trace_seed):
 
 def test_ctx_keys_the_prefix_cache(params):
     check_ctx_keys_the_prefix(params, VLM + "+xnor")
+
+
+@pytest.mark.parametrize("trace_seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("key", [7, 11])
+def test_bf16_paged_full_precision_tokens_match_reference(params, key,
+                                                          trace_seed):
+    check_tokens(params, VLM, "bfloat16", key, trace_seed)
