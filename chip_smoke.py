@@ -12,6 +12,9 @@
                                              # phase 3d alone
     python3 chip_smoke.py --vlm              # phase 2's context-arch
                                              # shapes and phase 3e alone
+    python3 chip_smoke.py --xlstm            # phase 2's xlstm-350m and
+                                             # xnor-cnn shapes, the xLSTM
+                                             # H2 probe and phase 3f alone
     python3 chip_smoke.py --slot-bits        # fault F4's probe: whether a
                                              # slot's bits hang on the batch
     python3 chip_smoke.py --paged-plans      # paged decode at W 2048, the
@@ -72,7 +75,13 @@ Phases (any failure raises and the script exits non-zero):
    paged decode at llama's
    (KV 8, G 4, dh 128) and whisper's (KV 6, G 1, dh 64) geometry over
    W 8 and W 2048 in bf16, f32 and int8, held and timed against its byte
-   bound, SDPA and the plain version.
+   bound, SDPA and the plain version.  xlstm-350m and xnor-cnn
+   (``xlstm_arch_kernels``): the fused linear at their shapes (the
+   sLSTM's K 1,344 = 42 words, xnor-cnn's K 64), M 4 and 32, bitwise in
+   the kernel's order, each timed at M 4; one xlstm decode step's 135
+   fused linears and one xnor-cnn step's 4 as CUDA graphs; hazard H2's
+   probe of the mLSTM's and sLSTM's decode at full width, 1 to 8 slots,
+   output rows and states bitwise against each slot alone (a gate).
 3. The serving slice: full-width, full-depth qwen2-7b+xnor in bf16, random
    weights from a seeded generator on the card, packed at load by the pack
    kernel, served by a 4-slot ServeEngine (s_max 128) over 8 requests of
@@ -141,6 +150,23 @@ Phases (any failure raises and the script exits non-zero):
    slots) = ``generate_static``; llama-vision's ``check_paths`` in bf16 at its
    limits with the control failing, and in f32 at full depth (a 39 GB
    tree).
+3f. xLSTM and the paper's classifier (``xlstm_serving``,
+   ``xnor_cnn_serving``): full-width, full-depth xlstm-350m+xnor (21
+   ``mlstm`` + 3 ``slstm`` layers, d 1024, the mLSTM's 4 x 512 x 512 f32
+   memory a slot a layer; no pool, so no prefix cache), packed at load,
+   a 4-slot ServeEngine (chunk 32, s_max 128) over phase 3's 8 requests:
+   every launch held (``LaunchHolds``), a 2-slot engine with the same
+   tokens, two unheld timed runs repeating them (tok/s, TTFT, peak
+   memory, 135 fused linears every decode step), a session migrated
+   mid-decode 4 -> 2 slots through an encrypted wire of its per-slot
+   state (84 MiB of f32 memory), held then unheld; in f32 dense = paged
+   on 8 prompts of one prefill chunk (the agreement on phase 3's trace,
+   whose prompts the two layouts chunk differently, printed).  Then
+   xnor-cnn (2 ``bindense`` layers, f32): 12 stripe images drawn on the
+   card with ``bcnn.synthetic_images``, each a one-token request with its
+   pixel bands as context: every launch held, the 2-slot engine's and
+   the plain path's classes equal to the 4-slot kernel path's, prefill
+   logits within 1e-4 of the plain path's.
 4. The integer chain at checkpoint scale: the same seeded 7.6 B-parameter
    bf16 tree (15.2 GB), leaf by leaf through one CimEngine — digest,
    encrypt, decrypt, verify_copy of the decrypted leaf against the
@@ -163,8 +189,8 @@ Phases (any failure raises and the script exits non-zero):
    does not call it, as in the reference); held against the one-shot
    plain version on 2 heads within one bf16 ulp, timed against SDPA.
 7. The checkpoint layer on the card through one CimEngine, over the bf16
-   qwen2-7b tree at full width, cut to 8 of its 28 layers (5.9 GB, to
-   keep the script near 450 s): an encrypted, write-verified
+   qwen2-7b tree at full width, cut to 4 of its 28 layers (4.1 GB, to
+   keep the script near 600 s): an encrypted, write-verified
    save; one leaf changed in place and a delta saved with a primed
    DigestCache (exactly that leaf stored); ``check`` of both steps; one
    byte of a member flipped inside a valid container (``check`` names
@@ -1684,7 +1710,8 @@ def recurrent_trace(vocab: int) -> list:
 
 def migrate(cfg, params, trace, want, geom, directory, gpu, rid=8,
             label="recurrent", expect=("torch.float32", "torch.bfloat16",
-                                       130), ctx_kv=None) -> None:
+                                       130), ctx_kv=None,
+            slot_leaves=None) -> None:
     """A migration mid-decode: request ``rid`` (phase 3c: request 8, 2,100
     prompt tokens) exported after 4 decoded tokens from a 4-slot engine,
     saved encrypted, restored against a 2-slot engine's spec and imported
@@ -1693,7 +1720,9 @@ def migrate(cfg, params, trace, want, geom, directory, gpu, rid=8,
     the kind has none) and its pool rows' width; ``ctx_kv`` the dtype and
     (T_ctx, KV, dh) of the cross layers' per-slot keys and values, which
     travel beside the request's raw context (None: the kind has none).
-    Prints the wire's leaves, its bytes and the ms from export to
+    ``slot_leaves``, where given, replaces both: the set of (dtype, shape
+    past the layer axis) of every per-slot leaf, on a wire with no pool
+    blocks.  Prints the wire's leaves, its bytes and the ms from export to
     import."""
     import torch
 
@@ -1719,24 +1748,32 @@ def migrate(cfg, params, trace, want, geom, directory, gpu, rid=8,
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     segs = wire["state"]["segs"]
-    rec = [x[1] for x in segs if x[1] is not None and hasattr(x[1][0], "h")]
-    kvs = [x[1] for x in segs if x[1] is not None
-           and not hasattr(x[1][0], "h")]
-    leaves = {"h": {str(x[0].h.dtype) for x in rec},
-              "conv": {str(x[1].dtype) for x in rec},
-              "ctx_kv": {(str(t.dtype), tuple(t.shape[2:])) for x in kvs
-                         for t in x},
-              "ring": {tuple(x[0].k.shape) for x in segs
-                       if x[0] is not None}}
-    h, conv, width = expect
-    assert leaves["h"] == ({h} if h else set()), leaves
-    assert leaves["conv"] == ({conv} if conv else set()), leaves
-    assert leaves["ctx_kv"] == ({ctx_kv} if ctx_kv else set()), leaves
+    ring = {tuple(x[0].k.shape) for x in segs if x[0] is not None}
+    if slot_leaves is not None:
+        from repro_torch.models.blocks import state_leaves
+        leaves = {"per_slot": {(str(t.dtype), tuple(t.shape[1:]))
+                               for x in segs for t in state_leaves(x[1])},
+                  "ring": ring}
+        assert leaves["per_slot"] == slot_leaves and not ring, leaves
+    else:
+        rec = [x[1] for x in segs
+               if x[1] is not None and hasattr(x[1][0], "h")]
+        kvs = [x[1] for x in segs if x[1] is not None
+               and not hasattr(x[1][0], "h")]
+        leaves = {"h": {str(x[0].h.dtype) for x in rec},
+                  "conv": {str(x[1].dtype) for x in rec},
+                  "ctx_kv": {(str(t.dtype), tuple(t.shape[2:])) for x in kvs
+                             for t in x},
+                  "ring": ring}
+        h, conv, width = expect
+        assert leaves["h"] == ({h} if h else set()), leaves
+        assert leaves["conv"] == ({conv} if conv else set()), leaves
+        assert leaves["ctx_kv"] == ({ctx_kv} if ctx_kv else set()), leaves
+        assert leaves["ring"] and all(shape[1] == width
+                                      for shape in leaves["ring"]), leaves
     req = long_.request
     assert ("ctx" in wire) == (req.ctx is not None) and (
         req.ctx is None or wire["ctx"].shape == req.ctx.shape), wire.keys()
-    assert leaves["ring"] and all(shape[1] == width
-                                  for shape in leaves["ring"]), leaves
     nbytes = sum(f.stat().st_size for f in directory.rglob("*")
                  if f.is_file())
     moved = b.run().tokens(rid).tolist()
@@ -2772,6 +2809,416 @@ def vlm_serving(gpu: str) -> dict:
     return launches
 
 
+# xlstm-350m's binarized linears at full width (N, K): the mLSTM's
+# up-projections 1024 -> 2048, q / k / v 2048 -> 2048, down 2048 -> 1024;
+# the sLSTM's gates 1024 -> 4096 and GLU 1024 -> 2688, 1344 -> 1024 (K 42
+# words); xnor-cnn's binary layers 64 -> 256 -> 64 (K 2 and 8 words)
+XLSTM_LINEARS = {"xlstm-350m": {"mlstm w_up/w_gate": (2048, 1024),
+                                "mlstm wq/wk/wv": (2048, 2048),
+                                "mlstm w_down": (1024, 2048),
+                                "slstm w_gates": (4096, 1024),
+                                "slstm w_up": (2688, 1024),
+                                "slstm w_down": (1024, 1344)},
+                 "xnor-cnn": {"w_up": (256, 64), "w_down": (64, 256)}}
+# one decode step's launches in layer order, by kind
+XLSTM_STEP = {"mlstm": ["mlstm w_up/w_gate", "mlstm w_up/w_gate",
+                        "mlstm wq/wk/wv", "mlstm wq/wk/wv", "mlstm wq/wk/wv",
+                        "mlstm w_down"],
+              "slstm": ["slstm w_gates", "slstm w_up", "slstm w_down"],
+              "bindense": ["w_up", "w_down"]}
+
+
+def xlstm_arch_kernels(gpu: str) -> dict:
+    """Phase 2 for xlstm-350m and xnor-cnn: the fused linear at each of
+    their shapes, M 4 and 32, f32 and bf16, bitwise in the kernel's order
+    and within 2e-5 / 2^-8 of the plain version; each shape at M 4 (bf16
+    for xlstm, f32 for xnor-cnn, their dtypes) timed against its byte
+    bound and the plain version; one decode step's fused linears of each
+    arch (xlstm: 6 a layer x 21 mLSTM + 3 x 3 sLSTM = 135; xnor-cnn: 2 x 2)
+    as one CUDA graph against the step's byte bound.  Then hazard H2's
+    probe of the two xLSTM blocks' decode (:func:`xlstm_batch_probe`).
+    -> the per-shape and per-step readings."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.core import xnor_layers
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import xnor_gemm as kxnor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 21)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def linear_bytes(m, n, k, kw, item):
+        return m * k * item + n * kw * 4 + n * 4 + m * n * item
+
+    out = {}
+    for arch, shapes in XLSTM_LINEARS.items():
+        dt_time = torch.float32 if arch == "xnor-cnn" else torch.bfloat16
+        item = 4 if dt_time == torch.float32 else 2
+        row = {}
+        for name, (n, k) in shapes.items():
+            pb, beta = xnor_layers.pack_weights(randn(n, k, dtype=dt_time))
+            for m in (4, 32):
+                for dt in (torch.float32, torch.bfloat16):
+                    x = randn(m, k, dtype=dt)
+                    kk = kxnor.xnor_linear_fused(x, pb, beta, k)
+                    with cuda.plain_reference():
+                        pp = kxnor.xnor_linear_fused(x, pb, beta, k)
+                    assert torch.equal(kk, kxnor.linear_kernel_order(
+                        x, pb, beta, k)), f"{arch} {name} M={m} {dt}"
+                    f32 = dt == torch.float32
+                    torch.testing.assert_close(
+                        kk, pp, rtol=2e-5 if f32 else 2 ** -8,
+                        atol=2e-5 if f32 else 1e-6)
+            kw = pb.shape[1]
+            nbytes = linear_bytes(4, n, k, kw, item)
+            sets = copies(lambda: (
+                randn(4, k, dtype=dt_time),
+                *xnor_layers.pack_weights(randn(n, k, dtype=dt_time)), k),
+                nbytes)
+            ms = time_ms(kxnor.xnor_linear_fused, sets, 50)
+            b_ms, b_by = bound(nbytes, 2 * 4 * n * k, "int8")
+            plain = plain_step_ms(kxnor.xnor_linear_fused, sets[:2]) / 2
+            row[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                             bound_by=b_by)
+            del sets
+        print(f"[xnor_linear_fused {arch}] held bitwise in the kernel's "
+              f"order at {list(shapes.values())} (N, K), M 4 and 32, f32 "
+              f"and bf16; M 4 {str(dt_time)[6:]} timings {json.dumps(row)}"
+              f"  [{gpu}]")
+        out[arch] = row
+        torch.cuda.empty_cache()
+
+        # one decode step's fused linears, each layer its own weights
+        cfg = configs.get(arch)
+        calls, nbytes = [], 0
+        for kind in cfg.layer_kinds():
+            for name in XLSTM_STEP[kind]:
+                n, k = shapes[name]
+                pb, beta = xnor_layers.pack_weights(randn(n, k,
+                                                          dtype=dt_time))
+                calls.append((randn(4, k, dtype=dt_time), pb, beta, k))
+                nbytes += linear_bytes(4, n, k, pb.shape[1], item)
+        step = time_ms(kxnor.xnor_linear_fused, calls, len(calls),
+                       5) * len(calls)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        plain = plain_step_ms(kxnor.xnor_linear_fused, calls)
+        print(f"[xnor_linear_fused {arch} decode step] {len(calls)} "
+              f"launches (M = 4, {str(dt_time)[6:]}) in one CUDA graph: "
+              f"{step} ms, bound {b_ms} ms ({nbytes} bytes; {step / b_ms} "
+              f"x); the plain version {plain} ms  [{gpu}]")
+        out[arch + " step"] = dict(launches=len(calls), ms=step,
+                                   bound_ms=b_ms, plain_ms=plain)
+        del calls
+        torch.cuda.empty_cache()
+    xlstm_batch_probe(gpu)
+    return out
+
+
+def xlstm_batch_probe(gpu: str) -> None:
+    """Hazard H2 at decode for the xLSTM kinds: one mLSTM and one sLSTM
+    layer of xlstm-350m+xnor at full width, packed, bf16 and f32, decoding
+    8 slots from a random per-slot state (the mLSTM's 4 MiB memory a slot
+    among it).  For 1 to 8 slots, each slot's output row and its new
+    state must be the bits it gets decoding alone: the reductions over a
+    step's rows (the mLSTM's C q and |n q|, the f32 ``w_if`` product, the
+    sLSTM's recurrent product, RMSNorm) go through ``layers.row_sum``.
+    Prints the elements that differ by slot count (all must be 0)."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.models import blocks, registry
+    from repro_torch.models import params as pdefs
+
+    dev = torch.device("cuda")
+    for kind in ("mlstm", "slstm"):
+        for dt in (torch.bfloat16, torch.float32):
+            cfg = dataclasses.replace(configs.get("xlstm-350m+xnor"),
+                                      dtype=dt)
+            block = registry.get(kind)
+            defs = block.defs(cfg, 1)
+            g = torch.Generator(device=dev)
+            g.manual_seed(SEED + 22)
+            p = blocks.layer_params(pdefs.pack(defs, pdefs.init(defs, g,
+                                                                dev)), 0)
+            state = block.state_spec(cfg, 1, 8, 0, dev)
+            for leaf in blocks.state_leaves(state):
+                leaf.copy_(torch.randn(leaf.shape, generator=g,
+                                       device=dev).to(leaf.dtype))
+            start = [t.clone() for t in blocks.state_leaves(state)]
+            x = torch.randn((8, 1, cfg.d_model), generator=g,
+                            device=dev).to(dt)
+
+            def step(lo, hi):
+                for leaf, t in zip(blocks.state_leaves(state), start):
+                    leaf.copy_(t)
+                st = blocks.state_map(lambda l: l[:, lo:hi], state)
+                y = block.decode(cfg, p, x[lo:hi], blocks._layer(st, 0),
+                                 None, None)
+                return [y] + [l[0, lo:hi].clone()
+                              for l in blocks.state_leaves(state)]
+            alone = [torch.cat(t) for t in zip(*(step(j, j + 1)
+                                                for j in range(8)))]
+            differ = {}
+            for b in range(2, 9):
+                got = step(0, b)
+                differ[b] = sum(int((a != w[:b]).sum())
+                                for a, w in zip(got, alone))
+            print(f"[{kind} {str(dt)[6:]} H2] decode output and state "
+                  f"elements differing from each slot alone, by slots: "
+                  f"{differ}  [{gpu}]")
+            assert not any(differ.values()), (kind, dt, differ)
+            del p, state, start
+    torch.cuda.empty_cache()
+
+
+def xlstm_serving(gpu: str) -> dict:
+    """Phase 3f, xlstm-350m+xnor at full width and depth (24 layers, 21
+    ``mlstm`` and 3 ``slstm``: d 1024, 4 heads, the mLSTM's memory 4 x 512
+    x 512 f32 a slot a layer; vocab 50,304), bf16 weights from a seeded
+    generator on the card, packed at load, served by a 4-slot ServeEngine
+    (chunk 32, s_max 128) over phase 3's 8 requests.  No table class, so
+    no pool: the per-slot state is the whole decode state, and prefix
+    caching is off.
+
+    Gates: pack and the fused linear launched on the main path, every
+    launch of the held run held against its plain version at every shape
+    (:class:`LaunchHolds`); a 2-slot engine with the same tokens; an
+    unheld timed run repeating them (tok/s, TTFT, peak memory, 135 fused
+    linears every decode step); a session migrated mid-decode 4 -> 2
+    slots through an encrypted wire carrying its per-slot state (its
+    bytes printed), held then unheld; in f32, the dense layout's tokens
+    equal to the paged one's on 8 prompts of one prefill chunk, where both
+    layouts chunk the mLSTM alike (on phase 3's trace, chunked otherwise,
+    the agreement is printed).  -> launch counts of the two kernels."""
+    import gc
+    import shutil
+    import statistics
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine, synthetic_trace
+
+    cfg = configs.get("xlstm-350m+xnor")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.proj_factor,
+            cfg.mlstm_chunk, cfg.conv_width, cfg.vocab, cfg.dtype) == (
+        24, 1024, 4, 2.0, 64, 4, 50304, torch.bfloat16)
+    assert [k for k, _ in cfg.segments()] == ["mlstm", "slstm"] * 3
+    trace = slice_trace(cfg.vocab)
+    rids = [r.rid for r in trace]
+    geom = dict(slots=4, s_max=128, prefill_chunk=32)
+    directory = ROOT / "experiments" / "chip_smoke_xlstm"
+    shutil.rmtree(directory, ignore_errors=True)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def serve(eng, requests=trace):
+        for r in requests:
+            eng.submit(r)
+        rep = eng.run()
+        torch.cuda.synchronize()
+        assert all(s.done for s in rep.sessions.values())
+        return rep
+
+    def tokens(rep):
+        return {rid: rep.tokens(rid).tolist() for rid in rids}
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[xlstm] init {cfg.name}: {lm.pdefs.count(lm.param_defs(cfg))} "
+          f"params, {torch.cuda.memory_allocated() / 2**30} GiB on the "
+          f"card, in {time.perf_counter() - t0} s")
+    with LaunchHolds() as holds:
+        kernels = [holds.orig[n] for n in ("pack", "xnor_linear_fused")]
+        holds.active = True
+        for f in kernels:
+            f.launches = 0
+        eng = ServeEngine(cfg, params, device="cuda", **geom)
+        assert eng.blocks is None and not eng.prefix_caching, \
+            "xlstm has no pool and no prefix cache"
+        assert eng._widths == {}, eng._widths
+        held = serve(eng)
+        launches = {f.__name__: f.launches for f in kernels}
+        want = tokens(held)
+        for s in held.sessions.values():
+            assert len(s.tokens) == s.request.max_new_tokens
+            assert all(0 <= t < cfg.vocab for t in s.tokens)
+        for name, n in launches.items():
+            assert n > 0, f"kernel {name} never launched on the main path"
+        print(f"[xlstm] main-path launches (held run) {launches}  [{gpu}]")
+        del eng
+        free()
+        two = tokens(serve(ServeEngine(cfg, params, device="cuda",
+                                       **dict(geom, slots=2))))
+        print(f"[xlstm] held: the 2-slot engine's tokens as the 4-slot "
+              f"one's on {sum(two[r] == want[r] for r in rids)}/8  [{gpu}]")
+        assert two == want, "the 2-slot engine's tokens differ"
+        free()
+
+        # the unheld timed runs (two, for a spread), launches read around
+        # every decode step
+        with holds.off():
+            runs = []
+            for _ in range(2):
+                torch.cuda.reset_peak_memory_stats()
+                eng = ServeEngine(cfg, params, device="cuda", **geom)
+                counts, decode_once = [], eng._decode_once
+
+                def counted(decode_once=decode_once, counts=counts):
+                    before = kernels[1].launches
+                    decode_once()
+                    counts.append(kernels[1].launches - before)
+                eng._decode_once = counted
+                rep = serve(eng)
+                peak = torch.cuda.max_memory_allocated()
+                del eng
+                assert tokens(rep) == want, "the unheld run's tokens differ"
+                runs.append(rep.tok_per_s)
+                assert counts and all(c == 135 for c in counts), counts
+        ttft = rep.ttft_quantiles((0.5, 0.95))
+        st = rep.stats
+        print(f"[xlstm] unheld runs: {rep.generated} tokens, tok/s {runs} "
+              f"(median {statistics.median(runs)}); TTFT p50 "
+              f"{ttft[0.5] * 1e3} ms p95 {ttft[0.95] * 1e3} ms; "
+              f"{st.prefill_chunks} prefill chunks, {st.decode_steps} decode "
+              f"steps; peak device memory {peak / 2**30} GiB; 135 fused "
+              f"linears every decode step; tokens as the held run's: True  "
+              f"[{gpu}]")
+
+        # a session migrated mid-decode 4 -> 2 slots through an encrypted
+        # wire of its per-slot state alone (no pool); held, then unheld
+        di, nh = int(cfg.proj_factor * cfg.d_model), cfg.n_heads
+        dh = di // nh
+        slot_leaves = {("torch.float32", (1, nh, dh, dh)),
+                       ("torch.float32", (1, nh, dh)),
+                       ("torch.float32", (1, nh)),
+                       ("torch.bfloat16", (1, cfg.conv_width - 1, di)),
+                       ("torch.float32", (1, cfg.d_model))}
+        mig = dict(rid=0, label="xlstm", slot_leaves=slot_leaves)
+        migrate(cfg, params, trace, want, geom, directory / "held", gpu,
+                **mig)
+        with holds.off():
+            migrate(cfg, params, trace, want, geom, directory / "unheld",
+                    gpu, **mig)
+        free()
+    holds.check(gpu, "xlstm")
+    shutil.rmtree(directory, ignore_errors=True)
+    del params
+    free()
+
+    # f32: the slot-dense layout (the whole prompt in one prefill, the
+    # mLSTM in chunks of min(64, S)) against the paged one (prefill chunks
+    # of 32).  On 8 prompts of exactly one prefill chunk both run the same
+    # chunked form, so the tokens must be equal; on phase 3's trace (8-64
+    # tokens) the chunkings differ, and the f32 sums with them: printed
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = lm.init_params(cfg32, SEED, device="cuda")
+    f32 = dict(slots=4, s_max=128, device="cuda")
+    one = synthetic_trace(8, cfg.vocab, seed=SEED + 1, prompt_lens=(32,),
+                          new_tokens=(8, 12, 16))
+    agree = {}
+    for label, reqs in (("one", one), ("phase3", trace)):
+        paged, dense = ({r.rid: rep.tokens(r.rid).tolist() for r in reqs}
+                        for rep in (serve(ServeEngine(cfg32, params32, **f32),
+                                          reqs),
+                                    serve(ServeEngine(cfg32, params32,
+                                                      paged=False, **f32),
+                                          reqs)))
+        agree[label] = (sum(dense[r.rid] == paged[r.rid] for r in reqs),
+                        dense == paged)
+    print(f"[xlstm] f32 greedy, dense = paged: on 8 one-chunk (32-token) "
+          f"prompts {agree['one'][0]}/8; on phase 3's trace, chunked "
+          f"differently, {agree['phase3'][0]}/8  [{gpu}]")
+    assert agree["one"][1], \
+        "f32: the dense layout's tokens differ on one-chunk prompts"
+    del params32
+    free()
+    return launches
+
+
+def xnor_cnn_serving(gpu: str) -> dict:
+    """Phase 3f, the paper's classifier served as an arch: xnor-cnn (2
+    ``bindense`` layers, d 64, d_ff 256, f32; nothing to cut), weights from
+    a seeded generator on the card, packed at load.  12 classification
+    requests built with the port's ``bcnn.synthetic_images`` (drawn on the
+    card) and ``bcnn.image_ctx``: one ``QUERY_TOKEN`` prompt, the image's
+    four 64-pixel bands as the context, 1 new token.  Gates: pack and the
+    fused linear launched on the main path and every launch held; a
+    2-slot engine with the 4-slot one's classes; the same engine run on
+    the plain path (``cuda.plain_reference``) with the same classes, and
+    the prefill logits of all 12 images within 1e-4 of the plain path's.
+    -> launch counts of the two kernels."""
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.core import prng
+    from repro_torch.kernels import cuda
+    from repro_torch.models import bcnn, lm
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = configs.get("xnor-cnn")
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_ctx_tokens,
+            cfg.vocab, cfg.quant, cfg.dtype) == (2, 64, 256, 4, 4, "xnor",
+                                                 torch.float32)
+    images, labels = bcnn.synthetic_images(prng.PRNGKey(SEED,
+                                                        device="cuda"), 12)
+    assert images.is_cuda and images.shape == (12, 16, 16)
+    ctx = bcnn.image_ctx(cfg, images)
+    prompt = np.array([bcnn.QUERY_TOKEN], np.int32)
+    trace = [Request(i, prompt, 1, ctx=ctx[i]) for i in range(12)]
+    params = lm.init_params(cfg, SEED, device="cuda")
+
+    def classes(slots):
+        eng = ServeEngine(cfg, params, slots=slots, s_max=8, device="cuda")
+        for r in trace:
+            eng.submit(r)
+        rep = eng.run()
+        return [rep.tokens(i).tolist() for i in range(12)]
+
+    with LaunchHolds() as holds:
+        kernels = [holds.orig[n] for n in ("pack", "xnor_linear_fused")]
+        holds.active = True
+        for f in kernels:
+            f.launches = 0
+        four = classes(4)
+        launches = {f.__name__: f.launches for f in kernels}
+        for name, n in launches.items():
+            assert n > 0, f"kernel {name} never launched on the main path"
+        two = classes(2)
+    holds.check(gpu, "xnor-cnn")
+    with cuda.plain_reference():
+        plain = classes(4)
+    toks = torch.full((12, 1), bcnn.QUERY_TOKEN, dtype=torch.int64,
+                      device="cuda")
+    pparams = lm.pack_params(cfg, params)
+    kl, _ = lm.prefill(cfg, pparams, toks, 8, ctx=torch.from_numpy(ctx)
+                       .cuda())
+    with cuda.plain_reference():
+        pl, _ = lm.prefill(cfg, pparams, toks, 8,
+                           ctx=torch.from_numpy(ctx).cuda())
+    err = float((kl - pl).abs().max())
+    print(f"[xnor-cnn] main-path launches {launches}; classes of 12 images "
+          f"(labels {labels.tolist()}): {[t[0] for t in four]}; the 2-slot "
+          f"engine's as the 4-slot one's: {two == four}; the plain path's: "
+          f"{plain == four}; prefill logits max |kernel - plain| {err}  "
+          f"[{gpu}]")
+    assert all(len(t) == 1 and 0 <= t[0] < cfg.vocab for t in four)
+    assert two == four, "xnor-cnn: the 2-slot engine's classes differ"
+    assert plain == four, "xnor-cnn: the plain path's classes differ"
+    assert err <= 1e-4, err
+    return launches
+
+
 def popcount_bits(a, b) -> int:
     """Number of bits in which two int32 tensors differ."""
     import numpy as np
@@ -3225,7 +3672,7 @@ def flip_member_byte(npz: Path, member: str, index: int) -> None:
 
 def checkpoint_layer(gpu: str) -> dict:
     """Phase 7: save, delta, check, tamper, restore and restore_packed of
-    the bf16 qwen2-7b tree (full width, 8 of its 28 layers) through one
+    the bf16 qwen2-7b tree (full width, 4 of its 28 layers) through one
     CimEngine on the card."""
     import shutil
 
@@ -3242,10 +3689,10 @@ def checkpoint_layer(gpu: str) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine, synthetic_trace
 
-    # the tree at full width, its depth cut from 28 layers to 8 (5.9 GB)
-    # to keep the script near 450 s with phases 3c and 3d; phase 4 still
-    # streams the full 15.2 GB tree
-    cfg = dataclasses.replace(configs.get("qwen2-7b+xnor"), n_layers=8)
+    # the tree at full width, its depth cut from 28 layers to 4 (4.1 GB;
+    # 8 and 5.9 GB until phase 3f joined) to keep the script near 600 s;
+    # phase 4 still streams the full 15.2 GB tree
+    cfg = dataclasses.replace(configs.get("qwen2-7b+xnor"), n_layers=4)
     directory = ROOT / "experiments" / "chip_smoke_ckpt"
     shutil.rmtree(directory, ignore_errors=True)
     params = lm.init_params(cfg, SEED, device="cuda")
@@ -3895,6 +4342,13 @@ def main() -> int:
               f"llama-3.2-vision {vlm_serving(gpu)} "
               f"({time.perf_counter() - t} s)")
         return 0
+    if sys.argv[1:] == ["--xlstm"]:
+        xlstm_arch_kernels(gpu)
+        t = time.perf_counter()
+        print(f"[xlstm] phase 3f launches: xlstm-350m {xlstm_serving(gpu)}, "
+              f"xnor-cnn {xnor_cnn_serving(gpu)} "
+              f"({time.perf_counter() - t} s)")
+        return 0
     if sys.argv[1:] == ["--moe"]:
         moe_arch_kernels(gpu)
         t = time.perf_counter()
@@ -3913,6 +4367,7 @@ def main() -> int:
     timed(other_arch_kernels, gpu)
     timed(moe_arch_kernels, gpu)
     timed(vlm_arch_kernels, gpu)
+    timed(xlstm_arch_kernels, gpu)
     rec.update(timed(integer_kernel_checks, gpu, LINEAR_SHAPES))
     rec.update(timed(flash_checks, gpu))
     launches = timed(serve_slice, gpu)
@@ -3922,12 +4377,14 @@ def main() -> int:
     timed(llama4_serving, gpu)
     whisper = timed(whisper_serving, gpu)      # phase 3e
     vlm = timed(vlm_serving, gpu)
+    xlstm = timed(xlstm_serving, gpu)          # phase 3f
+    cnn = timed(xnor_cnn_serving, gpu)
     launches.update(timed(integer_chain, gpu))
     launches["xnor_gemm"] = timed(binary_layers, gpu,
                                   LINEAR_SHAPES)["xnor_gemm"]
     launches.update(timed(long_context, gpu))
-    for path in (tier, recurrent, moe, whisper, vlm):  # the path that runs
-        # each kernel most
+    # each kernel's launches: the path that runs it most
+    for path in (tier, recurrent, moe, whisper, vlm, xlstm, cnn):
         for name, n in path.items():
             launches[name] = max(launches[name], n)
     timed(checkpoint_layer, gpu)

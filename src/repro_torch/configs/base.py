@@ -50,8 +50,10 @@ class ArchConfig:
                                    # embeddings or encoder frames)
     encoder_layers: int = 0        # > 0: enc-dec; the encoder runs "enc"
 
-    # recurrent blocks (RG-LRU)
+    # recurrent blocks (xLSTM, RG-LRU)
     conv_width: int = 4            # causal depthwise conv1d taps
+    mlstm_chunk: int = 64          # chunkwise-parallel mLSTM chunk length
+    proj_factor: float = 2.0       # xLSTM mLSTM up-projection
     rglru_c: float = 8.0           # Griffin's fixed decay sharpness
 
     # the paper's technique: binary (XNOR-Net) projections
@@ -120,6 +122,7 @@ class ArchConfig:
             d_ff=128,
             vocab=256,
             local_window=32,
+            mlstm_chunk=8,
             block_size=8,
             prefill_chunk=8,
             name=self.name + "-smoke",

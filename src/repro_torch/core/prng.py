@@ -13,14 +13,18 @@ tokens needs its exact random bits, so this module follows
   ``(i >> 32, i & M)`` and returns the XOR of the two output words;
 * ``uniform`` ORs the top 23 bits into the mantissa of 1.0, subtracts 1,
   scales to ``[minval, maxval)`` and takes ``max`` with ``minval``;
-* ``gumbel`` is ``-log(-log(uniform(tiny, 1)))`` (the "low" mode).
+* ``gumbel`` is ``-log(-log(uniform(tiny, 1)))`` (the "low" mode);
+* ``bernoulli`` is ``uniform < p`` (the "low" mode);
+* ``normal`` is ``sqrt(2) erfinv(uniform(nextafter(-1, 0), 1))``, with
+  XLA's f32 ``erf_inv`` (M. Giles' polynomials) written out.
 
 uint32 arithmetic runs in int64 tensors masked to 32 bits, on whatever
 device the key lies on (CUDA has few uint32 ops): plain tensor ops, no
 kernel.  A key is an int64 tensor of shape ``(..., 2)`` holding the two
 words; leading axes batch independent keys (the engine's per-row keys).
-``gumbel``'s ``log`` is torch's, which may differ from XLA's in the last
-bit; the bits and uniforms are exact.
+``gumbel``'s ``log`` and ``normal``'s ``log1p`` are torch's, which may
+differ from XLA's in the last bit; the bits, uniforms and Bernoulli draws
+are exact.
 """
 
 from __future__ import annotations
@@ -119,3 +123,41 @@ def randint(key: torch.Tensor, minval: int, maxval: int) -> int:
     mult = ((2 ** 16 % span) ** 2 & MASK) % span
     off = (((hi % span) * mult & MASK) + lo % span) & MASK
     return minval + off % span
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli`` (f32 ``p``, "low" mode): bool draws."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+
+
+# XLA's f32 erf_inv: M. Giles, "Approximating the erfinv function" (2010),
+# the polynomial in w = -log(1 - x^2) for w < 5 and in sqrt(w) - 3 past it
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv``, step for step: Horner in f32, +-inf at
+    +-1."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = coef(i) + p * w
+    return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal`` in float32."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.tensor(2 ** 0.5, dtype=torch.float32) * erf_inv(u)

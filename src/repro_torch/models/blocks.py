@@ -13,6 +13,10 @@ Ported kinds:
   enc    bidirectional self-attention + FFN (Whisper's encoder)
   dec    self-attention + cross-attention to the encoded frames + FFN
          (Whisper's decoder)
+  mlstm  xLSTM's mLSTM block (own up / down projections, no FFN)
+  slstm  xLSTM's sLSTM block (a GLU projection as its FFN)
+
+``bindense`` (the paper's XNOR-CNN) registers from :mod:`models.bcnn`.
 
 Every kind implements:
   defs(cfg, n)                                stacked ParamDefs
@@ -122,6 +126,21 @@ def _stack(trees: list):
 def _layer(tree, i: int):
     """Layer ``i`` of a layer-stacked tree (views)."""
     return state_map(lambda l: l[i], tree)
+
+
+def _copy_state(dst, src) -> None:
+    """Write a state tree's new values into the resident one, in place."""
+    for leaf, t in zip(state_leaves(dst), state_leaves(src)):
+        leaf.copy_(t)
+
+
+def _conv_buf(u: torch.Tensor, w1: int, dtype) -> torch.Tensor:
+    """The conv carry after a full prompt: its last ``w1`` inputs, the
+    zeros before the sequence filling in for a prompt shorter than that."""
+    buf = u[:, -w1:]
+    if buf.shape[1] < w1:
+        buf = torch.nn.functional.pad(buf, (0, 0, w1 - buf.shape[1], 0))
+    return buf.to(dtype).contiguous()
 
 
 class PagedLayout:
@@ -383,12 +402,7 @@ class RglruBlock(_FfnBlock):
                                                         cfg.quant))
         state = None
         if opts.want_state:
-            w1 = cfg.conv_width - 1
-            buf = u[:, -w1:]
-            if buf.shape[1] < w1:          # a prompt shorter than the taps
-                buf = torch.nn.functional.pad(buf,
-                                              (0, 0, w1 - buf.shape[1], 0))
-            state = (st, buf.to(cfg.dtype).contiguous())
+            state = (st, _conv_buf(u, cfg.conv_width - 1, cfg.dtype))
         return x, state
 
     @classmethod
@@ -429,6 +443,196 @@ class RglruBlock(_FfnBlock):
                                            device=device)),
                 torch.zeros((n, batch, w1, d), dtype=cfg.dtype,
                             device=device))
+
+
+@register
+class MlstmBlock(PagedLayout):
+    """xLSTM's mLSTM block: up-projections u and z, a causal conv and SiLU
+    on u, q / k from the conv's output and v from u, the matrix-memory
+    cell (input and forget gates from the f32 ``w_if`` product), the
+    cell's output normed by ``out_norm`` and gated by silu(z), projected
+    down.  No FFN.  The state is per slot: ``(MLSTMState(c (B, NH, dh,
+    dh), n (B, NH, dh), m (B, NH)), conv buffer (B, W-1, di) in
+    cfg.dtype)``, the memory f32."""
+    contract = BlockContract("mlstm", per_slot_state=True)
+
+    @classmethod
+    def _di(cls, cfg) -> int:
+        return int(cfg.proj_factor * cfg.d_model)
+
+    @classmethod
+    def defs(cls, cfg, n):
+        d, di, nh = cfg.d_model, cls._di(cfg), cfg.n_heads
+
+        def lin(k, m):
+            return ParamDef((n, k, m), cfg.dtype, binarize=True)
+        return {
+            "ln1": _norm_def(cfg, n),
+            "w_up": lin(d, di), "w_gate": lin(d, di),
+            "conv_k": ParamDef((n, cfg.conv_width, di), torch.float32,
+                               scale=0.5),
+            "wq": lin(di, di), "wk": lin(di, di), "wv": lin(di, di),
+            "w_if": ParamDef((n, di, 2 * nh), torch.float32),
+            "b_if": ParamDef((n, 2 * nh), torch.float32, init="zeros"),
+            "out_norm": ParamDef((n, di), torch.float32, init="ones"),
+            "w_down": lin(di, d),
+        }
+
+    @classmethod
+    def _up(cls, cfg, p, x):
+        h = layers.rms_norm(x, p["ln1"])
+        return (layers.linear(h, p["w_up"], cfg.quant),
+                layers.linear(h, p["w_gate"], cfg.quant))
+
+    @classmethod
+    def _qkvif(cls, cfg, p, u, uc_in):
+        """q, k (scaled by dh^-1/2 rounded to cfg.dtype), v (B, S, NH, dh)
+        and the raw input and forget gates (B, S, NH), f32, from the conv's
+        output ``uc_in`` (before its SiLU).  The ``w_if`` product reads
+        the SiLU's last product unrounded, as the jitted reference does
+        where an f32 cast follows it."""
+        nh = cfg.n_heads
+        dh = cls._di(cfg) // nh
+        b, s = u.shape[:2]
+        uc = layers.silu(uc_in)
+        scale = torch.tensor(dh ** -0.5).to(u.dtype)
+        q = layers.linear(uc, p["wq"], cfg.quant).reshape(b, s, nh, dh)
+        k = layers.linear(uc, p["wk"], cfg.quant).reshape(b, s, nh, dh) \
+            * scale
+        v = layers.linear(u, p["wv"], cfg.quant).reshape(b, s, nh, dh)
+        gif = ssm.rows_matmul(layers.silu(uc_in, f32=True),
+                              p["w_if"]) + p["b_if"]
+        return q, k, v, gif[..., :nh], gif[..., nh:]
+
+    @classmethod
+    def _down(cls, cfg, p, x, hseq, z):
+        """The cell's output (B, S, NH, dh) f32, normed, gated by silu(z)
+        and projected down, joins the residual."""
+        b, s = x.shape[:2]
+        hseq = hseq.reshape(b, s, cls._di(cfg)).to(x.dtype)
+        hseq = layers.rms_norm(hseq, p["out_norm"]) * layers.silu(z)
+        return x + layers.linear(hseq, p["w_down"], cfg.quant)
+
+    @classmethod
+    def fwd(cls, cfg, p, x, opts: FwdOpts, ctx=None):
+        b, s, _ = x.shape
+        u, z = cls._up(cfg, p, x)
+        uc = ssm.conv1d(u, p["conv_k"]).to(u.dtype)
+        q, k, v, ig, fg = cls._qkvif(cfg, p, u, uc)
+        nh = cfg.n_heads
+        st0 = ssm.MLSTMState.zeros(b, nh, cls._di(cfg) // nh, x.device)
+        hseq, st = ssm.mlstm_chunkwise(q, k, v, ig, fg, st0,
+                                       min(cfg.mlstm_chunk, s))
+        x = cls._down(cfg, p, x, hseq, z)
+        state = None
+        if opts.want_state:
+            state = (st, _conv_buf(u, cfg.conv_width - 1, cfg.dtype))
+        return x, state
+
+    @classmethod
+    def decode(cls, cfg, p, x, state, pos, table, valid=None, ctx=None):
+        """One token per slot; the state is written in place (the caller
+        freezes inactive slots)."""
+        st, buf = state
+        u, z = cls._up(cfg, p, x)
+        uc, buf_new = ssm.conv1d_step(buf, u, p["conv_k"])
+        # the step's einsum leaves the rows strided (d-major); a reduction
+        # over a strided row orders its sum by the batch (hazard H2)
+        q, k, v, ig, fg = cls._qkvif(cfg, p, u, uc.contiguous())
+        h, st_new = ssm.mlstm_step(st, q[:, 0], k[:, 0], v[:, 0], ig[:, 0],
+                                   fg[:, 0])
+        x = cls._down(cfg, p, x, h[:, None], z)
+        _copy_state(st, st_new)
+        buf.copy_(buf_new)
+        return x
+
+    @classmethod
+    def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table, ctx=None):
+        """One chunked-prefill piece; padding positions get state-neutral
+        gates (i = -1e30: nothing inserted; f = +1e30: no decay), so the
+        carried state is the unpadded one."""
+        st, buf = state
+        u, z = cls._up(cfg, p, x)
+        uc = ssm.conv1d_carry(buf, u, p["conv_k"]).to(u.dtype)
+        q, k, v, ig, fg = cls._qkvif(cfg, p, u, uc)
+        keep = valid[..., None]
+        ig = torch.where(keep, ig, -1e30)
+        fg = torch.where(keep, fg, 1e30)
+        hseq, st_new = ssm.mlstm_chunkwise(q, k, v, ig, fg, st,
+                                           min(cfg.mlstm_chunk, x.shape[1]))
+        x = cls._down(cfg, p, x, hseq, z)
+        _copy_state(st, st_new)
+        buf.copy_(ssm.conv1d_carry_out(buf, u, n_valid))
+        return x
+
+    @classmethod
+    def state_spec(cls, cfg, n, batch, s_max, device):
+        di, nh = cls._di(cfg), cfg.n_heads
+        return (ssm.MLSTMState.zeros(batch, nh, di // nh, device, (n,)),
+                torch.zeros((n, batch, cfg.conv_width - 1, di),
+                            dtype=cfg.dtype, device=device))
+
+
+@register
+class SlstmBlock(_FfnBlock):
+    """xLSTM's sLSTM block: the four gates' input preactivations from
+    ``w_gates``, the scalar-memory cell with its block-diagonal recurrent
+    ``r_kernel`` (run one token at a time), then a GLU projection
+    ``a * gelu(g)`` of width ``int(4 d / 3 / 64) * 64`` as the block's
+    FFN.  The state is per slot: ``SLSTMState(c, n, m, h)``, each (B, d)
+    f32."""
+    contract = BlockContract("slstm", per_slot_state=True)
+
+    @classmethod
+    def defs(cls, cfg, n):
+        d, nh = cfg.d_model, cfg.n_heads
+        dh = d // nh
+        dff = int(4 * d / 3 / 64) * 64 * 2      # GLU up width (4/3 factor)
+        return {
+            "ln1": _norm_def(cfg, n),
+            "w_gates": ParamDef((n, d, 4 * d), cfg.dtype, binarize=True),
+            "r_kernel": ParamDef((n, 4, nh, dh, dh), torch.float32,
+                                 scale=0.05),
+            "ln2": _norm_def(cfg, n),
+            "w_up": ParamDef((n, d, dff), cfg.dtype, binarize=True),
+            "w_down": ParamDef((n, dff // 2, d), cfg.dtype, binarize=True),
+        }
+
+    @classmethod
+    def _ffn(cls, cfg, p, h, valid=None):
+        a, g = layers.linear(h, p["w_up"], cfg.quant).chunk(2, dim=-1)
+        return layers.linear(a * layers.gelu(g), p["w_down"], cfg.quant)
+
+    @classmethod
+    def _gates(cls, cfg, p, x):
+        return layers.linear(layers.rms_norm(x, p["ln1"]), p["w_gates"],
+                             cfg.quant)
+
+    @classmethod
+    def fwd(cls, cfg, p, x, opts: FwdOpts, ctx=None):
+        st0 = ssm.SLSTMState.zeros(x.shape[0], cfg.d_model, x.device)
+        y, st = ssm.slstm_sequence(cls._gates(cfg, p, x), p["r_kernel"],
+                                   st0, cfg.n_heads)
+        x = cls._residual_ffn(cfg, p, x, y.to(x.dtype))
+        return x, (st if opts.want_state else None)
+
+    @classmethod
+    def decode(cls, cfg, p, x, state, pos, table, valid=None, ctx=None):
+        st_new, y = ssm.slstm_step(state, cls._gates(cfg, p, x)[:, 0],
+                                   p["r_kernel"], cfg.n_heads)
+        _copy_state(state, st_new)
+        return cls._residual_ffn(cfg, p, x, y[:, None].to(x.dtype))
+
+    @classmethod
+    def chunk(cls, cfg, p, x, state, pos0, valid, n_valid, table, ctx=None):
+        y, st_new = ssm.slstm_sequence(cls._gates(cfg, p, x), p["r_kernel"],
+                                       state, cfg.n_heads, valid=valid)
+        _copy_state(state, st_new)
+        return cls._residual_ffn(cfg, p, x, y.to(x.dtype))
+
+    @classmethod
+    def state_spec(cls, cfg, n, batch, s_max, device):
+        return ssm.SLSTMState.zeros(batch, cfg.d_model, device, (n,))
 
 
 def _ctx_kv_spec(cfg, n, batch, device) -> tuple:

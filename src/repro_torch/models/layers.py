@@ -103,13 +103,22 @@ def ffn_defs(cfg, n: int) -> dict:
     }
 
 
+def silu(g: torch.Tensor, f32: bool = False) -> torch.Tensor:
+    """``jax.nn.silu(g)`` as the reference computes it: negate, exp, add
+    1, divide 1 by the sum and multiply by g, each step rounded to g's
+    dtype (``torch.sigmoid`` rounds once from f32).  ``f32`` returns the
+    last product unrounded, in f32: what the jitted reference reads where
+    an f32 cast follows.  Subnormals are the platform's: XLA's CPU and
+    the TPU flush them to zero, torch keeps them unless
+    ``torch.set_flush_denormal`` is on."""
+    r = torch.exp(-g).add_(1).reciprocal_()
+    return g.float() * r.float() if f32 else g * r
+
+
 def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu(g) * u`` as the reference computes it.  Its silu
-    lowers to negate, exp, add 1, divide 1 by the sum and multiply by g,
-    each step rounded to g's dtype (``torch.sigmoid`` rounds once from
-    f32).  Subnormals are the platform's: XLA's CPU and the TPU flush them
-    to zero, torch keeps them unless ``torch.set_flush_denormal`` is on."""
-    return g * torch.exp(-g).add_(1).reciprocal_() * u
+    """``jax.nn.silu(g) * u`` as the reference computes it
+    (:func:`silu`, then the product)."""
+    return silu(g) * u
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -119,7 +128,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     (``x ** 3`` is x (x x)).  The jitted reference keeps each bf16 step
     (``torch.nn.functional.gelu(approximate="tanh")`` rounds once from
     f32 and differs on about 2 % of bf16 inputs); subnormals are the
-    platform's, as in :func:`silu_mul`."""
+    platform's, as in :func:`silu`."""
     def c(v):
         return torch.tensor(v, dtype=torch.float32).to(x.dtype)
     inner = x + c(0.044715) * (x * (x * x))

@@ -22,7 +22,9 @@ read the declarations instead of switching on kind strings.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Any, Iterator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +69,20 @@ def register(cls: type) -> type:
     return cls
 
 
+def unregister(kind: str) -> None:
+    _KINDS.pop(kind, None)
+
+
+@contextlib.contextmanager
+def temporary(cls: type) -> Iterator[type]:
+    """Register ``cls`` for the duration of a with-block (tests)."""
+    register(cls)
+    try:
+        yield cls
+    finally:
+        unregister(cls.contract.kind)
+
+
 def get(kind: str) -> type:
     try:
         return _KINDS[kind]
@@ -77,3 +93,18 @@ def get(kind: str) -> type:
 
 def contract(kind: str) -> BlockContract:
     return get(kind).contract
+
+
+def kinds() -> list[str]:
+    """Registered kind names, sorted."""
+    return sorted(_KINDS)
+
+
+def items() -> list[tuple[str, Any]]:
+    return sorted(_KINDS.items())
+
+
+def view() -> dict[str, Any]:
+    """The live kind -> class table (change it through register /
+    unregister only)."""
+    return _KINDS

@@ -1,5 +1,5 @@
-"""Griffin's recurrent mixer (RecurrentGemma): the causal depthwise conv1d
-and the RG-LRU, in plain PyTorch.
+"""Recurrent sequence mixers in plain PyTorch: xLSTM's mLSTM and sLSTM,
+Griffin's (RecurrentGemma's) causal depthwise conv1d and RG-LRU.
 
 The JAX package computes these outside any Pallas kernel, so plain
 PyTorch is their port on every device.  Each function keeps the numeric
@@ -8,14 +8,23 @@ takes ``sqrt(max(1 - exp(2 log_a), 1e-12))``, the step
 ``sqrt(max(1 - a a, 1e-12))``; :func:`conv1d` and :func:`conv1d_carry`
 sum in ``x.dtype``, :func:`conv1d_step` in f32.  The sequence RG-LRU
 combines its elements in the reference's associative-scan order (the
-odd/even recursion of ``jax.lax.associative_scan``).  The RG-LRU state
-is f32.
+odd/even recursion of ``jax.lax.associative_scan``).  Every recurrent
+state is f32, with the log-domain stabilizer ``m`` of arXiv:2405.04517
+for the two xLSTM cells.
 
 The jitted reference reads the conv's output in two roundings: its
 linears take the ``x.dtype`` sum, its RG-LRU (which casts to f32) the sum
 with the last add unrounded (XLA drops a bf16 rounding that an f32 cast
 reads right away).  So :func:`conv1d` and :func:`conv1d_carry` return
 that f32 sum; rounded to ``x.dtype`` it is the reference's conv1d.
+
+On the card, a decode step's sums over a row (the mLSTM's ``C q`` and
+``n q`` and its gates' ``w_if`` product, the sLSTM's recurrent product)
+go through :func:`layers.row_sum` over a row-major product, whose order
+does not depend on how many slots the step carries (hazard H2: a batched
+product's library kernel, and a strided row's sum, are chosen by the
+batch).  On the CPU they sum in the jitted reference's order
+(:func:`_contract`).
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.models import layers
 
 F32 = torch.float32
 
@@ -167,3 +178,264 @@ def rglru_step(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
     gated = torch.sigmoid(i_gate[:, 0].to(F32)) * x[:, 0].to(F32)
     h = a * state.h + torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated
     return h[:, None].to(x.dtype), RGLRUState(h)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory) and sLSTM (scalar memory)
+# ---------------------------------------------------------------------------
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -_softplus(-x)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b) over the last axis, in an order a row keeps whatever
+    the rows beside it (:func:`layers.row_sum`).  The product is laid out
+    row-major first: a product of a transposed operand keeps its strides,
+    and a reduction over a strided row orders its sum by the number of
+    rows (hazard H2)."""
+    return layers.row_sum((a * b).contiguous())[..., 0]
+
+
+def _xla_dot(a: torch.Tensor, b: torch.Tensor, lanes: int = 1,
+             fma: bool = True) -> torch.Tensor:
+    """sum(a * b) over the last axis (a and b broadcast), f32, in the order
+    the jitted reference's CPU dot sums it: ``lanes`` partial sums over
+    k = j mod lanes, each accumulated in k order with one rounding a step
+    (a fused multiply-add; ``fma=False``: the product rounded first), then
+    added by adjacent pairs.  XLA picks the emitter, and so the order, by
+    the operands' layout: see :func:`_contract`.  For the CPU only."""
+    a64, b64 = a.double(), b.double()
+    k = a.shape[-1]
+    parts = []
+    for j in range(min(lanes, k)):
+        acc = None
+        for i in range(j, k, lanes):
+            p = a64[..., i] * b64[..., i]
+            if not fma:
+                p = p.float().double()
+            acc = p.float() if acc is None else (acc.double() + p).float()
+        parts.append(acc)
+    while len(parts) > 1:
+        pairs = [parts[i] + parts[i + 1] for i in range(0, len(parts) - 1, 2)]
+        parts = pairs + parts[len(pairs) * 2:]
+    return parts[0]
+
+
+def _contract(eq: str, a: torch.Tensor, b: torch.Tensor, lanes: int = 1,
+              fma: bool = True) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` for one contracted index, f32.  On the
+    CPU it sums in the jitted reference's order (:func:`_xla_dot`), which
+    XLA's CPU dot emitters fix by the operands' layout; at the shapes the
+    tests hold: 4 lanes for the chunk's q k^T and C q and the gates'
+    ``w_if`` product, 8 for the step's C q, one lane for P V, q n, the
+    step's n q and the memory's update, unfused products for the chunk's
+    row-by-row sum of the weighted q k^T (fault F5: the mLSTM's
+    normalizer cancels, so the last bits of these sums decide bf16
+    roundings and, on some traces, greedy tokens).  On the card
+    ``torch.einsum``."""
+    if a.is_cuda:
+        return torch.einsum(eq, a, b)
+    ins, out = eq.split("->")
+    ia, ib = ins.split(",")
+    (c,) = [x for x in ia if x in ib and x not in out]
+
+    def lay(t, idx):
+        # the output's axes (1 where t lacks one), then the contracted one
+        t = t.permute(*[idx.index(x) for x in out if x in idx],
+                      idx.index(c))
+        shape = [t.shape[[x for x in out if x in idx].index(x)]
+                 if x in idx else 1 for x in out]
+        return t.reshape(*shape, t.shape[-1])
+    return _xla_dot(lay(a, ia), lay(b, ib), lanes, fma)
+
+
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum over axis 1.  On the CPU each prefix is
+    summed left to right in x's dtype, as the jitted reference's
+    ``reduce_window`` does (torch's CPU cumsum accumulates in f64); on the
+    card torch's scan, one launch."""
+    if x.is_cuda:
+        return torch.cumsum(x, dim=1)
+    out = x.clone()
+    for t in range(1, x.shape[1]):
+        out[:, t] = out[:, t - 1] + x[:, t]
+    return out
+
+
+def rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) in f32, each row summed alone: on the card in
+    an order that does not depend on how many rows there are (hazard H2;
+    a decode step's rows are its slots), on the CPU in the reference's
+    order (:func:`_contract`)."""
+    x = x.to(F32)
+    if x.is_cuda:
+        return _dot(x[..., None, :], w.to(F32).t().contiguous())
+    flat = _contract("mk,kn->mn", x.reshape(-1, x.shape[-1]), w.to(F32),
+                     lanes=4)
+    return flat.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class MLSTMState(NamedTuple):
+    c: torch.Tensor   # (B, NH, dh, dh) stabilized matrix memory C exp(-m)
+    n: torch.Tensor   # (B, NH, dh)
+    m: torch.Tensor   # (B, NH)
+
+    @classmethod
+    def zeros(cls, b: int, nh: int, dh: int, device,
+              lead: tuple = ()) -> "MLSTMState":
+        """The fresh state (``m`` at -1e30); ``lead`` prepends axes (a
+        segment's layers)."""
+        def z(*shape):
+            return torch.zeros(lead + shape, dtype=F32, device=device)
+        return cls(z(b, nh, dh, dh), z(b, nh, dh),
+                   torch.full(lead + (b, nh), -1e30, dtype=F32,
+                              device=device))
+
+
+def mlstm_step(state: MLSTMState, q, k, v, i_raw, f_raw):
+    """One token: q, k, v (B, NH, dh); i_raw, f_raw (B, NH) ->
+    (h (B, NH, dh) f32, new state)."""
+    lf = _log_sigmoid(f_raw.to(F32))
+    i32 = i_raw.to(F32)
+    m_new = torch.maximum(lf + state.m, i32)
+    fp = torch.exp(lf + state.m - m_new)
+    ip = torch.exp(i32 - m_new)
+    k32, v32, q32 = k.to(F32), v.to(F32), q.to(F32)
+    c = fp[..., None, None] * state.c + ip[..., None, None] * (
+        v32[..., :, None] * k32[..., None, :])
+    n = fp[..., None] * state.n + ip[..., None] * k32
+    if c.is_cuda:
+        num, nq = _dot(c, q32[..., None, :]), _dot(n, q32)
+    else:
+        num = _contract("bhij,bhj->bhi", c, q32, lanes=8)
+        nq = _contract("bhj,bhj->bh", n, q32)
+    den = torch.maximum(nq.abs(), torch.exp(-m_new))
+    return num / den[..., None], MLSTMState(c, n, m_new)
+
+
+def mlstm_sequential(q, k, v, i_raw, f_raw, state: MLSTMState):
+    """The oracle: :func:`mlstm_step` over time.  q, k, v (B, S, NH, dh);
+    i_raw, f_raw (B, S, NH)."""
+    hs = []
+    for t in range(q.shape[1]):
+        h, state = mlstm_step(state, q[:, t], k[:, t], v[:, t], i_raw[:, t],
+                              f_raw[:, t])
+        hs.append(h)
+    return torch.stack(hs, dim=1), state
+
+
+def _mlstm_chunk(st: MLSTMState, qt, kt, vt, it, ft):
+    """One chunk of :func:`mlstm_chunkwise`: the quadratic form inside it
+    and the carried state's share, then the boundary update."""
+    chunk = qt.shape[1]
+    qt, kt, vt = qt.to(F32), kt.to(F32), vt.to(F32)
+    it, ft = it.to(F32), ft.to(F32)
+    lf = _log_sigmoid(ft)                                   # (B, L, NH)
+    bcum = _cumsum(lf)
+    g = bcum[:, -1]                                         # (B, NH)
+    # log-scales: inter a_t = b_t + m_prev; intra D_ts = b_t - b_s + i_s
+    a_inter = bcum + st.m[:, None, :]
+    dmat = bcum[:, :, None, :] - bcum[:, None, :, :] + it[:, None, :, :]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=qt.device))
+    dmat = torch.where(tri[None, :, :, None], dmat, -torch.inf)
+    m_t = torch.maximum(a_inter, dmat.amax(dim=2))          # (B, L, NH)
+    w_inter = torch.exp(a_inter - m_t)
+    w_intra = torch.exp(dmat - m_t[:, :, None, :])          # (B, t, s, NH)
+    sqk = _contract("blhd,bshd->blsh", qt, kt, lanes=4)
+    wq = w_intra * sqk
+    num = (_contract("blsh,bshd->blhd", wq, vt)
+           + w_inter[..., None] * _contract("blhd,bhed->blhe", qt, st.c,
+                                            lanes=4))
+    den = (_contract("blsh,blsh->blh", w_intra, sqk, fma=False)
+           + w_inter * _contract("blhd,bhd->blh", qt, st.n))
+    den = torch.maximum(den.abs(), torch.exp(-m_t))
+    h = num / den[..., None]                                # (B, L, NH, dh)
+    # boundary update
+    scale_s = g[:, None, :] - bcum + it
+    m_new = torch.maximum(g + st.m, scale_s.amax(dim=1))
+    w_old = torch.exp(g + st.m - m_new)
+    w_s = torch.exp(scale_s - m_new[:, None, :])            # (B, L, NH)
+    c_new = (w_old[..., None, None] * st.c
+             + _contract("blhd,blhe->bhde", w_s[..., None] * vt, kt))
+    n_new = (w_old[..., None] * st.n
+             + _contract("blh,blhd->bhd", w_s, kt))
+    return MLSTMState(c_new, n_new, m_new), h
+
+
+def mlstm_chunkwise(q, k, v, i_raw, f_raw, state: MLSTMState, chunk: int):
+    """Chunkwise-parallel mLSTM: q, k, v (B, S, NH, dh), i_raw, f_raw
+    (B, S, NH) -> (h (B, S, NH, dh) f32, the state after S).  A ragged
+    tail is padded with finite state-neutral gates (i = -1e30: nothing
+    inserted; f = +1e30: no decay), so the returned state is the unpadded
+    one; inside a chunk the causal mask is -inf.  Chunks run in order,
+    each as the reference's scan body."""
+    b, s, nh, dh = q.shape
+    pad = (-s) % chunk
+    if pad:
+        q, k, v = (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+                   for a in (q, k, v))
+        i_raw = torch.nn.functional.pad(i_raw, (0, 0, 0, pad), value=-1e30)
+        f_raw = torch.nn.functional.pad(f_raw, (0, 0, 0, pad), value=1e30)
+    hs = []
+    for j in range(0, s + pad, chunk):
+        cut = slice(j, j + chunk)
+        state, h = _mlstm_chunk(state, q[:, cut], k[:, cut], v[:, cut],
+                                i_raw[:, cut], f_raw[:, cut])
+        hs.append(h)
+    return torch.cat(hs, dim=1)[:, :s], state
+
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor   # (B, D) stabilized cell
+    n: torch.Tensor   # (B, D)
+    m: torch.Tensor   # (B, D)
+    h: torch.Tensor   # (B, D) output (enters the recurrence)
+
+    @classmethod
+    def zeros(cls, b: int, d: int, device, lead: tuple = ()) -> "SLSTMState":
+        def z():
+            return torch.zeros(lead + (b, d), dtype=F32, device=device)
+        return cls(z(), z(), torch.full(lead + (b, d), -1e30, dtype=F32,
+                                        device=device), z())
+
+
+def slstm_step(state: SLSTMState, x_gates, r_kernel, nh: int):
+    """x_gates (B, 4D), the input's preactivations; r_kernel (4, NH, dh,
+    dh), the block-diagonal recurrent weights applied to h.  -> (new
+    state, h (B, D) f32)."""
+    b, d4 = x_gates.shape
+    d = d4 // 4
+    dh = d // nh
+    hprev = state.h.reshape(b, 1, nh, 1, dh)
+    rec = _dot(hprev, r_kernel.to(F32).transpose(-1, -2).contiguous())
+    gates = x_gates.to(F32).reshape(b, 4, nh, dh) + rec
+    zt = torch.tanh(gates[:, 0]).reshape(b, d)
+    it = gates[:, 1].reshape(b, d)
+    lf = _log_sigmoid(gates[:, 2]).reshape(b, d)
+    ot = torch.sigmoid(gates[:, 3]).reshape(b, d)
+    m_new = torch.maximum(lf + state.m, it)
+    fp, ip = torch.exp(lf + state.m - m_new), torch.exp(it - m_new)
+    c = fp * state.c + ip * zt
+    n = fp * state.n + ip
+    h = ot * c / torch.maximum(n, torch.exp(-m_new))
+    return SLSTMState(c, n, m_new, h), h
+
+
+def slstm_sequence(x_gates, r_kernel, state: SLSTMState, nh: int,
+                   valid: torch.Tensor | None = None):
+    """x_gates (B, S, 4D) -> (h (B, S, D) f32, the state after S): the
+    true recurrence, one step per token.  ``valid`` (B, S) bool passes the
+    state through unchanged at padding steps (chunked prefill)."""
+    hs = []
+    for t in range(x_gates.shape[1]):
+        new, h = slstm_step(state, x_gates[:, t], r_kernel, nh)
+        if valid is not None:
+            keep = valid[:, t, None]
+            new = SLSTMState(*(torch.where(keep, a, o)
+                               for a, o in zip(new, state)))
+        state = new
+        hs.append(h)
+    return torch.stack(hs, dim=1), state

@@ -24,11 +24,19 @@ def make_data(rng: np.random.Generator, n: int):
     """n images of vertical (class 1) or horizontal (class 0) stripes plus
     0.8 Gaussian noise -> ((n, 256) f32, (n,) int32), drawn with numpy."""
     y = rng.integers(0, 2, size=n).astype(np.int32)
-    xs = np.linspace(-1, 1, 16, dtype=np.float32)
-    vert = np.repeat(np.sign(np.sin(8 * xs))[None, :], 16, axis=0)
-    base = np.where(y[:, None, None] == 1, vert[None], vert.T[None])
+    base = stripes(y, 16)
     x = base + 0.8 * rng.standard_normal((n, 16, 16))
     return x.reshape(n, D_IN).astype(np.float32), y
+
+
+def stripes(y: np.ndarray, side: int) -> np.ndarray:
+    """The noiseless images of labels ``y``: (n, side, side) f32, +-1
+    vertical stripes sign(sin(8 x)) over x in [-1, 1] for class 1, their
+    transpose for class 0."""
+    xs = np.linspace(-1, 1, side, dtype=np.float32)
+    vert = np.repeat(np.sign(np.sin(8 * xs))[None, :], side, axis=0)
+    return np.where(np.asarray(y)[:, None, None] == 1, vert[None],
+                    vert.T[None])
 
 
 def init(generator: torch.Generator, device) -> dict:

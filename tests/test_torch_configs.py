@@ -1,12 +1,12 @@
 """The port's configs against the reference's, and the two dense configs
 this port adds beside qwen2-7b / qwen3-4b (phi4-mini-3.8b, qwen3-14b),
 served at their smoke size with the reference engine's greedy tokens;
-every ported kind's contract (``moe``, ``cross``, ``enc``, ``dec``
-among them) and the MoE archs' parameter trees.
+every kind's contract (``moe``, ``cross``, ``enc``, ``dec``, ``mlstm``,
+``slstm`` and ``bindense`` among them) and the MoE archs' parameter
+trees.
 
 Every ported arch must equal the reference's config field by field, full
-size and smoke; archs whose block kinds the port does not serve stay out
-of its registry."""
+size and smoke; the port's registry lists the reference's eleven archs."""
 
 import dataclasses
 
@@ -18,7 +18,7 @@ import torch
 
 import repro.configs as jconfigs
 from repro.models import lm as jlm
-from repro.serve import ServeEngine as JServeEngine
+from test_torch_reference import reference_engine as JServeEngine
 from repro.serve import synthetic_trace as jsynthetic_trace
 import repro_torch.configs as configs
 from repro_torch import convert
@@ -34,11 +34,13 @@ def test_registry_lists_the_ported_archs():
     assert PORTED == ["llama-3.2-vision-11b", "llama4-scout-17b-a16e",
                       "moonshot-v1-16b-a3b", "phi4-mini-3.8b", "qwen2-7b",
                       "qwen3-14b", "qwen3-4b", "recurrentgemma-2b",
-                      "whisper-tiny"]
-    for name in ("xlstm-350m", "xlstm-350m+xnor"):
-        with pytest.raises(KeyError):
-            configs.get(name)
-    for name in PORTED:           # no ported config names an unported kind
+                      "whisper-tiny", "xlstm-350m", "xnor-cnn"]
+    assert PORTED == sorted(jconfigs.ALL)
+    for name in ("xlstm-350m", "xlstm-350m+xnor", "xnor-cnn"):
+        assert configs.get(name).name == name
+    with pytest.raises(KeyError):
+        configs.get("xlstm-1b")
+    for name in PORTED:           # every config's kinds are registered
         cfg = configs.get(name)
         for kind, _ in cfg.segments() + cfg.encoder_segments():
             registry.get(kind)
@@ -91,20 +93,23 @@ def test_smoke_greedy_tokens_match_reference(arch, dtype):
 
 
 @pytest.mark.parametrize("kind", ["attn", "local", "rglru", "moe", "cross",
-                                  "enc", "dec"])
+                                  "enc", "dec", "mlstm", "slstm",
+                                  "bindense"])
 def test_contract_equals_the_references(kind):
     """Every field of the reference's contract is the port's, and the port
     declares every field the reference does and one more,
-    ``decode_writes_slot``, False only for the kinds whose per-slot state
-    is a context's keys and values; only the encoder's kind does not
-    decode."""
+    ``decode_writes_slot``, False only for the kinds whose decode reads
+    its per-slot state and never writes it (a context's keys and values,
+    ``bindense``'s gate); only the encoder's kind does not decode."""
+    from repro.models import bcnn as jbcnn  # noqa: F401 (registers it)
     from repro.models import registry as jregistry
     t, j = registry.contract(kind), jregistry.contract(kind)
     assert {f.name for f in dataclasses.fields(t)} == \
         {f.name for f in dataclasses.fields(j)} | {"decode_writes_slot"}
     for f in dataclasses.fields(j):
         assert getattr(t, f.name) == getattr(j, f.name), (kind, f.name)
-    assert t.decode_writes_slot == (kind not in ("cross", "dec"))
+    assert t.decode_writes_slot == (kind not in ("cross", "dec",
+                                                 "bindense"))
     assert t.decodes == (kind != "enc")
     assert t.routed_experts == (kind == "moe")
 

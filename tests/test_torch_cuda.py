@@ -929,3 +929,102 @@ def test_cuda_ctx_block_decode_rows_do_not_depend_on_the_batch(gpu, kind,
     alone = torch.cat([step(j, j + 1) for j in range(slots)])
     for b in range(2, slots + 1):
         assert torch.equal(step(0, b), alone[:b]), b
+
+
+def _xlstm_block(kind, cfg, device, seed):
+    """One packed layer of ``kind`` at ``cfg``'s width, drawn from a seeded
+    generator on ``device``."""
+    from repro_torch.models import blocks, registry
+    from repro_torch.models import params as pdefs
+    block = registry.get(kind)
+    defs = block.defs(cfg, 1)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return block, blocks.layer_params(
+        pdefs.pack(defs, pdefs.init(defs, g, device)), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_cuda_xlstm_block_decode_rows_do_not_depend_on_the_batch(gpu, kind,
+                                                                 dtype):
+    """One xlstm-350m+xnor layer at full width (the mLSTM's memory 4 x 512
+    x 512 f32 a slot), packed, decoding from a random per-slot state at 1
+    to 8 slots: each slot's output row and new state are the bits it gets
+    alone (hazard H2: the mLSTM's C q and |n q|, the f32 ``w_if``
+    product and the sLSTM's recurrent product sum each row alone through
+    ``layers.row_sum``)."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.models import blocks
+    cfg = dataclasses.replace(configs.get("xlstm-350m+xnor"), dtype=dtype)
+    block, p = _xlstm_block(kind, cfg, gpu, cfg.d_model + 2)
+    g = torch.Generator(device=gpu)
+    g.manual_seed(5)
+    state = block.state_spec(cfg, 1, 8, 0, gpu)
+    for leaf in blocks.state_leaves(state):
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=gpu))
+    start = [t.clone() for t in blocks.state_leaves(state)]
+    x = torch.randn((8, 1, cfg.d_model), generator=g, device=gpu).to(dtype)
+
+    def step(lo, hi):
+        for leaf, t in zip(blocks.state_leaves(state), start):
+            leaf.copy_(t)
+        st = blocks.state_map(lambda l: l[:, lo:hi], state)
+        y = block.decode(cfg, p, x[lo:hi], blocks._layer(st, 0), None, None)
+        return [y] + [l[0, lo:hi].clone() for l in blocks.state_leaves(state)]
+    alone = [torch.cat(t) for t in zip(*(step(j, j + 1) for j in range(8)))]
+    for b in range(2, 9):
+        for got, want in zip(step(0, b), alone):
+            assert torch.equal(got, want[:b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlstm", "slstm", "bindense"])
+def test_cuda_xlstm_and_bindense_blocks_match_the_cpu(gpu, kind):
+    """One packed layer at smoke width (xlstm-350m+xnor's, xnor-cnn's), f32:
+    prefill over 11 tokens, three decode steps and a ragged chunk on the
+    card (the fused linear kernel, the card's sums) against the same
+    weights and inputs on the CPU (the plain versions, the reference's
+    sums), within 1e-4; the states too."""
+    import repro_torch.configs as configs
+    from repro_torch.models import blocks
+    name = "xnor-cnn" if kind == "bindense" else "xlstm-350m+xnor"
+    cfg = configs.get(name)
+    cfg = cfg if kind == "bindense" else cfg.smoke(dtype=torch.float32)
+    block, p = _xlstm_block(kind, cfg, "cpu", 11)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 11, cfg.d_model))
+                         .astype(np.float32))
+    steps = [torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model))
+                              .astype(np.float32)) for _ in range(3)]
+    xc = torch.from_numpy(rng.standard_normal((1, 8, cfg.d_model))
+                          .astype(np.float32))
+    ctx = torch.from_numpy((rng.standard_normal(
+        (2, max(cfg.n_ctx_tokens, 1), cfg.d_model)) * 0.1).astype(np.float32))
+    ctx = ctx if cfg.n_ctx_tokens else None
+    valid = torch.arange(8)[None] < 5
+
+    def run(dev):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        c = None if ctx is None else ctx.to(dev)
+        y, st = block.fwd(cfg, pd, x.to(dev),
+                          blocks.FwdOpts(want_state=True, s_max=16), c)
+        outs = [y]
+        for t in steps:
+            if kind == "bindense":
+                outs.append(block.decode(cfg, pd, t.to(dev), st, None, None))
+                continue
+            one = blocks.state_map(lambda l: l[None], st)
+            outs.append(block.decode(cfg, pd, t.to(dev),
+                                     blocks._layer(one, 0), None, None))
+        first = blocks.state_map(lambda l: l[:1].clone(), st)
+        outs.append(block.chunk(cfg, pd, xc.to(dev), first, None,
+                                valid.to(dev), 5, None,
+                                None if c is None else c[:1])[:, :5])
+        return [o.cpu() for o in outs + blocks.state_leaves(st)
+                + blocks.state_leaves(first)]
+    for got, want in zip(run(gpu), run("cpu")):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

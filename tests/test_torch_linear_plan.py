@@ -3,7 +3,8 @@ on the CPU.
 
 ``xnor_gemm.linear_plan`` cuts an (M, K) x (N, K) product into the CUDA
 kernel's blocks from the shapes alone.  At the qwen2-7b and qwen3-4b
-linear shapes and at ragged ones, every (row, column, word of K) is owned
+linear shapes, xlstm-350m's and xnor-cnn's (the sLSTM's K 1344 is 42 words)
+and at ragged ones, every (row, column, word of K) is owned
 by exactly one block (``linear_blocks`` computes each block's work from
 its index as the kernel does), each pack task of a pass (a 2 KB range
 of a row) belongs to exactly one warp of its cluster, and the plan stays
@@ -44,8 +45,14 @@ QWEN2_7B = {"wq/wo": (3584, 3584), "wk/wv": (512, 3584),
             "w1/w3": (18944, 3584), "w2": (3584, 18944)}      # (N, K)
 QWEN3_4B = {"wq": (4096, 2560), "wk/wv": (1024, 2560), "wo": (2560, 4096),
             "w1/w3": (9728, 2560), "w2": (2560, 9728)}
+XLSTM_350M = {"mlstm wq/wk/wv": (2048, 2048), "mlstm w_up/w_gate": (2048, 1024),
+              "mlstm w_down": (1024, 2048), "slstm w_gates": (4096, 1024),
+              "slstm w_up": (2688, 1024), "slstm w_down": (1024, 1344)}
+XNOR_CNN = {"w_up": (256, 64), "w_down": (64, 256)}
 SHAPES = ([("qwen2-7b " + k, *v) for k, v in QWEN2_7B.items()]
           + [("qwen3-4b " + k, *v) for k, v in QWEN3_4B.items()]
+          + [("xlstm-350m " + k, *v) for k, v in XLSTM_350M.items()]
+          + [("xnor-cnn " + k, *v) for k, v in XNOR_CNN.items()]
           + [("ragged", 9, 70)])
 
 

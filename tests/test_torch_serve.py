@@ -19,7 +19,7 @@ import repro.configs as jconfigs
 from repro.models import lm as jlm
 from repro.serve import BlockPool as JBlockPool
 from repro.serve import PrefixIndex as JPrefixIndex
-from repro.serve import ServeEngine as JServeEngine
+from test_torch_reference import reference_engine as JServeEngine
 from repro.serve import synthetic_trace as jsynthetic_trace
 import repro_torch.configs as configs
 from repro_torch import convert

@@ -29,7 +29,7 @@ import repro.configs as jconfigs
 from repro.checkpoint import ckpt as jckpt
 from repro.models import lm as jlm
 from repro.serve import Router as JRouter
-from repro.serve import ServeEngine as JServeEngine
+from test_torch_reference import reference_engine as JServeEngine
 from repro.serve import synthetic_trace as jsynthetic_trace
 from repro.train import serve_step as jserve_step
 import repro_torch.configs as configs
