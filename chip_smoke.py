@@ -15,6 +15,8 @@
     python3 chip_smoke.py --xlstm            # phase 2's xlstm-350m and
                                              # xnor-cnn shapes, the xLSTM
                                              # H2 probe and phase 3f alone
+    python3 chip_smoke.py --train            # phase 9 alone: training,
+                                             # transcribe and classify
     python3 chip_smoke.py --slot-bits        # fault F4's probe: whether a
                                              # slot's bits hang on the batch
     python3 chip_smoke.py --paged-plans      # paged decode at W 2048, the
@@ -201,6 +203,28 @@ Phases (any failure raises and the script exits non-zero):
    stack (8 banks x 512 rows) on the card, the card's evaluation held
    against the CPU's on the same draws; Eq. (1) over the paper's N_O
    sweep.
+
+9. Training, then the workloads on top of it (``training``, run last):
+   9a 20 ``train_step``s of qwen2-7b+xnor, bf16, at full width and 4 of
+   its 28 layers (2.02 B parameters; the full-depth state needs
+   sharding) on ``synthetic.Pipeline`` batches of 4 x 256 tokens, peak
+   lr 1e-3, warmup 10, per-layer remat: loss and gnorm finite every step
+   and the reference test's learning gate; median step, tokens/s, peak
+   memory, model FLOP/s printed.  9b the same seed, config and batches
+   at smoke size in f32 on the card and the CPU, 3 steps, each from the
+   CPU's state: loss, gnorm, gradients and parameters within the CPU
+   tests' tolerances.  9c the ``Runner`` drill on full whisper-tiny+xnor
+   (4 enc + 4 dec layers over 1,500-frame contexts): 20 straight steps
+   against 10 with encrypted saves every 5, the newest checkpoint
+   truncated (the runner falls back to step 5), a resume and the steps
+   to 20, at the reference test's restart tolerances, every
+   ``parity_digest`` and ``xor_cipher`` launch held.  9d
+   ``TranscriptionService`` on whisper-tiny+xnor at T 0.8, 3 streams x 2
+   windows: 1 slot = 4 slots, every launch of pack, the fused linear and
+   paged decode held, tok/s of an unheld run.  9e ``ClassifierService``:
+   ``train_classifier`` 150 steps on the card, train accuracy >= 0.95,
+   served accuracy >= 0.9 on 32 held-out images, packed = float-sign
+   classes, every launch held.  Each sub-phase's seconds are printed.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -3219,6 +3243,368 @@ def xnor_cnn_serving(gpu: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training, then the transcribe and classify workloads
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_train.py's tolerances for one f32 step against the
+# reference, which 9b holds the card to against the CPU
+TRAIN_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
+TRAIN_GRAD_REL = 2e-5
+TRAIN_SETTLED = 1e-3
+TRAIN_PARAM_TOL = dict(rtol=1e-5, atol=2e-6)
+# tests/test_train_integration.py's restart tolerances (9c)
+RESTART_TOL = dict(rtol=2e-2, atol=2e-3)
+RESTART_LOSS = 2e-2
+TRAIN_KEY = "chip-smoke-train-key"
+
+
+def train_cfg():
+    """9a's configuration: qwen2-7b+xnor, bf16, at full width with its
+    depth cut from 28 layers to 4 (at 28 the training state, bf16
+    parameters and gradients and f32 moments, is ~91 GB: it needs the
+    sharding of ROADMAP item 6)."""
+    import repro_torch.configs as configs
+    return dataclasses.replace(configs.get("qwen2-7b+xnor"), n_layers=4)
+
+
+def train_main(gpu: str) -> dict:
+    """9a: 20 train_steps of :func:`train_cfg` on ``synthetic.Pipeline``
+    batches of 4 x 256 tokens (peak lr 1e-3, warmup 10): loss and gnorm finite every step, and the
+    reference test's learning gate (the last 5 losses' mean under the
+    first 5's by 0.05).  The reference test's 3e-3 is a smoke-width rate:
+    at full width AdamW's steps of ~lr an element are 40 % of a w2 weight
+    (init 1/sqrt(18,944)), the binary layers' signs churn, and the loss
+    rose from 12.44 to 12.93 (PERF.md, Findings).  Prints the median step,
+    tokens/s, peak device memory and model FLOP/s (6 N_active tokens over
+    the step)."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    from repro_torch.train import train_step as train_mod
+
+    cfg, batch, seq, steps, lr = train_cfg(), 4, 256, 20, 1e-3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train_mod.init_state(cfg, SEED, device="cuda")
+    pipe = synthetic.Pipeline(cfg, batch, seq, seed=SEED)
+    losses, gnorms, times = [], [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = synthetic.to_device(pipe.get(step), "cuda")
+        state, m = train_mod.train_step(cfg, state, b, step, peak_lr=lr,
+                                        warmup=10, total=steps)
+        losses.append(float(m["loss"]))            # waits for the step
+        gnorms.append(float(m["gnorm"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    tokens = batch * seq
+    flops = lm.model_flops(cfg, "train", tokens)
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"[train] {cfg.name} x {cfg.n_layers} layers, {cfg.dtype}: "
+          f"{lm.param_count(cfg)} params ({lm.active_param_count(cfg)} "
+          f"active), batch {batch} x {seq}, {steps} steps at lr {lr}: first "
+          f"step {times[0] * 1e3} ms, median step {step_s * 1e3} ms, "
+          f"{tokens / step_s} tokens/s, peak device memory {peak / 2**30} "
+          f"GiB, model FLOP/s {flops / step_s} ({flops} a step)  [{gpu}]")
+    print(f"[train] losses {losses}; gnorms {gnorms}; first-5 mean {first}, "
+          f"last-5 mean {last}  [{gpu}]")
+    assert all(math.isfinite(x) for x in losses + gnorms), "non-finite step"
+    assert last < first - 0.05, f"9a did not learn: {first} -> {last}"
+    del state
+    return {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "peak_gib": peak / 2**30, "flop_s": flops / step_s}
+
+
+def _leaf_dict(tree) -> dict:
+    from repro_torch.core import verify
+    return {verify.leaf_key(p): t
+            for p, t in verify.tree_flatten_with_path(tree)}
+
+
+def train_card_vs_cpu(gpu: str):
+    """9b: one seed, config (qwen2-7b+xnor smoke, f32) and batches on the
+    card and on the CPU, ``steps`` steps, each taken by both devices from
+    the CPU's state (the claim the CPU tests make is one step's).  Each
+    step's loss, ce and gnorm within ``TRAIN_METRIC_TOL``, its gradients
+    within ``TRAIN_GRAD_REL`` of each leaf's largest |g|, and the
+    parameters after it within ``TRAIN_PARAM_TOL`` where the step is
+    settled, else within two learning rates: the CPU tests' tolerances
+    against the reference.  Settled: the first moment after the step at
+    least ``TRAIN_SETTLED`` of its leaf's largest (on the first step that
+    is |g| itself, as in the CPU tests; later, a moment that cancels to
+    near zero amplifies the gradient's last bits as a near-zero gradient
+    does).  The worst readings print before the gates."""
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.core import verify
+    from repro_torch.data import synthetic
+    from repro_torch.train import train_step as train_mod
+
+    cfg = configs.get("qwen2-7b+xnor").smoke(dtype=torch.float32)
+    pipe = synthetic.Pipeline(cfg, 4, 32, seed=SEED)
+    steps, lr, devices = 3, 3e-3, ("cuda", "cpu")
+    kw = dict(peak_lr=lr, warmup=0, total=steps)
+    state = train_mod.init_state(cfg, SEED, device="cpu")
+    worst = {"metric": 0.0, "grad": 0.0, "param": 0.0, "unsettled": 0.0}
+    fails = []
+    for step in range(steps):
+        host = pipe.get(step)
+        out = {}
+        for d in devices:
+            st = verify.tree_map(lambda t: t.to(d, copy=True), state)
+            b = synthetic.to_device(host, d)
+            _, _, g = train_mod._grads(cfg, st.params, b)
+            st, m = train_mod.train_step(cfg, st, b, step, **kw)
+            out[d] = (m, _leaf_dict(g), _leaf_dict(st.params),
+                      _leaf_dict(st.opt.m), st)
+        (mc, gc_, pc, _, _), (mh, gh, ph, mom, state) = (out[devices[0]],
+                                                         out[devices[1]])
+        for k in ("loss", "ce", "gnorm"):
+            a, w = float(mc[k]), float(mh[k])
+            worst["metric"] = max(worst["metric"], abs(a - w) / abs(w))
+            if abs(a - w) > TRAIN_METRIC_TOL["atol"] \
+                    + TRAIN_METRIC_TOL["rtol"] * abs(w):
+                fails.append((step, k, a, w))
+        for key, want in gh.items():
+            w, got = want.numpy(), gc_[key].cpu().numpy()
+            scale = np.abs(w).max()
+            err = float(np.abs(got - w).max()) / max(scale, 1e-30)
+            worst["grad"] = max(worst["grad"], err)
+            if err > TRAIN_GRAD_REL:
+                fails.append((step, "grad " + key, err))
+            mo = np.abs(mom[key].numpy())
+            firm = mo >= TRAIN_SETTLED * mo.max()
+            pw, pg = ph[key].numpy(), pc[key].cpu().numpy()
+            d_all = np.abs(pg - pw)
+            room = TRAIN_PARAM_TOL["atol"] + TRAIN_PARAM_TOL["rtol"] \
+                * np.abs(pw)
+            worst["param"] = max(worst["param"],
+                                 float((d_all[firm] / room[firm]).max(
+                                     initial=0.0)))
+            worst["unsettled"] = max(worst["unsettled"],
+                                     float(d_all.max()) / lr)
+            if np.any(d_all[firm] > room[firm]) or np.any(
+                    d_all > 2 * lr + room):
+                fails.append((step, "param " + key,
+                              float(d_all[firm].max(initial=0.0))))
+    print(f"[train] 9b {cfg.name} f32, {steps} steps, {devices[0]} against "
+          f"{devices[1]}: max relative loss / ce / gnorm diff "
+          f"{worst['metric']}, max grad diff / leaf max {worst['grad']}, "
+          f"max settled param diff / its tolerance {worst['param']}, max "
+          f"param diff / lr {worst['unsettled']}; failures {fails}  [{gpu}]")
+    assert not fails, fails
+    return worst
+
+
+def _no_checkpoint():
+    raise AssertionError("the runner found no checkpoint to resume")
+
+
+def train_runner_drill(gpu: str) -> dict:
+    """9c: whisper-tiny+xnor at full width and depth (4 enc + 4 dec
+    layers over 1,500-frame contexts): 20 straight steps against 10 steps
+    with encrypted ``Runner`` saves every 5, the newest checkpoint
+    truncated (the runner must fall back to step 5), a resume and the
+    steps to 20.  Final parameters at the reference test's restart
+    tolerances (params rtol 2e-2 / atol 2e-3, last loss within 2e-2);
+    every ``parity_digest`` and ``xor_cipher`` launch held against its
+    plain version.  -> their launch counts; the save and restore seconds
+    printed."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import fault
+    from repro_torch.train import train_step as train_mod
+
+    cfg, batch, seq = configs.get("whisper-tiny+xnor"), 4, 32
+    directory = ROOT / "experiments" / "chip_smoke_train"
+    shutil.rmtree(directory, ignore_errors=True)
+    pipe = synthetic.Pipeline(cfg, batch, seq, seed=SEED)
+    kw = dict(peak_lr=3e-3, warmup=5, total=20)
+
+    def run(state, start, stop, runner=None, times=None):
+        losses = []
+        for step in range(start, stop):
+            state, m = train_mod.train_step(
+                cfg, state, synthetic.to_device(pipe.get(step), "cuda"),
+                step, **kw)
+            losses.append(float(m["loss"]))
+            if runner is not None:
+                t0 = time.perf_counter()
+                if runner.maybe_save(step + 1, state):
+                    times.append(time.perf_counter() - t0)
+        return state, losses
+
+    straight, la = run(train_mod.init_state(cfg, SEED, device="cuda"), 0, 20)
+    with LaunchHolds(per_key=10**9) as holds:
+        kernels = [holds.orig[n] for n in ("parity_digest", "xor_cipher")]
+        holds.active = True
+        for f in kernels:
+            f.launches = 0
+        runner = fault.Runner(str(directory), save_every=5,
+                              root_key=TRAIN_KEY, device="cuda")
+        saves = []
+        _, first = run(train_mod.init_state(cfg, SEED, device="cuda"), 0,
+                       10, runner, saves)
+        assert runner._steps() == [5, 10], runner._steps()
+        npz = directory / "ckpt_00000010.npz"
+        npz.write_bytes(npz.read_bytes()[: npz.stat().st_size // 2])
+        t0 = time.perf_counter()
+        state, start = runner.resume_or_init(train_mod.abstract_state(cfg),
+                                             _no_checkpoint)
+        restore_s = time.perf_counter() - t0
+        launches = {f.__name__: f.launches for f in kernels}
+    holds.check(gpu, "train")
+    assert start == 5 and [s for s, _ in runner.fallbacks] == [10], \
+        (start, runner.fallbacks)
+    resumed, lb = run(state, 5, 20)
+    want, got = _leaf_dict(straight.params), _leaf_dict(resumed.params)
+    worst = 0.0
+    for key, w in want.items():
+        a, b = got[key].float().cpu().numpy(), w.float().cpu().numpy()
+        np.testing.assert_allclose(a, b, **RESTART_TOL, err_msg=key)
+        worst = max(worst, float(np.abs(a - b).max()))
+    assert abs(la[-1] - lb[-1]) < RESTART_LOSS, (la[-1], lb[-1])
+    nbytes = sum(f.stat().st_size for f in directory.glob("ckpt_*.npz"))
+    print(f"[train] 9c {cfg.name} ({cfg.n_layers} dec + {cfg.encoder_layers} "
+          f"enc layers, batch {batch} x {seq}, ctx {cfg.n_ctx_tokens} "
+          f"frames): encrypted saves {saves} s; checkpoint 10 truncated, "
+          f"resumed at step {start} (fell back past {runner.fallbacks[0][0]})"
+          f" in {restore_s} s; {nbytes} bytes on disk; main-path launches "
+          f"{launches}; straight vs resumed: last loss {la[-1]} vs {lb[-1]},"
+          f" max |param diff| {worst}; steps 0-9 losses equal: "
+          f"{first == la[:10]}  [{gpu}]")
+    shutil.rmtree(directory, ignore_errors=True)
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched on the main path"
+    return launches
+
+
+def transcription(gpu: str) -> dict:
+    """9d: ``TranscriptionService`` on whisper-tiny+xnor at full width
+    and depth, bf16, temperature 0.8, 3 streams x 2 windows of 1,500
+    frames: 1 slot and 4 slots give the same transcripts (a slot's bits
+    do not depend on the batch, H2), every launch of pack, the fused
+    linear and paged decode held against its plain version; an unheld
+    timed run at 4 slots with the same transcripts prints tok/s.  -> the
+    three kernels' launch counts (the held 4-slot run)."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.models import lm
+    from repro_torch.serve import TranscriptionService, synthetic_audio_trace
+
+    cfg = configs.get("whisper-tiny+xnor")
+    params = lm.init_params(cfg, SEED, device="cuda")
+    streams = synthetic_audio_trace(3, 2, n_ctx_tokens=cfg.n_ctx_tokens,
+                                    d_model=cfg.d_model, seed=SEED)
+
+    def transcribe(slots):
+        return TranscriptionService(cfg, params, slots=slots, seed=SEED,
+                                    temperature=0.8,
+                                    device="cuda").transcribe(streams)
+    with LaunchHolds() as holds:
+        kernels = [holds.orig[n] for n in ("pack", "xnor_linear_fused",
+                                           "paged_decode_attention")]
+        holds.active = True
+        for f in kernels:
+            f.launches = 0
+        four = transcribe(4)
+        launches = {f.__name__: f.launches for f in kernels}
+        one = transcribe(1)
+        with holds.off():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed = transcribe(4)
+            dt = time.perf_counter() - t0
+    holds.check(gpu, "transcribe")
+    n_tok = sum(len(t) for t in four.values())
+    print(f"[transcribe] {cfg.name}: {n_tok} transcript tokens; 1 slot = 4 "
+          f"slots: {one == four}; unheld 4-slot run {n_tok / dt} tok/s "
+          f"({dt} s), transcripts as the held run's: {timed == four}; "
+          f"main-path launches {launches}; stream 0 {four[0]}  [{gpu}]")
+    assert sorted(four) == [0, 1, 2] and all(len(t) == 2 * 4
+                                             for t in four.values())
+    assert one == four, "1 and 4 slots give different transcripts"
+    assert timed == four, "the unheld run's transcripts differ"
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched on the main path"
+    return launches
+
+
+def classification(gpu: str) -> dict:
+    """9e: ``ClassifierService(pack=True)``: ``train_classifier`` for 150
+    full-batch SGD steps on the card, then 32 held-out stripe images
+    classified: train accuracy >= 0.95 and served accuracy >= 0.9 (the
+    reference test's thresholds), the packed service's classes equal to
+    the float-sign service's, every fused-linear and pack launch held.
+    -> the two kernels' launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.models import bcnn
+    from repro_torch.serve import ClassifierService
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with LaunchHolds() as holds:
+        kernels = [holds.orig[n] for n in ("pack", "xnor_linear_fused")]
+        holds.active = True
+        for f in kernels:
+            f.launches = 0
+        svc = ClassifierService(slots=4, pack=True, seed=SEED,
+                                train_steps=150, device="cuda")
+        train_s = time.perf_counter() - t0
+        imgs, y = bcnn.synthetic_images(prng.PRNGKey(SEED + 99,
+                                                     device="cuda"), 32)
+        pred = svc.classify(imgs)
+        launches = {f.__name__: f.launches for f in kernels}
+        plain = ClassifierService(params=svc.params, slots=4, pack=False,
+                                  seed=SEED, device="cuda").classify(imgs)
+    holds.check(gpu, "classify")
+    acc = float(np.mean(pred == y.cpu().numpy()))
+    print(f"[classify] xnor-cnn trained 150 steps in {train_s} s: train "
+          f"accuracy {svc.train_acc}; served accuracy {acc} on 32 held-out "
+          f"images; packed = float-sign classes: "
+          f"{bool(np.array_equal(pred, plain))}; main-path launches "
+          f"{launches}  [{gpu}]")
+    assert svc.train_acc >= 0.95, svc.train_acc
+    assert acc >= 0.9, acc
+    assert np.array_equal(pred, plain), "packed and float-sign classes differ"
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched on the main path"
+    return launches
+
+
+def training(gpu: str) -> dict:
+    """Phase 9 (9a-9e), each sub-phase timed; -> the launch counts of the
+    kernels its paths run."""
+    launches = {}
+    for sub in (train_main, train_card_vs_cpu, train_runner_drill,
+                transcription, classification):
+        t = time.perf_counter()
+        out = sub(gpu)
+        print(f"[time] {sub.__name__}: {time.perf_counter() - t} s")
+        if sub in (train_runner_drill, transcription, classification):
+            for name, n in out.items():
+                launches[name] = max(launches.get(name, 0), n)
+    return launches
+
+
 def popcount_bits(a, b) -> int:
     """Number of bits in which two int32 tensors differ."""
     import numpy as np
@@ -4349,6 +4735,11 @@ def main() -> int:
               f"xnor-cnn {xnor_cnn_serving(gpu)} "
               f"({time.perf_counter() - t} s)")
         return 0
+    if sys.argv[1:] == ["--train"]:
+        t = time.perf_counter()
+        print(f"[train] phase 9 launches {training(gpu)} "
+              f"({time.perf_counter() - t} s)")
+        return 0
     if sys.argv[1:] == ["--moe"]:
         moe_arch_kernels(gpu)
         t = time.perf_counter()
@@ -4389,6 +4780,8 @@ def main() -> int:
             launches[name] = max(launches[name], n)
     timed(checkpoint_layer, gpu)
     timed(monte_carlo, gpu)
+    for name, n in timed(training, gpu).items():     # phase 9
+        launches[name] = max(launches[name], n)
     kernels = []
     for key in ("pack", "xnor_linear_fused", "paged_decode_attention",
                 "xnor_gemm", "bulk_xor", "parity_digest", "xor_cipher",

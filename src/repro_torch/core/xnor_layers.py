@@ -1,10 +1,10 @@
-"""XNOR-Net binary layers (forward only; training is not ported yet).
+"""XNOR-Net binary layers.
 
   y = (sign(x) . sign(W)^T) * alpha_x * beta_w,
       alpha_x = mean|x| per input row,  beta_w = mean|W| per output channel.
 
 ``xnor_linear`` runs the float-domain path (the straight-through
-estimator's forward) or, with ``packed=True``, packs both operands and runs
+estimator, which trains) or, with ``packed=True``, packs both operands and runs
 the XNOR-popcount product (the ``xnor_gemm`` kernel on CUDA);
 ``xnor_linear_prepacked`` is the serve path over resident sign planes.  All
 agree bit for bit in their sign semantics.
@@ -53,6 +53,28 @@ def binarize_ste(x: torch.Tensor) -> torch.Tensor:
     return x * clip + (s - x * clip).detach()
 
 
+class _Abs(torch.autograd.Function):
+    """|x| with the JAX package's derivative: +1 where x >= 0 (zeros
+    included), -1 below.  ``torch.abs`` gives 0 at 0, and a binary
+    layer's input is often exactly 0 (a popcount dot of +-1 terms can
+    be), where alpha = mean |x| would then pass another gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _mean_abs(x: torch.Tensor) -> torch.Tensor:
+    """:func:`bitpack.mean_abs` (the same bits) through :class:`_Abs`."""
+    return _Abs.apply(x).float().sum(-1) * (1.0 / x.shape[-1])
+
+
 def xnor_linear(x: torch.Tensor, w: torch.Tensor, *,
                 packed: bool = False) -> torch.Tensor:
     """Binary linear: x (..., K) @ w (N, K)^T -> (..., N).
@@ -60,8 +82,8 @@ def xnor_linear(x: torch.Tensor, w: torch.Tensor, *,
     ``packed`` packs both operands and runs the XNOR-popcount product in
     the bit domain (inference); otherwise the float-domain sign product."""
     n, k = w.shape
-    beta = bitpack.mean_abs(w.contiguous()).to(w.dtype)      # (N,)
     if packed:
+        beta = bitpack.mean_abs(w.contiguous()).to(w.dtype)  # (N,)
         lead = x.shape[:-1]
         x2 = x.reshape(-1, k)
         alpha = bitpack.mean_abs(x2).to(x.dtype)              # (M,)
@@ -70,7 +92,8 @@ def xnor_linear(x: torch.Tensor, w: torch.Tensor, *,
         dots = ops.xnor_matmul(pa, pb, k)                     # (M, N) int32
         y = dots.float() * alpha[:, None] * beta[None, :]
         return y.reshape(*lead, n).to(x.dtype)
-    alpha = bitpack.mean_abs(x).to(x.dtype)[..., None]
+    alpha = _mean_abs(x).to(x.dtype)[..., None]
+    beta = _mean_abs(w.contiguous()).to(w.dtype)
     y = torch.einsum("...k,nk->...n", binarize_ste(x).float(),
                      binarize_ste(w).float())
     return (y * alpha * beta).to(x.dtype)

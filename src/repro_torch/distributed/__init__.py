@@ -1,1 +1,2 @@
-"""Fault-tolerance policy shared by the replicated serve tier."""
+"""Fault tolerance: the training Runner (checkpoint-restart) and the
+straggler policy it shares with the replicated serve tier."""

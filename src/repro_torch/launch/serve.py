@@ -10,6 +10,12 @@ Router, with the kill drill at router step ``--kill-at``, migration
 checkpoints under ``--ckpt-dir`` and the integrity scrubber every
 ``--epoch-steps`` router steps.
 
+``--workload`` picks what to serve: ``lm`` (default) the chat trace
+above; ``transcribe`` streams ``--streams`` x ``--windows`` synthetic
+audio windows through :class:`TranscriptionService` on an enc-dec arch;
+``classify`` trains the XNOR-CNN classifier in-process and classifies
+``--requests`` stripe images through :class:`ClassifierService`.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b+xnor \\
       --slots 4 --requests 16 --new-tokens 16 --prefix-len 32
@@ -17,6 +23,10 @@ Examples:
       --replicas 2 --kill-at 6 --temperature 0.8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b+xnor \\
       --smoke --device cpu --dense
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny+xnor \\
+      --smoke --device cpu --workload transcribe --streams 3 --windows 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xnor-cnn \\
+      --device cpu --workload classify --requests 32
 """
 
 from __future__ import annotations
@@ -31,9 +41,67 @@ import torch
 
 import repro_torch.configs as configs
 from repro_torch.core import prng
-from repro_torch.models import lm
-from repro_torch.serve import Router, ServeEngine, synthetic_trace
+from repro_torch.models import bcnn, lm
+from repro_torch.serve import (ClassifierService, Router, ServeEngine,
+                               TranscriptionService, synthetic_audio_trace,
+                               synthetic_trace)
 from repro_torch.train import serve_step
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _run_transcribe(cfg, params, args) -> int:
+    """Streaming transcription over synthetic audio windows."""
+    svc = TranscriptionService(
+        cfg, params, slots=args.slots, s_max=args.s_max or 32,
+        tokens_per_window=max(2, args.new_tokens),
+        temperature=args.temperature, seed=args.seed,
+        pack=not args.no_pack, device=args.device)
+    streams = synthetic_audio_trace(
+        args.streams, args.windows, n_ctx_tokens=cfg.n_ctx_tokens,
+        d_model=cfg.d_model, seed=args.seed)
+    _sync(args.device)
+    t0 = time.perf_counter()
+    transcripts = svc.transcribe(streams)
+    dt = time.perf_counter() - t0
+    total = sum(len(t) for t in transcripts.values())
+    print(f"arch={cfg.name} device={args.device} workload=transcribe "
+          f"streams={args.streams} windows={args.windows} "
+          f"slots={args.slots}")
+    print(f"  {total} transcript tokens in {dt:.2f}s "
+          f"({total / max(dt, 1e-9):.1f} tok/s; "
+          f"{svc.stats.prefills} window sessions, "
+          f"{svc.stats.decode_steps} decode steps)")
+    for sid in sorted(transcripts):
+        print(f"  stream {sid}: {transcripts[sid][:12]}"
+              f"{'...' if len(transcripts[sid]) > 12 else ''}")
+    return 0
+
+
+def _run_classify(cfg, args) -> int:
+    """Batched XNOR-CNN classification (the paper's Fig. 6 workload),
+    trained in-process."""
+    svc = ClassifierService(cfg=cfg, slots=args.slots,
+                            pack=not args.no_pack, seed=args.seed,
+                            device=args.device)
+    n = max(args.requests, 1)
+    imgs, y = bcnn.synthetic_images(
+        prng.PRNGKey(args.seed + 1, device=args.device), n)
+    _sync(args.device)
+    t0 = time.perf_counter()
+    pred = svc.classify(imgs)
+    dt = time.perf_counter() - t0
+    acc = float(np.mean(pred == y.cpu().numpy()))
+    print(f"arch={cfg.name} device={args.device} workload=classify "
+          f"images={n} slots={args.slots} packed={not args.no_pack}")
+    print(f"  train acc {svc.train_acc:.2f}; serve acc {acc:.2f}; "
+          f"{n / max(dt, 1e-9):.1f} images/s "
+          f"({svc.stats.prefills} one-shot sessions, "
+          f"{svc.stats.decode_steps} decode steps)")
+    return 0
 
 
 def _run_static(cfg, params, args, pl: int, nt: int) -> int:
@@ -52,8 +120,7 @@ def _run_static(cfg, params, args, pl: int, nt: int) -> int:
         gen.manual_seed(args.seed + 3)
         ctx = torch.randn((args.slots, cfg.n_ctx_tokens, cfg.d_model),
                           generator=gen, device=args.device) * 0.1
-    if args.device != "cpu":
-        torch.cuda.synchronize()
+    _sync(args.device)
     t0 = time.perf_counter()
     out = serve_step.generate_static(cfg, params, prompt, nt, ctx=ctx,
                                      temperature=args.temperature, key=key,
@@ -114,8 +181,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--workload", choices=("lm",), default="lm",
-                    help="what to serve (only the chat trace is ported)")
+    ap.add_argument("--workload", choices=("lm", "transcribe", "classify"),
+                    default="lm",
+                    help="what to serve: chat trace, streaming "
+                         "transcription, or image classification")
+    ap.add_argument("--streams", type=int, default=3,
+                    help="audio streams (--workload transcribe)")
+    ap.add_argument("--windows", type=int, default=2,
+                    help="windows per stream (--workload transcribe)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--slots", type=int, default=4)
@@ -166,7 +239,11 @@ def main(argv=None) -> int:
     cfg = configs.get(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.workload == "classify":
+        return _run_classify(cfg, args)
     params = lm.init_params(cfg, args.seed, device=args.device)
+    if args.workload == "transcribe":
+        return _run_transcribe(cfg, params, args)
     pl = max(4, args.prompt_len)
     nt = max(2, args.new_tokens)
     trace = synthetic_trace(

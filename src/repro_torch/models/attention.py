@@ -120,21 +120,52 @@ def _causal_mask(sq: int, sk: int, q0: int, window: int = 0, device=None):
 def attention(cfg, p: dict, x: torch.Tensor, *, causal: bool = True,
               window: int = 0, q_chunk: int = 0,
               positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Self-attention over a full sequence (prefill): x (B, S, d) ->
-    (B, S, d).  Only the one-shot form (``q_chunk == 0``, or S <= q_chunk)
-    is ported; the reference's chunked-query scan is not."""
+    """Self-attention over a full sequence (training, prefill): x (B, S, d)
+    -> (B, S, d).
+
+    ``q_chunk > 0`` (with S > q_chunk, a multiple of it) runs the queries
+    in chunks of that size, bounding the live scores to q_chunk x S; a
+    window that is a multiple of q_chunk slices each chunk's keys to the
+    ``window + q_chunk`` band that reaches it (:func:`_band_mask`)
+    instead of masking the whole sequence."""
     b, s, _ = x.shape
-    if q_chunk and s > q_chunk:
-        raise NotImplementedError(
-            "chunked-query attention (q_chunk > 0) is not ported")
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q = _project_q(cfg, p, x, positions)
     k, v = _expand_kv(cfg, *_project_kv(cfg, p, x, positions))
-    mask = _causal_mask(s, s, 0, window, x.device) if causal else None
-    out = _sdpa(cfg, q, k, v, mask)
+    if not q_chunk or s <= q_chunk:
+        mask = _causal_mask(s, s, 0, window, x.device) if causal else None
+        out = _sdpa(cfg, q, k, v, mask)
+    else:
+        if s % q_chunk:
+            raise ValueError(f"sequence {s} is not a multiple of "
+                             f"q_chunk {q_chunk}")
+        outs = []
+        for q0 in range(0, s, q_chunk):
+            qc = q[:, q0:q0 + q_chunk]
+            if window and window % q_chunk == 0:
+                span = window + q_chunk
+                k0 = max(q0 + q_chunk - span, 0)
+                mask = _band_mask(q_chunk, span, q0, k0, window, x.device)
+                outs.append(_sdpa(cfg, qc, k[:, k0:k0 + span],
+                                  v[:, k0:k0 + span], mask))
+            else:
+                mask = (_causal_mask(q_chunk, s, q0, window, x.device)
+                        if causal else None)
+                outs.append(_sdpa(cfg, qc, k, v, mask))
+        out = torch.cat(outs, dim=1)
     return layers.linear(out.reshape(b, s, cfg.n_heads * cfg.d_head),
                          p["wo"], cfg.quant)
+
+
+def _band_mask(sq: int, span: int, q0: int, k0: int, window: int,
+               device=None):
+    """(1, sq, span) bool for a query chunk at q0 against the keys
+    k0 .. k0 + span - 1 (``k0`` already clamped at 0): causal within the
+    trailing window."""
+    qpos = q0 + torch.arange(sq, device=device)[:, None]
+    kpos = k0 + torch.arange(span, device=device)[None, :]
+    return ((kpos <= qpos) & (kpos > qpos - window))[None]
 
 
 def cross_attention(cfg, p: dict, x: torch.Tensor, ctx_kv) -> torch.Tensor:

@@ -19,8 +19,9 @@ its decode only reads the state.
 
 The module also carries the classifier-as-generation plumbing: the
 stripe images of :mod:`models.xnor_classifier` drawn with the reference's
-random bits (:func:`synthetic_images`), and images -> context rows
-(:func:`image_ctx`).  A class id is a vocab id; a request is one
+random bits (:func:`synthetic_images`), images -> context rows
+(:func:`image_ctx`) and full-batch SGD on the stripe task
+(:func:`train_classifier`).  A class id is a vocab id; a request is one
 ``QUERY_TOKEN`` prompt whose greedy next token is the class.
 """
 
@@ -29,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import prng
+from repro_torch import resolve_device
+from repro_torch.core import prng, verify
 from repro_torch.models import layers, xnor_classifier
 from repro_torch.models.blocks import PagedLayout
 from repro_torch.models.params import ParamDef
@@ -130,3 +132,52 @@ def image_ctx(cfg, images) -> np.ndarray:
             f"n_ctx_tokens*d_model = {cfg.n_ctx_tokens}*{cfg.d_model} = "
             f"{want}")
     return flat.reshape(len(images), cfg.n_ctx_tokens, cfg.d_model)
+
+
+def train_classifier(cfg, *, steps: int = 150, lr: float = 0.1,
+                     n_train: int = 512, seed: int = 0, init=None,
+                     device="cuda"):
+    """Train the LM-shaped classifier end to end (the straight-through
+    estimator through the binary layers) on the stripe task by full-batch
+    SGD -> (params, train accuracy).
+
+    The model is queried as it is served: one ``QUERY_TOKEN`` prompt, the
+    image as context, the class the argmax over the whole vocab at the
+    last position, so training also pushes the non-class ids down and
+    greedy sampling emits a class id.  Parameters start from ``init``
+    (a copy of it; a tree converted from the JAX package's, say) or from
+    ``lm.init_params(cfg, seed)``; the images come from the :mod:`core.
+    prng` key ``seed + 1``, as the reference draws them.  Runs on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    from repro_torch.models import lm  # lm imports the block registry
+
+    dev = resolve_device(device)
+    if init is None:
+        init = lm.init_params(cfg, seed, device=dev)
+    params = verify.tree_map(lambda p: p.detach().to(dev, copy=True), init)
+    imgs, y = synthetic_images(prng.PRNGKey(seed + 1, device=dev), n_train)
+    ctx = torch.from_numpy(image_ctx(cfg, imgs)).to(dev)
+    tokens = torch.full((n_train, 1), QUERY_TOKEN, dtype=torch.int32,
+                        device=dev)
+    y = y.to(dev, torch.int64)
+    leaves = [p for _, p in verify.tree_flatten_with_path(params)]
+
+    def loss_fn():
+        logits, _ = lm.forward(cfg, params, tokens, ctx)
+        logp = torch.log_softmax(logits[:, -1, :cfg.vocab].float(), dim=-1)
+        return -logp.gather(1, y[:, None]).mean()
+
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    for _ in range(steps):
+        grads = torch.autograd.grad(loss_fn(), leaves)
+        with torch.no_grad():
+            for w, g in zip(leaves, grads):
+                w.sub_(lr * g)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    with torch.no_grad():
+        logits, _ = lm.forward(cfg, params, tokens, ctx)
+        acc = float((logits[:, -1, :cfg.vocab].argmax(-1) == y)
+                    .float().mean())
+    return params, acc

@@ -42,6 +42,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, moe, registry, ssm
@@ -53,6 +54,8 @@ from repro_torch.models.registry import BlockContract, register
 class FwdOpts(NamedTuple):
     want_state: bool = False  # prefill: return the decode state
     s_max: int = 0            # cache capacity when want_state
+    q_chunk: int = 0          # self-attention's queries in chunks of this
+    aux: list | None = None   # where a routed FFN appends its aux loss
 
 
 def _norm_def(cfg, n):
@@ -238,9 +241,10 @@ class _FfnBlock(PagedLayout):
         return {f"ffn_{k}": v for k, v in layers.ffn_defs(cfg, n).items()}
 
     @classmethod
-    def _ffn(cls, cfg, p, h, valid=None):
+    def _ffn(cls, cfg, p, h, valid=None, aux=None):
         """The FFN of the normed residual ``h`` (dense SwiGLU); ``valid``
-        marks a chunk's real tokens, which only a routed FFN reads."""
+        marks a chunk's real tokens and ``aux`` (a list, or None) takes
+        the auxiliary loss, which only a routed FFN reads or has."""
         return layers.ffn(cfg, _sub(p, "ffn_"), h)
 
     @staticmethod
@@ -252,11 +256,11 @@ class _FfnBlock(PagedLayout):
         return x + a, layers.rms_norm(x.float() + a, scale, dtype=x.dtype)
 
     @classmethod
-    def _residual_ffn(cls, cfg, p, x, a, valid=None):
+    def _residual_ffn(cls, cfg, p, x, a, valid=None, aux=None):
         """The mixer's output ``a`` joins the residual; ln2 of the sum
         (:meth:`_add_norm`) feeds the FFN."""
         x, h = cls._add_norm(x, a, p["ln2"])
-        return x + cls._ffn(cfg, p, h, valid)
+        return x + cls._ffn(cfg, p, h, valid, aux)
 
 
 @register
@@ -289,8 +293,9 @@ class AttnBlock(_FfnBlock):
             k, v = attn_mod._project_kv(cfg, ap, h, positions)
             cap = min(opts.s_max, win) if win else opts.s_max
             state = _kv_from_seq(cfg, k, v, cap, rolling=bool(win))
-        a = attn_mod.attention(cfg, ap, h, causal=cls.causal, window=win)
-        return cls._residual_ffn(cfg, p, x, a), state
+        a = attn_mod.attention(cfg, ap, h, causal=cls.causal, window=win,
+                               q_chunk=opts.q_chunk)
+        return cls._residual_ffn(cfg, p, x, a, aux=opts.aux), state
 
     @classmethod
     def decode(cls, cfg, p, x, state, pos, table, valid=None, ctx=None):
@@ -351,9 +356,11 @@ class MoeBlock(AttnBlock):
         return {f"moe_{k}": v for k, v in moe.moe_defs(cfg, n).items()}
 
     @classmethod
-    def _ffn(cls, cfg, p, h, valid=None):
-        # the aux loss has no consumer on the serving path
-        return moe.moe_ffn(cfg, _sub(p, "moe_"), h, valid=valid)[0]
+    def _ffn(cls, cfg, p, h, valid=None, aux=None):
+        y, loss = moe.moe_ffn(cfg, _sub(p, "moe_"), h, valid=valid)
+        if aux is not None:
+            aux.append(loss)
+        return y
 
 
 @register
@@ -599,7 +606,7 @@ class SlstmBlock(_FfnBlock):
         }
 
     @classmethod
-    def _ffn(cls, cfg, p, h, valid=None):
+    def _ffn(cls, cfg, p, h, valid=None, aux=None):
         a, g = layers.linear(h, p["w_up"], cfg.quant).chunk(2, dim=-1)
         return layers.linear(a * layers.gelu(g), p["w_down"], cfg.quant)
 
@@ -736,7 +743,7 @@ class DecBlock(_FfnBlock):
             positions = torch.arange(h.shape[1], device=h.device)
             k, v = attn_mod._project_kv(cfg, ap, h, positions)
             self_state = _kv_from_seq(cfg, k, v, opts.s_max)
-        a = attn_mod.attention(cfg, ap, h, causal=True)
+        a = attn_mod.attention(cfg, ap, h, causal=True, q_chunk=opts.q_chunk)
         ctx_kv = attn_mod.make_ctx_kv(cfg, _sub(p, "xattn_"), ctx)
         x = cls._cross_ffn(cfg, p, x, a, ctx_kv, attn_mod.cross_attention)
         state = None
@@ -791,18 +798,38 @@ def segment_defs(cfg, segments=None) -> list:
 
 
 def segment_fwd(cfg, seg_params: list, x, opts: FwdOpts = FwdOpts(),
-                ctx=None):
-    """Every segment over a full sequence -> (x, per-segment layer-stacked
-    states, or Nones without ``opts.want_state``)."""
-    states = []
+                ctx=None, remat: bool = False):
+    """Every segment over a full sequence -> (x, the layers' summed
+    auxiliary loss (f32 scalar: the routed FFNs' load balance, 0 without
+    one), per-segment layer-stacked states, or Nones without
+    ``opts.want_state``).  ``remat`` checkpoints each layer: under
+    autograd its activations are recomputed in the backward pass instead
+    of kept, which changes no value."""
+    aux, states = None, []
     for (kind, n), p in seg_params:
         block = registry.get(kind)
         sts = []
         for i in range(n):
-            x, st = block.fwd(cfg, layer_params(p, i), x, opts, ctx)
+            x, a, st = _layer_fwd(cfg, block, layer_params(p, i), x, opts,
+                                  ctx, remat)
+            if a is not None:
+                aux = a if aux is None else aux + a
             sts.append(st)
         states.append(_stack(sts))
-    return x, states
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, states
+
+
+def _layer_fwd(cfg, block, p: dict, x, opts: FwdOpts, ctx, remat: bool):
+    """One layer's ``fwd`` -> (x, its aux loss or None, state)."""
+    def run(x):
+        sink = []
+        y, st = block.fwd(cfg, p, x, opts._replace(aux=sink), ctx)
+        return y, (sink[0] if sink else None), st
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+    return run(x)
 
 
 def _block_table(block, tables):

@@ -23,8 +23,8 @@ def row_sum(x: torch.Tensor, square: bool = False) -> torch.Tensor:
     reduction splits a row over more threads the fewer rows there are, so
     a decode step's rows (the engine's slots) would change each other's
     bits (fault F4); fewer than ``SUM_ROWS`` rows of more than 32 are
-    summed in a ``SUM_ROWS``-row buffer.  On the CPU torch's own sum,
-    which reads each row alone."""
+    summed in a ``SUM_ROWS``-row buffer (zero-padded under autograd).  On
+    the CPU torch's own sum, which reads each row alone."""
     n = x.shape[-1]
     if not x.is_cuda or n <= 32 or x.numel() >= SUM_ROWS * n:
         return (x * x if square else x).sum(-1, keepdim=True)
@@ -36,12 +36,18 @@ def _padded_sum(x: torch.Tensor, square: bool = False) -> torch.Tensor:
     written into its first rows, one reduction; the other rows are left
     unset and their sums dropped."""
     flat = x.reshape(-1, x.shape[-1])
-    buf = flat.new_empty((SUM_ROWS, flat.shape[1]))
-    rows = buf[:flat.shape[0]]
-    if square:
-        torch.mul(flat, flat, out=rows)
+    if flat.requires_grad and torch.is_grad_enabled():
+        # autograd does not record writes into a buffer: pad instead
+        rows = flat * flat if square else flat
+        buf = torch.nn.functional.pad(rows, (0, 0, 0,
+                                             SUM_ROWS - flat.shape[0]))
     else:
-        rows.copy_(flat)
+        buf = flat.new_empty((SUM_ROWS, flat.shape[1]))
+        rows = buf[:flat.shape[0]]
+        if square:
+            torch.mul(flat, flat, out=rows)
+        else:
+            rows.copy_(flat)
     return buf.sum(-1, keepdim=True)[:flat.shape[0]].reshape(
         *x.shape[:-1], 1)
 
@@ -111,7 +117,7 @@ def silu(g: torch.Tensor, f32: bool = False) -> torch.Tensor:
     an f32 cast follows.  Subnormals are the platform's: XLA's CPU and
     the TPU flush them to zero, torch keeps them unless
     ``torch.set_flush_denormal`` is on."""
-    r = torch.exp(-g).add_(1).reciprocal_()
+    r = torch.reciprocal(torch.exp(-g) + 1)
     return g.float() * r.float() if f32 else g * r
 
 

@@ -1,9 +1,12 @@
-"""Language-model assembly for the serve path: embeddings, the
+"""Language-model assembly for training and the serve path: embeddings, the
 per-segment blocks, the full-precision head.
 
 Public surface:
   param_defs / abstract_params / init_params / pack_params
+  param_count / active_param_count / model_flops
   encode                                               (enc-dec archs)
+  forward(cfg, params, tokens, ctx) -> (logits, aux)   (training)
+  loss_fn(cfg, params, batch) -> (loss, metrics)
   decode_state_spec / prefill / decode_step            (dense layout)
   paged_table_widths / paged_decode_state_spec
   paged_decode_step(cfg, params, token, state, tables, active)
@@ -75,12 +78,80 @@ def _seg_params(cfg, params, enc: bool = False):
             for i, (kind, n) in enumerate(segs)]
 
 
-def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
+def param_count(cfg) -> int:
+    return pdefs.count(param_defs(cfg))
+
+
+def active_param_count(cfg) -> int:
+    """Parameters a token touches: all but the embedding table (a gather)
+    and the experts a routed layer does not pick."""
+    inactive = cfg.vocab * cfg.d_model
+    if cfg.n_experts:
+        per_expert = 3 * cfg.d_model * cfg.d_ff_expert
+        n_routed = sum(1 for k in cfg.layer_kinds()
+                       if registry.contract(k).routed_experts)
+        inactive += n_routed * (cfg.n_experts - cfg.top_k) * per_expert
+    return param_count(cfg) - inactive
+
+
+def model_flops(cfg, kind: str, tokens: int) -> float:
+    """6 N_active D for training (``kind="train"``), 2 N_active D for an
+    inference forward."""
+    return (6.0 if kind == "train" else 2.0) * active_param_count(cfg) \
+        * tokens
+
+
+def encode(cfg, params, frames: torch.Tensor,
+           q_chunk: int = 0) -> torch.Tensor:
     """The enc-dec encoder over frame embeddings (B, T, d) -> the encoded
     frames (B, T, d) in the config's dtype, final-normed."""
-    x, _ = blocks.segment_fwd(cfg, _seg_params(cfg, params, enc=True),
-                              frames.to(cfg.dtype))
+    x, _, _ = blocks.segment_fwd(cfg, _seg_params(cfg, params, enc=True),
+                                 frames.to(cfg.dtype),
+                                 blocks.FwdOpts(q_chunk=q_chunk))
     return layers.rms_norm(x, params["enc_norm"])
+
+
+def forward(cfg, params, tokens: torch.Tensor,
+            ctx: torch.Tensor | None = None, q_chunk: int = 0,
+            remat: bool = False):
+    """tokens (B, S) -> (logits (B, S, V), the summed aux loss, f32).
+    ``ctx`` (B, T_ctx, d): an enc-dec arch's frames (encoded first) or a
+    vlm's patch rows.  ``remat`` checkpoints each decoder layer
+    (:func:`blocks.segment_fwd`)."""
+    x = layers.embed(params["embed"], tokens).to(cfg.dtype)
+    if cfg.is_encdec():
+        if ctx is None:
+            raise ValueError(f"arch {cfg.name} needs encoder frames")
+        ctx = encode(cfg, params, ctx, q_chunk)
+    elif ctx is not None:
+        ctx = ctx.to(cfg.dtype)
+    x, aux, _ = blocks.segment_fwd(cfg, _seg_params(cfg, params), x,
+                                   blocks.FwdOpts(q_chunk=q_chunk), ctx,
+                                   remat=remat)
+    return layers.logits(cfg, params["embed"], x), aux
+
+
+def loss_fn(cfg, params, batch: dict, q_chunk: int = 0, remat: bool = True):
+    """Next-token cross-entropy over ``batch`` {tokens (B, S), labels (B,
+    S) shifted by the data pipeline, -1 where there is no next token;
+    ctx for context archs} -> (loss, {ce, aux, tokens}); loss = ce +
+    ``router_aux_weight`` * aux.  The picked logit is a one-hot
+    contraction over the vocab, as the reference takes it."""
+    logits, aux = forward(cfg, params, batch["tokens"], batch.get("ctx"),
+                          q_chunk=q_chunk, remat=remat)
+    labels = batch["labels"]
+    valid = labels >= 0
+    labels = labels.clamp_min(0)
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    onehot = labels[..., None] == torch.arange(logits.shape[-1],
+                                               device=logits.device)
+    picked = (logits32 * onehot).sum(-1)
+    ll = picked - lse
+    n_valid = valid.sum()
+    ce = -(ll * valid).sum() / n_valid.clamp_min(1)
+    loss = ce + cfg.router_aux_weight * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": n_valid.to(torch.int32)}
 
 
 class DecodeState(NamedTuple):
@@ -124,8 +195,8 @@ def prefill(cfg, params, tokens: torch.Tensor, s_max: int,
         ctx = ctx.to(cfg.dtype)
     x = layers.embed(params["embed"], tokens).to(cfg.dtype)
     opts = blocks.FwdOpts(want_state=True, s_max=s_max)
-    x, states = blocks.segment_fwd(cfg, _seg_params(cfg, params), x, opts,
-                                   ctx)
+    x, _, states = blocks.segment_fwd(cfg, _seg_params(cfg, params), x,
+                                      opts, ctx)
     logits = layers.logits(cfg, params["embed"], x[:, -1:])
     pos = torch.tensor(tokens.shape[1], dtype=torch.int32,
                        device=tokens.device)

@@ -81,6 +81,42 @@ class Session:
             self.t_admit - self.t_submit
 
 
+@dataclasses.dataclass
+class TranscriptStream:
+    """One streaming-transcription input: an ordered sequence of fixed-size
+    encoder windows (each ``(n_ctx_tokens, d_model)`` frame embeddings).
+
+    Windows are transcribed incrementally: window ``w+1``'s decode prompt
+    is conditioned on the transcript emitted for windows ``0..w``, so a
+    stream is a chain of dependent one-window sessions.  Streams are
+    independent of each other and interleave freely in the slot pool.
+    """
+
+    sid: int
+    windows: list                      # [(n_ctx_tokens, d_model) float32]
+
+    def __post_init__(self):
+        if self.sid < 0:
+            raise ValueError(f"stream id must be >= 0, got {self.sid}")
+        if not self.windows:
+            raise ValueError(f"stream {self.sid} has no windows")
+
+
+def synthetic_audio_trace(n_streams: int, n_windows: int, *,
+                          n_ctx_tokens: int, d_model: int,
+                          seed: int = 0) -> list[TranscriptStream]:
+    """Seeded synthetic audio streams: ``n_streams`` streams of
+    ``n_windows`` frame-embedding windows (0.1 x standard normal) each.
+    The draws depend only on (seed, knobs), never on an engine's
+    schedule, so transcripts compare across slot counts and runs."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for sid in range(n_streams):
+        windows = [rng.standard_normal((n_ctx_tokens, d_model))
+                   .astype(np.float32) * 0.1 for _ in range(n_windows)]
+        out.append(TranscriptStream(sid=sid, windows=windows))
+    return out
+
 
 def synthetic_trace(n_requests: int, vocab: int, *, seed: int = 0,
                     prompt_lens: tuple = (4, 8, 12, 16),

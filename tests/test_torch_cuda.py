@@ -1028,3 +1028,79 @@ def test_cuda_xlstm_and_bindense_blocks_match_the_cpu(gpu, kind):
                 + blocks.state_leaves(first)]
     for got, want in zip(run(gpu), run("cpu")):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b+xnor", "moonshot-v1-16b-a3b"])
+def test_cuda_train_step_grads_match_cpu(gpu, arch):
+    """One train step at smoke size, f32, from the same parameters and
+    batch on the card and on the CPU: loss and gnorm within 1e-5, every
+    gradient within 2e-5 of its leaf's largest |g| (the tolerances the CPU
+    tests hold the port to against the reference; TF32 off)."""
+    import repro_torch.configs as configs
+    from repro_torch.core import verify
+    from repro_torch.data import synthetic
+    from repro_torch.train import train_step as train_mod
+
+    cfg = configs.get(arch).smoke(dtype=torch.float32)
+    params = train_mod.init_state(cfg, 0, device="cpu").params
+    host = synthetic.batch(0, 3, 2, 16, cfg.vocab)
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", gpu):
+            p = verify.tree_map(lambda t: t.to(dev, copy=True), params)
+            loss, m, g = train_mod._grads(cfg, p, synthetic.to_device(
+                host, dev))
+            out[str(dev)] = (loss, m, dict(
+                (verify.leaf_key(k), v)
+                for k, v in verify.tree_flatten_with_path(g)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    (lc, mc, gc), (lg, mg, gg) = out["cpu"], out["cuda"]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    torch.testing.assert_close(mg["aux"].cpu(), mc["aux"], rtol=1e-5,
+                               atol=1e-6)
+    for key, want in gc.items():
+        got = gg[key].cpu()
+        assert got.dtype == want.dtype and got.shape == want.shape, key
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 2e-5 * scale + 1e-12, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 2048])
+def test_cuda_train_mode_row_sums_do_not_depend_on_the_batch(gpu, d):
+    """Under autograd ``layers.row_sum`` pads its rows with zeros instead
+    of writing a buffer (autograd records no ``out=`` write): RMSNorm's
+    output row keeps the bits it has alone at 1 to 8 rows (H2) and equals
+    the inference form's, and the backward runs (its sums are autograd's
+    own; training does not serve slots)."""
+    from repro_torch.models import layers
+    g = torch.Generator(device=gpu)
+    g.manual_seed(d)
+    x = torch.randn((8, 1, d), generator=g, device=gpu)
+    scale = torch.randn((d,), generator=g, device=gpu)
+
+    def norm(rows):
+        leaf = rows.clone().requires_grad_(True)
+        y = layers.rms_norm(leaf, scale)
+        (y * y).sum().backward()
+        return y.detach(), leaf.grad
+    alone = [norm(x[j:j + 1]) for j in range(8)]
+    with torch.no_grad():
+        inference = torch.cat([layers.rms_norm(x[j:j + 1], scale)
+                               for j in range(8)])
+    assert torch.equal(torch.cat([a[0] for a in alone]), inference)
+    for b in range(1, 9):
+        y, grad = norm(x[:b])
+        for j in range(b):
+            assert torch.equal(y[j:j + 1], alone[j][0]), (b, j)
+        assert torch.isfinite(grad).all()
+        torch.testing.assert_close(grad, torch.cat([a[1] for a in alone[:b]]),
+                                   rtol=1e-5, atol=1e-6)
