@@ -17,6 +17,7 @@
                                              # H2 probe and phase 3f alone
     python3 chip_smoke.py --train            # phase 9 alone: training,
                                              # transcribe and classify
+    python3 chip_smoke.py --mesh             # phase 10 alone: the mesh
     python3 chip_smoke.py --slot-bits        # fault F4's probe: whether a
                                              # slot's bits hang on the batch
     python3 chip_smoke.py --paged-plans      # paged decode at W 2048, the
@@ -226,6 +227,33 @@ Phases (any failure raises and the script exits non-zero):
    served accuracy >= 0.9 on 32 held-out images, packed = float-sign
    classes, every launch held.  Each sub-phase's seconds are printed.
 
+10. The mesh (``mesh_phase``, run last), ranks spawned over gloo on the
+   one card (``launch.mesh.run_ranks``; NCCL refuses two ranks on one
+   GPU).  10a ``ShardedCimEngine`` at 4 ranks (axis ``bank``): the
+   reference's 20-case property sweep (sizes to 200,000 words, digest
+   widths 32/96/128/256, counters) and its edges in the global form, and
+   a 4 GB buffer, 1 GB a rank, in the local form; xor, xnor, the cipher
+   and its round trip, digests and digest rows bitwise equal to the
+   single-device ``CimEngine`` on the card (its outputs over the whole
+   buffer cut to each rank's chunk); every launch of ``bulk_xor``,
+   ``parity_digest`` and ``xor_cipher`` held bitwise against its plain
+   version; GB/s a rank per pass (unheld, the 4 ranks at once) and the
+   bytes that crossed ranks (the digests).  10b the sharded train step:
+   qwen2-7b+xnor, bf16, full width, ``MESH_LAYERS`` of 28 layers (the
+   deepest two ranks fit on the card after phases 1-9), batch
+   4 x 256, 2 ranks on ``data`` with ZeRO-3 blocks of the parameters and
+   both moments; two steps, each held against the single-process step
+   from the same state on the card (rank 0 alone, then freed: step 0
+   from the seed, step 1 from the sharded state after step 0 made whole)
+   at the CPU tests' bf16 tolerances: loss and ce, gnorm, every rank's
+   gradient blocks, and its parameter blocks where AdamW's move is
+   settled; each rank's state bytes, peak memory and host seconds inside
+   the collectives.  10c ``grad_compress="onebit_pod"`` at 2 ranks on ``pod``
+   (``MESH_ONEBIT_LAYERS`` layers): one step bit for bit against the
+   plain composition (each pod's unsharded gradients, the majority vote
+   written out, AdamW), and the bytes of sign planes that crossed.  A
+   rank that fails fails the script.
+
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -235,6 +263,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -1323,26 +1352,29 @@ def serve_slice(gpu: str) -> dict:
 
 
 class LaunchHolds:
-    """Phase 3b's per-launch holds.  Patches the five wrappers of the
-    serving tier where the port reaches them (module attributes); while
+    """Per-launch holds (phase 3b's first).  Patches the five wrappers of
+    the serving tier and ``bulk_xor`` where the port reaches them (module
+    attributes); while
     :attr:`active`, each launch is held against its plain version on the
     same inputs: every paged decode launch at :data:`FLASH_TOL`, and the
     first :attr:`per_key` launches of each shape of the others — the fused
     linear within 2e-5 (f32) or 2^-8 (bf16, the kernel's f32 alpha against
     the reference's rounded one) and bitwise against the plain version
     summed in the kernel's order, ``pack``'s planes bitwise and alpha
-    within 1e-6 or 2^-8, ``parity_digest`` and ``xor_cipher`` bitwise.
+    within 1e-6 or 2^-8, ``bulk_xor``, ``parity_digest`` and
+    ``xor_cipher`` bitwise.
     While not active (the timed runs), each launch's shape is recorded so
     that :meth:`check` can require it to be one that was held."""
 
     def __init__(self, per_key: int = 28):
-        from repro_torch.kernels import cipher, pack, paged_attn, parity
-        from repro_torch.kernels import xnor_gemm
+        from repro_torch.kernels import bulk, cipher, pack, paged_attn
+        from repro_torch.kernels import parity, xnor_gemm
         self.per_key, self.active = per_key, False
         self.held, self.worst, self.unheld = {}, {}, set()
         self.sites = {"xnor_linear_fused": xnor_gemm, "pack": pack,
                       "paged_decode_attention": paged_attn,
-                      "parity_digest": parity, "xor_cipher": cipher}
+                      "parity_digest": parity, "xor_cipher": cipher,
+                      "bulk_xor": bulk}
         self.orig = {n: getattr(m, n) for n, m in self.sites.items()}
 
     @staticmethod
@@ -1358,6 +1390,8 @@ class LaunchHolds:
             return (name, dt, *a.shape)
         if name == "xor_cipher":
             return (name, a.numel())
+        if name == "bulk_xor":
+            return (name, a.numel(), bool(kw.get("invert", False)))
         return (name, a.numel(), *args[1:], *sorted(kw.items()))
 
     def _hold(self, name, out, args, kw) -> float:
@@ -1436,7 +1470,8 @@ class LaunchHolds:
         for name in self.sites:
             keys = sorted(k[1:] for k in self.held if k[0] == name)
             n = sum(v for k, v in self.held.items() if k[0] == name)
-            shown = "" if name in ("parity_digest", "xor_cipher") else \
+            shown = "" if name in ("bulk_xor", "parity_digest",
+                                   "xor_cipher") else \
                 f"; shapes {keys}"
             print(f"[{label}] held against the plain version: {name}, {n} "
                   f"launches at {len(keys)} shapes, max abs err "
@@ -1497,7 +1532,9 @@ def tier_runs(gpu: str, holds: LaunchHolds) -> dict:
     from repro_torch.serve import Router, ServeEngine
     from repro_torch.train import serve_step
 
-    kernels = tuple(holds.orig.values())     # the wrappers themselves
+    kernels = [holds.orig[n] for n in (     # the wrappers themselves
+        "xnor_linear_fused", "pack", "paged_decode_attention",
+        "parity_digest", "xor_cipher")]
     cfg = configs.get("qwen2-7b+xnor")
     trace = slice_trace(cfg.vocab)
     directory = ROOT / "experiments" / "chip_smoke_router"
@@ -3605,6 +3642,700 @@ def training(gpu: str) -> dict:
     return launches
 
 
+# -- phase 10: the mesh ----------------------------------------------------
+
+# 10b's depth, the deepest two ranks fit on the card after phases 1-9: on
+# an H100 80GB HBM3 at 700 W, 9 layers fit with phase 10 alone (34.56 GiB
+# peak a rank) but ran out of memory in AdamW after phases 1-9; 10 never
+# fit
+MESH_LAYERS = 8
+MESH_ONEBIT_LAYERS = 2  # 10c's depth
+# tests/test_torch_train.py's bf16 tolerances (10b)
+TRAIN_BF16_GRAD_REL = 2 ** -5
+TRAIN_BF16_SETTLED = 2 ** -4
+TRAIN_BF16_PARAM_TOL = dict(rtol=2 ** -7, atol=1e-6)
+# AdamW (optim/adamw.py's b1 and eps).  Its step from zero moments moves
+# an element by lr g / (|g| + eps): saturated at lr where |g| >= 2^7 eps,
+# else following |g|'s last bits, which two bf16 roundings of the summed
+# shares move by a few per cent (the full-width binary layers' gradients
+# lie at 1e-8 to 3e-7).  From nonzero moments the move lr m^ / (sqrt(v^)
+# + eps) is nowhere saturated and follows the gradient's own difference
+ADAMW_B1, ADAMW_EPS = 0.9, 1e-8
+ADAMW_SATURATED = 2 ** 7 * ADAMW_EPS
+
+
+def _engine_cases(ref, rng) -> list:
+    """The reference's 20-case sweep and the edges, each with the
+    single-device engine's outputs on the card: [(inputs, outputs)]."""
+    import numpy as np
+    import torch
+
+    shapes = [(int(rng.integers(1, 200_000)),
+               int(rng.choice([32, 96, 128, 256])),
+               int(rng.integers(0, 2**32)), int(rng.integers(1, 400_000)))
+              for _ in range(20)]
+    shapes += [(1, 96, 5, 1000), (3 * 1024 + 5, 96, 2**32 - 1000, 1000),
+               (0, 96, 0, 1000)]
+    cases = []
+    for n, width, ctr, chunk in shapes:
+        a, b = (torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)
+                                 .view(np.int32)).cuda() for _ in range(2))
+        key = [int(k) for k in rng.integers(0, 2**32, 2)]
+        want = (ref.xor(a, b), ref.xnor(a, b),
+                ref.stream_cipher(a, key, ctr), a,
+                ref.digest(a, width), ref.digest_chunks(a, chunk, width))
+        cases.append(((n, width, ctr, chunk, a, b, key), want))
+    return cases
+
+
+def _engine_case(eng, case, want) -> None:
+    """One sweep case through the sharded engine's global form, bitwise
+    against the single-device engine's outputs (cut to this rank's
+    chunk where the output is a word stream)."""
+    import torch
+
+    n, width, ctr, chunk, a, b, key = case
+    s0, s1 = eng.local_range(n)
+    enc = eng.stream_cipher(a, key, ctr)
+    got = (eng.xor(a, b), eng.xnor(a, b), enc,
+           eng.stream_cipher_local(enc, key, n, ctr), eng.digest(a, width),
+           eng.digest_chunks(a, chunk, width))
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w[s0:s1] if i < 4 else w
+        assert torch.equal(g, w), (i, n, width, ctr, chunk)
+
+
+def mesh_engine_rank(rank: int, gpu: str, n_words: int) -> dict:
+    """10a on one of 4 gloo ranks: ShardedCimEngine (axis ``bank``) held
+    bitwise against the single-device CimEngine on the same card, over
+    the reference's 20-case property sweep (global form), the edges, and
+    a 4-rank buffer of ``n_words`` words, 1 GB a rank (local form: the
+    rank keeps its chunk alone; the single-device engine's outputs over
+    the whole buffer are cut to the same chunk).  Every launch of the
+    three kernels held bitwise against its plain version
+    (:class:`LaunchHolds`).  Then the local form once more unheld, timed
+    with CUDA events after a barrier (all ranks share the card at
+    once)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import CimEngine, ShardedCimEngine
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_mod
+
+    mesh = mesh_mod.make_engine_mesh(4)
+    eng, ref = ShardedCimEngine(mesh), CimEngine()
+    assert eng.geometry.devices == 4
+    assert ref.cycles_for(1 << 30) == 4 * eng.cycles_for(1 << 30)
+    key, ctr, width = [0x9E3779B9, 0x7F4A7C15], 2**32 - 12345, 128
+
+    # the single-device engine over the whole buffer, cut to this chunk
+    g = torch.Generator("cuda")
+    g.manual_seed(SEED)
+    a = torch.randint(-2**31, 2**31, (n_words,), dtype=torch.int32,
+                      device="cuda", generator=g)
+    b = torch.randint(-2**31, 2**31, (n_words,), dtype=torch.int32,
+                      device="cuda", generator=g)
+    s0, s1 = eng.local_range(n_words)
+    want = {}
+    for name, fn in (("xor", lambda: ref.xor(a, b)),
+                     ("xnor", lambda: ref.xnor(a, b)),
+                     ("cipher", lambda: ref.stream_cipher(a, key, ctr))):
+        out = fn()
+        want[name] = out[s0:s1].clone()
+        del out
+    want["digest"] = ref.digest(a, width)
+    want["digest_b"] = ref.digest(b, 256)
+    ca, cb = a[s0:s1].clone(), b[s0:s1].clone()
+    del a, b
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    cases = _engine_cases(ref, np.random.default_rng(SEED))
+    names = ("bulk_xor", "parity_digest", "xor_cipher")
+    with LaunchHolds(per_key=10**9) as holds:
+        kernels = [holds.orig[n] for n in names]
+        holds.active = True
+        for f in kernels:
+            f.launches = 0
+        sharding.reset_counts()
+        for case, want_case in cases:
+            _engine_case(eng, case, want_case)
+        got = {"xor": eng.xor_local(ca, cb, n_words),
+               "xnor": eng.xnor_local(ca, cb, n_words),
+               "cipher": eng.stream_cipher_local(ca, key, n_words, ctr),
+               "digest": eng.digest_local(ca, n_words, width),
+               "digest_b": eng.digest_local(cb, n_words, 256)}
+        back = eng.stream_cipher_local(got["cipher"], key, n_words, ctr)
+        torch.cuda.synchronize()
+        launches = {f.__name__: f.launches for f in kernels}
+    holds.check(gpu, f"mesh rank {rank}")
+    held = {n: sum(v for k, v in holds.held.items() if k[0] == n)
+            for n in names}
+    assert held == launches and all(launches.values()), (held, launches)
+    crossed = sharding.all_gather.bytes
+    for name, w in want.items():
+        assert torch.equal(got[name], w), f"10a: {name} at {n_words} words"
+    assert torch.equal(back, ca), "10a: the cipher's round trip"
+    del got, back, want
+
+    # unheld and timed: the local form over this rank's 1 GB chunk
+    dist.barrier()
+    ms = {}
+    for name, fn in (
+            ("xor", lambda: eng.xor_local(ca, cb, n_words)),
+            ("digest", lambda: eng.digest_local(ca, n_words, width)),
+            ("cipher", lambda: eng.stream_cipher_local(ca, key, n_words,
+                                                        ctr))):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end) / 5
+        del out
+    gb = ca.numel() * 4 / 1e9
+    return {"launches": launches, "held": held, "crossed": crossed,
+            "gb": gb, "gb_s": {k: gb / (v / 1e3) for k, v in ms.items()},
+            "ms": ms, "peak": torch.cuda.max_memory_allocated()}
+
+
+def mesh_engine(gpu: str) -> dict:
+    """10a: 4 ranks, 4 GB -> the three kernels' launches (all ranks)."""
+    from repro_torch.launch import mesh as mesh_mod
+    n_words = 4 * 2**28
+    ranks = mesh_mod.run_ranks(mesh_engine_rank, 4, gpu, n_words,
+                               timeout_s=600)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    held = {k: sum(r["held"][k] for r in ranks) for k in ranks[0]["held"]}
+    print(f"[mesh] 10a ShardedCimEngine, 4 gloo ranks on one card: the "
+          f"reference's 20-case sweep, the edges and a {n_words} -word "
+          f"buffer ({n_words * 4 / 1e9} GB, {ranks[0]['gb']} GB a rank) "
+          f"bitwise equal to the single-device CimEngine; launches {launches}"
+          f", every one held bitwise against its plain version ({held})  "
+          f"[{gpu}]")
+    for i, r in enumerate(ranks):
+        print(f"[mesh] 10a rank {i}: GB/s of its 1 GB chunk per pass "
+              f"(unheld, 4 ranks at once) {r['gb_s']}, ms {r['ms']}; bytes "
+              f"that crossed ranks {r['crossed']} (digests only); peak "
+              f"{r['peak'] / 2**30} GiB  [{gpu}]")
+    total = {k: sum(r["gb_s"][k] for r in ranks) for k in ranks[0]["gb_s"]}
+    print(f"[mesh] 10a the 4 ranks together: GB/s {total}  [{gpu}]")
+    return launches
+
+
+def _mesh_cfg(layers: int):
+    import repro_torch.configs as configs
+    return dataclasses.replace(configs.get("qwen2-7b+xnor"), n_layers=layers)
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Host seconds inside ``sharding``'s two collectives, each bracketed
+    by CUDA synchronizes so that it is charged its own time and not that
+    of the kernels queued before it -> {name: seconds}."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    orig = {n: getattr(sharding, n) for n in ("all_gather", "all_reduce")}
+    took = dict.fromkeys(orig, 0.0)
+
+    def wrap(name):
+        fn = orig[name]
+
+        @functools.wraps(fn, updated=())
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            took[name] += time.perf_counter() - t0
+            return out
+        timed.__dict__ = fn.__dict__         # one call and byte count
+        return timed
+    for n in orig:
+        setattr(sharding, n, wrap(n))
+    try:
+        yield took
+    finally:
+        for n, f in orig.items():
+            setattr(sharding, n, f)
+
+
+def _data_dim(spec):
+    """The dim a placement splits over ``data`` (10b's mesh splits no
+    other), or None."""
+    dims = [d for d, axes in enumerate(spec)
+            if "data" in ((axes,) if isinstance(axes, str) else axes or ())]
+    assert len(dims) <= 1, spec
+    return dims[0] if dims else None
+
+
+def _block_shape(shape, spec) -> list:
+    d, out = _data_dim(spec), list(shape)
+    if d is not None:
+        out[d] = -(-out[d] // 2)
+    return out
+
+
+def _block(t, spec, r: int):
+    """Rank ``r``'s block of a whole leaf on 10b's (data 2, model 1)
+    mesh, in GSPMD's layout (ceiling division, the last block padded
+    with zeros), written out apart from ``sharding.shard``."""
+    import torch
+    d = _data_dim(spec)
+    if d is None:
+        return t
+    n, bs = t.shape[d], -(-t.shape[d] // 2)
+    start = min(r * bs, n)
+    b = t.narrow(d, start, min(start + bs, n) - start)
+    if b.shape[d] < bs:
+        pad = list(b.shape)
+        pad[d] = bs - b.shape[d]
+        b = torch.cat([b, b.new_zeros(pad)], d)
+    return b.contiguous()
+
+
+def _ref_block(rank: int, whole, spec, shape, dtype):
+    """This rank's block, on the card, of a reference leaf that rank 0
+    holds whole on its host: rank 0 cuts its own and broadcasts rank 1's."""
+    import torch
+    import torch.distributed as dist
+    other = _block(whole, spec, 1) if rank == 0 else torch.empty(
+        _block_shape(shape, spec), dtype=dtype)
+    dist.broadcast(other.view(torch.uint8), 0)
+    return (_block(whole, spec, 0) if rank == 0 else other).cuda()
+
+
+def _single_step(cfg, make, batch, s: int, kw: dict, m_prev=None) -> dict:
+    """Rank 0, alone on the card: the single-process train_step ``s`` from
+    the whole state ``make()`` returns, then freed -> its metrics, ms and
+    peak, the first moment after it on the host (and the parameters, at
+    step 0), and per leaf the largest |m - b1 m_prev| ((1 - b1) times the
+    clipped gradient; ``m_prev``: the first moment before the step on the
+    host, None for zeros)."""
+    import torch
+
+    from repro_torch.train import train_step as train_mod
+    state = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = train_mod.train_step(cfg, state, batch, s, **kw)
+    metrics = [float(m[k]) for k in ("loss", "ce", "gnorm")]
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"metrics": metrics, "ms": ms,
+           "peak": torch.cuda.max_memory_allocated(),
+           "params": [t.to("cpu", copy=True)
+                      for t in train_mod._leaves(state.params)] if s == 0
+           else None, "m": [], "gmax": []}
+    for i, t in enumerate(train_mod._leaves(state.opt.m)):
+        out["m"].append(t.to("cpu", copy=True))
+        out["gmax"].append(_gmax(t, None if m_prev is None else m_prev[i]))
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gmax(m, prev, piece: int = 1 << 25) -> float:
+    m, top = m.reshape(-1), 0.0
+    for s0 in range(0, m.numel(), piece):
+        d = m[s0:s0 + piece]
+        if prev is not None:
+            d = d - ADAMW_B1 * prev.reshape(-1)[s0:s0 + piece].cuda()
+        top = max(top, float(d.abs().max()))
+    return top
+
+
+def _single_step_from_blocks(rank: int, cfg, blocks: list, count, specs,
+                             like, batch, s: int, kw: dict) -> dict:
+    """The single-process step ``s`` from the sharded state (``blocks``:
+    this rank's leaves of the parameters, m and v, three lists in leaf
+    order; ``count``: AdamW's step).  Rank 1 moves its blocks to the
+    host and broadcasts those of the split leaves; rank 0 builds the
+    whole state beside its own blocks (new tensors: its blocks stay as
+    they are) and runs :func:`_single_step` on it; then rank 1's blocks
+    go back to the card.  ``blocks`` is updated in place -> the step's
+    outputs on rank 0, {} on rank 1."""
+    import torch
+    import torch.distributed as dist
+    if rank == 1:
+        for leaves in blocks:
+            for i in range(len(leaves)):
+                leaves[i] = leaves[i].to("cpu")
+        gc.collect()
+        torch.cuda.empty_cache()
+    whole, m_prev = [[], [], []], []
+    for j, leaves in enumerate(blocks):
+        for i, t in enumerate(leaves):
+            (_, a), spec = like[i], specs[i]
+            d = _data_dim(spec)
+            if d is None:
+                if rank == 0:
+                    whole[j].append(t.clone())
+                continue
+            other = t if rank == 1 else torch.empty(
+                _block_shape(a.shape, spec), dtype=t.dtype)
+            dist.broadcast(other.view(torch.uint8), 1)
+            if rank == 0:
+                whole[j].append(torch.cat([t, other.cuda()], d).narrow(
+                    d, 0, a.shape[d]).contiguous())
+            del other
+        if rank == 0 and j == 1:
+            m_prev = [t.to("cpu", copy=True) for t in whole[1]]
+
+    def make():
+        state = _state_of(cfg, whole, count.clone())
+        whole.clear()
+        return state
+    out = _single_step(cfg, make, batch, s, kw, m_prev) if rank == 0 else {}
+    del m_prev
+    dist.barrier()
+    if rank == 1:
+        for leaves in blocks:
+            for i, t in enumerate(leaves):
+                leaves[i] = t.cuda()
+    return out
+
+
+def _state_of(cfg, leaves: list, count):
+    """A TrainState from three lists of leaves (parameters, m, v, in leaf
+    order) and AdamW's step."""
+    from repro_torch.core import verify
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as train_mod
+    trees = []
+    for part in leaves:
+        it = iter(part)
+        trees.append(verify.tree_map(lambda _: next(it),
+                                     lm.abstract_params(cfg)))
+    return train_mod.TrainState(trees[0], adamw.AdamWState(count, *trees[1:]))
+
+
+def _hold_leaf(got, want, m, top: float, lr: float, worst: dict,
+               piece: int = 1 << 25) -> tuple[bool, int]:
+    """One leaf's parameter block against the reference's after a first
+    step from one state -> (whether it holds, its settled elements).
+    Held at the CPU tests' bf16 tolerance where the step is settled:
+    |m| = (1 - b1) |g| at least ``TRAIN_BF16_SETTLED`` of the leaf's
+    largest (``top``) and |g| at least ``ADAMW_SATURATED``.  Elsewhere
+    two runs' moves part by up to 2 lr whatever their gradients, so
+    nothing is held there; the largest distance in lr is printed.
+    Compared in ``piece``-element slices, so the check adds little to
+    the step's peak."""
+    import torch
+    ok, n = True, 0
+    got, want, m = (x.reshape(-1) for x in (got, want, m))
+    for s0 in range(0, got.numel(), piece):
+        g, w = got[s0:s0 + piece].float(), want[s0:s0 + piece].float()
+        mo = m[s0:s0 + piece].abs()
+        firm = (mo >= TRAIN_BF16_SETTLED * top) \
+            & (mo >= (1 - ADAMW_B1) * ADAMW_SATURATED)
+        d = (g - w).abs()
+        room = TRAIN_BF16_PARAM_TOL["atol"] \
+            + TRAIN_BF16_PARAM_TOL["rtol"] * w.abs()
+        n += int(firm.sum())
+        worst["param"] = max(worst.get("param", 0.0), float(torch.where(
+            firm, d / room, torch.zeros_like(d)).max()))
+        worst["param / lr"] = max(worst.get("param / lr", 0.0),
+                                  float(d.max()) / lr)
+        ok &= not bool((firm & (d > room)).any())
+    return ok, n
+
+
+def _grad_err(m, want, gmax: float, piece: int = 1 << 25) -> float:
+    """max |m - want| / ``gmax``: from one state m - want is (1 - b1)
+    times the clipped gradients' difference, and ``gmax`` the leaf's
+    largest (1 - b1) |g|, so this is the gradient's distance over the
+    leaf's largest |g|."""
+    m, want = m.reshape(-1), want.reshape(-1)
+    return max(float((m[s0:s0 + piece] - want[s0:s0 + piece]).abs().max())
+               for s0 in range(0, m.numel(), piece)) / max(gmax, 1e-30)
+
+
+def mesh_train_rank(rank: int, gpu: str) -> dict:
+    """10b on one of 2 gloo ranks (mesh data 2 x model 1): two sharded
+    train_steps of qwen2-7b+xnor (bf16, full width, ``MESH_LAYERS``
+    layers, batch 4 x 256, lr 1e-3 from step 0), each held against the
+    single-process step from the same state on the card (rank 0 alone,
+    then freed): step 0 from the seed, step 1 from the sharded state
+    after step 0, made whole on rank 0 (:func:`_single_step_from_blocks`).
+
+    Each step is the CPU tests' claim, one step from one state, held at
+    their bf16 tolerances: loss and ce at ``TRAIN_METRIC_TOL``, gnorm and
+    every rank's gradient blocks (through AdamW's first moment,
+    :func:`_grad_err`; rank 0 sends rank 1 its blocks of the reference's)
+    within ``TRAIN_BF16_GRAD_REL`` of each leaf's largest.  Step 0's
+    parameter blocks are held where the step is settled
+    (:func:`_hold_leaf`); step 1's are not: from nonzero moments AdamW's
+    move follows each element's gradient difference, which the gradient
+    tolerance allows, past the bf16 tolerance on small weights.  The host
+    seconds inside the collectives are timed apart
+    (:func:`timed_collectives`)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import verify
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import lm
+    from repro_torch.models import params as pdefs
+    from repro_torch.train import train_step as train_mod
+
+    cfg, steps = _mesh_cfg(MESH_LAYERS), 2
+    kw = dict(peak_lr=1e-3, warmup=0, total=10)
+    pipe = synthetic.Pipeline(cfg, 4, 256, seed=SEED)
+    batches = [synthetic.to_device(pipe.get(s), "cuda") for s in range(steps)]
+    mesh = mesh_mod.make_mesh((2, 1), ("data", "model"))
+    like = [(verify.leaf_key(p), t) for p, t in verify.tree_flatten_with_path(
+        lm.abstract_params(cfg))]
+    specs = pdefs.leaves(lm.param_pspecs(cfg, sharding.DEFAULT_RULES))
+    ref = {}
+    if rank == 0:
+        ref = _single_step(cfg, lambda: train_mod.init_state(
+            cfg, SEED, device="cuda"), batches[0], 0, kw)
+    dist.barrier()
+
+    state = train_mod.init_state(cfg, SEED, device="cuda", mesh=mesh)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in verify.tree_flatten_with_path(state))
+    out = {"state_bytes": state_bytes, "ms": [], "ref_ms": [], "peak": [],
+           "ref_peak": [], "traffic": [], "collective_s": [], "metrics": [],
+           "ref_metrics": [], "settled": {}, "worst": {}, "fails": []}
+    worst, fails = out["worst"], out["fails"]
+    for s, b in enumerate(batches):
+        if s > 0:
+            blocks = [train_mod._leaves(t) for t in (
+                state.params, state.opt.m, state.opt.v)]
+            count, state = state.opt.step, None
+            ref = _single_step_from_blocks(rank, cfg, blocks, count, specs,
+                                           like, b, s, kw)
+            state = _state_of(cfg, blocks, count)
+            del blocks
+        head = torch.zeros(3 + len(like), dtype=torch.float64)
+        if rank == 0:
+            head[:3] = torch.tensor(ref["metrics"])
+            head[3:] = torch.tensor(ref["gmax"])
+            out["ref_ms"].append(ref["ms"])
+            out["ref_peak"].append(ref["peak"])
+        dist.broadcast(head, 0)
+        sharding.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_collectives() as took:
+            t0 = time.perf_counter()
+            state, m = train_mod.train_step(cfg, state, b, s, **kw,
+                                            mesh=mesh)
+            mets = [float(m[k]) for k in ("loss", "ce", "gnorm")]
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["collective_s"].append(took)
+        out["traffic"].append({f.__name__: f.bytes for f in (
+            sharding.all_gather, sharding.all_reduce)})
+        out["peak"].append(torch.cuda.max_memory_allocated())
+        out["metrics"].append(mets)
+        out["ref_metrics"].append(head[:3].tolist())
+        del m
+        mine, moms = (train_mod._leaves(t) for t in (state.params,
+                                                      state.opt.m))
+        tops = torch.tensor([float(t.abs().max()) for t in moms],
+                            dtype=torch.float64)
+        dist.all_reduce(tops, op=dist.ReduceOp.MAX)   # the leaves' largest
+        torch.cuda.empty_cache()
+        for i, (key, t) in enumerate(like):
+            if s == 0:
+                want = _ref_block(rank, ref["params"][i] if rank == 0
+                                  else None, specs[i], t.shape, t.dtype)
+                ok, out["settled"][key] = _hold_leaf(
+                    mine[i], want, moms[i], float(tops[i]), kw["peak_lr"],
+                    worst)
+                if not ok:
+                    fails.append((s, key))
+                del want
+            want = _ref_block(rank, ref["m"][i] if rank == 0 else None,
+                              specs[i], t.shape, torch.float32)
+            err = _grad_err(moms[i], want, float(head[3 + i]))
+            worst[f"step {s} grad / leaf max"] = max(
+                worst.get(f"step {s} grad / leaf max", 0.0), err)
+            if err > TRAIN_BF16_GRAD_REL:
+                fails.append((s, "grad " + key, err))
+            del want
+            if rank == 0:
+                ref["m"][i] = None
+                if s == 0:
+                    ref["params"][i] = None
+        del mine, moms, tops
+        ref = {}
+        for j, name in enumerate(("loss", "ce", "gnorm")):
+            a, w = mets[j], float(head[j])
+            worst[f"step {s} {name} rel"] = abs(a - w) / abs(w)
+            ok = abs(a - w) <= w * TRAIN_BF16_GRAD_REL if name == "gnorm" \
+                else abs(a - w) <= TRAIN_METRIC_TOL["atol"] \
+                + TRAIN_METRIC_TOL["rtol"] * abs(w)
+            if not ok:
+                fails.append((s, name, a, w))
+    out["n_fails"] = len(fails)
+    out["fails"] = fails[:20]
+    return out
+
+
+def mesh_train(gpu: str) -> None:
+    """10b: the sharded step, 2 ranks on ``data``."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import lm
+    cfg = _mesh_cfg(MESH_LAYERS)
+    ranks = mesh_mod.run_ranks(mesh_train_rank, 2, gpu, timeout_s=900)
+    r0 = ranks[0]
+    settled = {k: sum(r["settled"][k] for r in ranks) for k in r0["settled"]}
+    print(f"[mesh] 10b sharded train_step, {cfg.name} bf16 at full width and "
+          f"{MESH_LAYERS} of 28 layers ({lm.param_count(cfg)} params), batch "
+          f"4 x 256, 2 gloo ranks on data (ZeRO-3 blocks of the parameters "
+          f"and both moments), 2 steps, each against the single-process "
+          f"step from the same state: metrics {r0['metrics']} against "
+          f"{r0['ref_metrics']}; worst {[r['worst'] for r in ranks]}; "
+          f"settled elements at step 0 (both ranks) {settled}; failures "
+          f"{[r['fails'] for r in ranks]}  [{gpu}]")
+    for i, r in enumerate(ranks):
+        print(f"[mesh] 10b rank {i}: state bytes {r['state_bytes']} "
+              f"({r['state_bytes'] / 2**30} GiB), peak memory "
+              f"{[p / 2**30 for p in r['peak']]} GiB, step ms {r['ms']}, "
+              f"host s inside the collectives {r['collective_s']}, "
+              f"collective bytes in {r['traffic']}  [{gpu}]")
+    print(f"[mesh] 10b the single-process step (rank 0, alone on the card): "
+          f"{r0['ref_ms']} ms, peak {[p / 2**30 for p in r0['ref_peak']]} "
+          f"GiB  [{gpu}]")
+    assert all(r["n_fails"] == 0 for r in ranks), \
+        [r["fails"] for r in ranks]
+
+
+def mesh_onebit_rank(rank: int, gpu: str) -> dict:
+    """10c on one of 2 gloo ranks (mesh pod 2 x data 1 x model 1): one
+    ``grad_compress="onebit_pod"`` step of qwen2-7b+xnor (bf16, full
+    width, ``MESH_ONEBIT_LAYERS`` layers) over a batch of 4 x 256, 2 rows
+    a pod.
+    Rank 0 first composes the step plainly: each pod's unsharded
+    gradients (``_grads`` on its half of the batch), the vote written out
+    with ``where`` and ``sign``, AdamW on a copy of the parameters; after
+    the step its parameters must equal that bit for bit, and rank 1's
+    must equal rank 0's (digests compared)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import verify
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as train_mod
+
+    cfg = _mesh_cfg(MESH_ONEBIT_LAYERS)
+    kw = dict(peak_lr=1e-3, warmup=0, total=10)
+    batch = synthetic.to_device(synthetic.Pipeline(
+        cfg, 4, 256, seed=SEED + 1).get(0), "cuda")
+    mesh = mesh_mod.make_mesh((2, 1, 1), ("pod", "data", "model"))
+    state = train_mod.init_state(cfg, SEED, device="cuda", mesh=mesh)
+    want = None
+    if rank == 0:
+        leaves = train_mod._leaves(state.params)
+        votes = [torch.zeros(t.shape, dtype=torch.int8, device="cuda")
+                 for t in leaves]
+        scales = [[] for _ in leaves]
+        for p in (0, 1):
+            _, _, g = train_mod._grads(cfg, state.params, {
+                k: v[2 * p:2 * p + 2] for k, v in batch.items()})
+            for i, t in enumerate(train_mod._leaves(g)):
+                votes[i] += torch.where(t >= 0, 1, -1).to(torch.int8)
+                scales[i].append(t.float().abs().mean())
+            del g
+        voted = [(torch.stack(s).mean() * torch.sign(v.float() + 0.5))
+                 .to(t.dtype) for s, v, t in zip(scales, votes, leaves)]
+        del votes
+        copy = verify.tree_map(lambda t: t.clone(), state.params)
+        it = iter(voted)
+        grads = verify.tree_map(lambda _: next(it), copy)
+        sched = train_mod.schedule.warmup_cosine(0, **kw).cuda()
+        want, opt, want_gn = adamw.update(copy, grads, adamw.init(copy),
+                                          sched)
+        del voted, grads, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    sharding.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = train_mod.train_step(cfg, state, batch, 0, **kw, mesh=mesh,
+                                    grad_compress="onebit_pod")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    crossed = sharding.all_gather.bytes
+    leaves = train_mod._leaves(state.params)
+    planes = sum(4 * -(-t.numel() // 32) for t in leaves)
+    mine = torch.stack([ops.digest(t) for t in leaves])
+    both = sharding.all_gather(mine, mesh.get_group("pod"))
+    assert torch.equal(both[0], both[1]), "10c: the pods' parameters differ"
+    out = {"ms": ms, "crossed": crossed, "planes": planes,
+           "leaves": len(leaves), "loss": float(m["loss"]),
+           "gnorm": float(m["gnorm"]),
+           "peak": torch.cuda.max_memory_allocated()}
+    if rank == 0:
+        bad = [k for (k, t), w in zip(
+            verify.tree_flatten_with_path(state.params),
+            train_mod._leaves(want)) if not torch.equal(t, w)]
+        out["differ"] = [verify.leaf_key(k) for k in bad]
+        out["want_gnorm"] = float(want_gn)
+    return out
+
+
+def mesh_onebit(gpu: str) -> None:
+    """10c: the one-bit vote across 2 pods."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import lm
+    cfg = _mesh_cfg(MESH_ONEBIT_LAYERS)
+    r0, r1 = mesh_mod.run_ranks(mesh_onebit_rank, 2, gpu, timeout_s=600)
+    print(f"[mesh] 10c onebit_pod, {cfg.name} bf16 at full width and "
+          f"{MESH_ONEBIT_LAYERS} layers ({lm.param_count(cfg)} params), 2 "
+          f"gloo ranks on "
+          f"pod, one step: loss {r0['loss']}, gnorm {r0['gnorm']} (plain "
+          f"composition {r0['want_gnorm']}); leaves that differ from the "
+          f"plain composition {r0['differ']}; bytes that crossed the pod "
+          f"axis into each rank {r0['crossed']} (sign planes {r0['planes']} "
+          f"+ {r0['leaves']} scales of 4 bytes; the bf16 gradients would be "
+          f"{16 * r0['planes']}); step {r0['ms']} ms, {r1['ms']} ms; peak "
+          f"{r0['peak'] / 2**30}, {r1['peak'] / 2**30} GiB  [{gpu}]")
+    assert r0["crossed"] == r1["crossed"] == r0["planes"] + 4 * r0["leaves"]
+    assert not r0["differ"], r0["differ"]
+    assert r0["gnorm"] == r0["want_gnorm"] and r0["loss"] == r1["loss"]
+
+
+def mesh_phase(gpu: str) -> dict:
+    """Phase 10 (10a-10c), each sub-phase timed -> the launches of the
+    kernels its paths run (10a's, summed over its ranks)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[mesh] the card before the ranks start: {free / 2**30} of "
+          f"{total / 2**30} GiB free; this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30} GiB  [{gpu}]")
+    t = time.perf_counter()
+    launches = mesh_engine(gpu)
+    print(f"[time] mesh_engine: {time.perf_counter() - t} s")
+    for sub in (mesh_train, mesh_onebit):
+        t = time.perf_counter()
+        sub(gpu)
+        print(f"[time] {sub.__name__}: {time.perf_counter() - t} s")
+    return launches
+
+
 def popcount_bits(a, b) -> int:
     """Number of bits in which two int32 tensors differ."""
     import numpy as np
@@ -4740,6 +5471,11 @@ def main() -> int:
         print(f"[train] phase 9 launches {training(gpu)} "
               f"({time.perf_counter() - t} s)")
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        t = time.perf_counter()
+        print(f"[mesh] phase 10 launches {mesh_phase(gpu)} "
+              f"({time.perf_counter() - t} s)")
+        return 0
     if sys.argv[1:] == ["--moe"]:
         moe_arch_kernels(gpu)
         t = time.perf_counter()
@@ -4781,6 +5517,8 @@ def main() -> int:
     timed(checkpoint_layer, gpu)
     timed(monte_carlo, gpu)
     for name, n in timed(training, gpu).items():     # phase 9
+        launches[name] = max(launches[name], n)
+    for name, n in timed(mesh_phase, gpu).items():   # phase 10
         launches[name] = max(launches[name], n)
     kernels = []
     for key in ("pack", "xnor_linear_fused", "paged_decode_attention",

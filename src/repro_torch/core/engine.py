@@ -20,13 +20,15 @@ same machine:
 
 PyTorch runs eagerly, so every call is accounted once, after its dispatch
 (a failed dispatch leaves the counters alone).  Tensors stay on their own
-device; numpy operands are moved to the engine's ``device``.  The
-reference's mesh-sharded engine is not part of this port yet.
+device; numpy operands are moved to the engine's ``device``.
+:class:`ShardedCimEngine` spreads the bank stack over the ranks of a
+mesh axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -34,7 +36,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import bitpack, cim
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
+
+MASK = 0xFFFFFFFF
 
 
 class BankGeometry(NamedTuple):
@@ -274,3 +279,157 @@ class CimEngine:
         out = cim.compute(state, row_a, row_a + 1, op)      # (banks, P, C)
         self.stats.account(pairs, n * c, "simulate")
         return out.reshape(banks * pairs, c)[:n]
+
+
+class ShardedCimEngine(CimEngine):
+    """The bank stack spread over the ranks of one mesh axis: the axis is
+    the outermost bank dimension (``devices`` in the geometry), so the
+    throughput is ``devices * banks * cols`` bit-ops a cycle and
+    :meth:`cycles_for` is ``devices`` times fewer.
+
+    A buffer's flat word stream is cut into ``devices`` contiguous chunks
+    of ``per`` words, ``per`` aligned to 128 words (the kernel tile) and,
+    for digests, to ``lcm(128, digest_width)``: rank ``d`` takes words
+    ``[d * per, (d + 1) * per)`` (:meth:`local_range`), as the reference's
+    ``ShardedCimEngine`` lays them out.  XOR, XNOR and the cipher run on
+    the chunk alone (the cipher from keystream index ``counter + d * per``
+    mod 2^32); a digest XOR-folds the ranks' partial digests
+    (:func:`sharding.pxor`).  The digests are the only data that cross
+    ranks.  Every result is bit-identical to the single-device
+    :class:`CimEngine`'s.
+
+    Two forms of each call: the global form takes the whole buffer on
+    every rank; the ``*_local`` form takes only this rank's chunk and the
+    global word count.  XOR, XNOR and the cipher return this rank's chunk
+    of the output's word stream in both forms; digests are whole on every
+    rank.  ``mesh`` is a ``DeviceMesh`` (``launch.mesh.make_engine_mesh``);
+    ``axis`` defaults to its first axis."""
+
+    def __init__(self, mesh, axis: str | None = None,
+                 geometry: BankGeometry = BankGeometry(), device="cuda"):
+        axis = axis if axis is not None else mesh.mesh_dim_names[0]
+        if axis not in mesh.mesh_dim_names:
+            raise ValueError(f"axis {axis!r} not in mesh axes "
+                             f"{mesh.mesh_dim_names}")
+        super().__init__(geometry._replace(
+            devices=sharding.axis_size(mesh, axis)), device)
+        self.mesh, self.axis = mesh, axis
+        self.rank = mesh.get_local_rank(axis)
+        self.group = sharding.axis_group(mesh, axis)
+
+    def local_range(self, n_words: int, align: int = 128) -> tuple[int, int]:
+        """[start, stop) of this rank's chunk of an ``n_words`` stream."""
+        dev = self.geometry.devices
+        per = -(-max(n_words, 1) // (dev * align)) * align
+        start = min(self.rank * per, n_words)
+        return start, min(start + per, n_words)
+
+    def _chunk(self, words, n_words: int, align: int) -> torch.Tensor:
+        start, stop = self.local_range(n_words, align)
+        if words.numel() != stop - start:
+            raise ValueError(f"rank {self.rank} holds words [{start}, "
+                             f"{stop}) of {n_words}, got {words.numel()}")
+        return words.reshape(-1)
+
+    def _mine(self, words: torch.Tensor, align: int = 128) -> torch.Tensor:
+        start, stop = self.local_range(words.numel(), align)
+        return words.reshape(-1)[start:stop]
+
+    def _bulk(self, a, b, n_words: int, op: str) -> torch.Tensor:
+        if a.dtype != torch.int32 or b.dtype != torch.int32:
+            raise TypeError(f"bulk {op} needs int32, got {a.dtype}/{b.dtype}")
+        a, b = self._chunk(a, n_words, 128), self._chunk(b, n_words, 128)
+        return ops.bulk_op(a, b, op) if a.numel() else a.clone()
+
+    def _digest(self, words, n_words: int, digest_width: int):
+        words = self._chunk(words, n_words, math.lcm(128, digest_width))
+        part = ops.digest(words, digest_width) if words.numel() else \
+            torch.zeros(digest_width, dtype=torch.int32, device=words.device)
+        return sharding.pxor(part, self.group)
+
+    def _cipher(self, words, key, n_words: int, counter: int):
+        if words.dtype != torch.int32:
+            raise TypeError(f"stream_cipher needs int32, got {words.dtype}")
+        start, _ = self.local_range(n_words)
+        words = self._chunk(words, n_words, 128)
+        if not words.numel():
+            return words.clone()
+        return ops.stream_cipher(words, key, (counter + start) & MASK)
+
+    def _account_words(self, n_words: int, op: str) -> None:
+        nbits = 32 * n_words
+        self.stats.account(self.cycles_for(nbits), nbits, op)
+
+    # -- local form: this rank's chunk and the global word count ---------
+
+    def xor_local(self, a, b, n_words: int) -> torch.Tensor:
+        out = self._bulk(a, b, n_words, "xor")
+        self._account_words(n_words, "xor")
+        return out
+
+    def xnor_local(self, a, b, n_words: int) -> torch.Tensor:
+        out = self._bulk(a, b, n_words, "xnor")
+        self._account_words(n_words, "xnor")
+        return out
+
+    def digest_local(self, words, n_words: int,
+                     digest_width: int = 128) -> torch.Tensor:
+        """The digest of the whole ``n_words`` stream from this rank's
+        chunk (aligned to ``lcm(128, digest_width)``)."""
+        out = self._digest(words, n_words, digest_width)
+        self._account_words(n_words, "digest")
+        return out
+
+    def stream_cipher_local(self, words, key, n_words: int,
+                            counter: int = 0) -> torch.Tensor:
+        out = self._cipher(words, key, n_words, counter)
+        self._account_words(n_words, "cipher")
+        return out
+
+    # -- global form: the whole buffer on every rank ---------------------
+
+    def _bulk_global(self, a, b, op: str) -> torch.Tensor:
+        if a.shape != b.shape:
+            raise ValueError(f"operand shapes differ: {tuple(a.shape)} vs "
+                             f"{tuple(b.shape)}")
+        out = self._bulk(self._mine(a), self._mine(b), a.numel(), op)
+        self._account(a, op=op)
+        return out
+
+    def xor(self, a, b) -> torch.Tensor:
+        """This rank's chunk of ``a ^ b``'s word stream."""
+        return self._bulk_global(a, b, "xor")
+
+    def xnor(self, a, b) -> torch.Tensor:
+        return self._bulk_global(a, b, "xnor")
+
+    def digest(self, buf, digest_width: int = 128) -> torch.Tensor:
+        words = self._words(buf)
+        out = self._digest(self._mine(words, math.lcm(128, digest_width)),
+                           words.numel(), digest_width)
+        self._account(buf, op="digest")
+        return out
+
+    def digest_chunks(self, buf, chunk_words: int | None = None,
+                      digest_width: int = 128) -> torch.Tensor:
+        """One digest row per ``chunk_words`` slab, each slab spread over
+        the ranks as :meth:`digest` spreads a buffer; the rows' partials
+        cross ranks in one fold."""
+        words = self._words(buf).reshape(-1)
+        chunk = self._chunk_words(chunk_words, digest_width)
+        align = math.lcm(128, digest_width)
+        rows = []
+        for s0 in range(0, max(words.numel(), 1), chunk):
+            mine = self._mine(words[s0:s0 + chunk], align)
+            rows.append(ops.digest(mine, digest_width) if mine.numel() else
+                        torch.zeros(digest_width, dtype=torch.int32,
+                                    device=words.device))
+        out = sharding.pxor(torch.stack(rows), self.group)
+        self._account(words, op="digest")
+        return out
+
+    def stream_cipher(self, buf, key, counter: int = 0) -> torch.Tensor:
+        """This rank's chunk of the ciphertext's word stream."""
+        out = self._cipher(self._mine(buf), key, buf.numel(), counter)
+        self._account(buf, op="cipher")
+        return out

@@ -40,21 +40,29 @@ def attn_defs(cfg, n: int, cross: bool = False) -> dict:
     q/k/v bias."""
     d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     defs = {
-        "wq": ParamDef((n, d, H * dh), cfg.dtype, binarize=True),
-        "wk": ParamDef((n, d, KV * dh), cfg.dtype, binarize=True),
-        "wv": ParamDef((n, d, KV * dh), cfg.dtype, binarize=True),
-        "wo": ParamDef((n, H * dh, d), cfg.dtype, binarize=True),
+        "wq": ParamDef((n, d, H * dh), (None, "fsdp", "tp"),
+                       cfg.dtype, binarize=True),
+        "wk": ParamDef((n, d, KV * dh), (None, "fsdp", "tp"),
+                       cfg.dtype, binarize=True),
+        "wv": ParamDef((n, d, KV * dh), (None, "fsdp", "tp"),
+                       cfg.dtype, binarize=True),
+        "wo": ParamDef((n, H * dh, d), (None, "tp", "fsdp"),
+                       cfg.dtype, binarize=True),
     }
     if cfg.qkv_bias and not cross:
         defs |= {
-            "bq": ParamDef((n, H * dh), cfg.dtype, init="zeros"),
-            "bk": ParamDef((n, KV * dh), cfg.dtype, init="zeros"),
-            "bv": ParamDef((n, KV * dh), cfg.dtype, init="zeros"),
+            "bq": ParamDef((n, H * dh), (None, "tp"), cfg.dtype, init="zeros"),
+            "bk": ParamDef((n, KV * dh), (None, "tp"),
+                           cfg.dtype, init="zeros"),
+            "bv": ParamDef((n, KV * dh), (None, "tp"),
+                           cfg.dtype, init="zeros"),
         }
     if cfg.qk_norm:
         defs |= {
-            "q_norm": ParamDef((n, dh), torch.float32, init="ones"),
-            "k_norm": ParamDef((n, dh), torch.float32, init="ones"),
+            "q_norm": ParamDef((n, dh), (None, None),
+                               torch.float32, init="ones"),
+            "k_norm": ParamDef((n, dh), (None, None),
+                               torch.float32, init="ones"),
         }
     return defs
 

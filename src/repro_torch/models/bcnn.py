@@ -56,10 +56,14 @@ class BinDenseBlock(PagedLayout):
     def defs(cls, cfg, n):
         d, ff = cfg.d_model, cfg.d_ff
         return {
-            "ln1": ParamDef((n, d), torch.float32, init="ones"),
-            "w_ctx": ParamDef((n, d, d), cfg.dtype),       # full precision
-            "w_up": ParamDef((n, d, ff), cfg.dtype, binarize=True),
-            "w_down": ParamDef((n, ff, d), cfg.dtype, binarize=True),
+            "ln1": ParamDef((n, d), (None, None), torch.float32,
+                            init="ones"),
+            "w_ctx": ParamDef((n, d, d), (None, "fsdp", "tp"),
+                              cfg.dtype),  # full precision
+            "w_up": ParamDef((n, d, ff), (None, "fsdp", "tp"),
+                             cfg.dtype, binarize=True),
+            "w_down": ParamDef((n, ff, d), (None, "tp", "fsdp"),
+                               cfg.dtype, binarize=True),
         }
 
     @classmethod

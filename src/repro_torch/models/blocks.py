@@ -39,7 +39,7 @@ kinds that do not read it.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.utils.checkpoint
@@ -56,10 +56,13 @@ class FwdOpts(NamedTuple):
     s_max: int = 0            # cache capacity when want_state
     q_chunk: int = 0          # self-attention's queries in chunks of this
     aux: list | None = None   # where a routed FFN appends its aux loss
+    batch_sum: Callable | None = None   # sums over the ranks holding the
+                              # batch's other blocks (the sharded step)
 
 
 def _norm_def(cfg, n):
-    return ParamDef((n, cfg.d_model), torch.float32, init="ones")
+    return ParamDef((n, cfg.d_model), (None, None), torch.float32,
+                    init="ones")
 
 
 def _sub(p: dict, prefix: str) -> dict:
@@ -241,10 +244,11 @@ class _FfnBlock(PagedLayout):
         return {f"ffn_{k}": v for k, v in layers.ffn_defs(cfg, n).items()}
 
     @classmethod
-    def _ffn(cls, cfg, p, h, valid=None, aux=None):
+    def _ffn(cls, cfg, p, h, valid=None, opts=None):
         """The FFN of the normed residual ``h`` (dense SwiGLU); ``valid``
-        marks a chunk's real tokens and ``aux`` (a list, or None) takes
-        the auxiliary loss, which only a routed FFN reads or has."""
+        marks a chunk's real tokens and ``opts.aux`` (a list; ``opts`` may
+        be None) takes the auxiliary loss, which only a routed FFN reads
+        or has."""
         return layers.ffn(cfg, _sub(p, "ffn_"), h)
 
     @staticmethod
@@ -256,11 +260,11 @@ class _FfnBlock(PagedLayout):
         return x + a, layers.rms_norm(x.float() + a, scale, dtype=x.dtype)
 
     @classmethod
-    def _residual_ffn(cls, cfg, p, x, a, valid=None, aux=None):
+    def _residual_ffn(cls, cfg, p, x, a, valid=None, opts=None):
         """The mixer's output ``a`` joins the residual; ln2 of the sum
         (:meth:`_add_norm`) feeds the FFN."""
         x, h = cls._add_norm(x, a, p["ln2"])
-        return x + cls._ffn(cfg, p, h, valid, aux)
+        return x + cls._ffn(cfg, p, h, valid, opts)
 
 
 @register
@@ -295,7 +299,7 @@ class AttnBlock(_FfnBlock):
             state = _kv_from_seq(cfg, k, v, cap, rolling=bool(win))
         a = attn_mod.attention(cfg, ap, h, causal=cls.causal, window=win,
                                q_chunk=opts.q_chunk)
-        return cls._residual_ffn(cfg, p, x, a, aux=opts.aux), state
+        return cls._residual_ffn(cfg, p, x, a, opts=opts), state
 
     @classmethod
     def decode(cls, cfg, p, x, state, pos, table, valid=None, ctx=None):
@@ -356,10 +360,11 @@ class MoeBlock(AttnBlock):
         return {f"moe_{k}": v for k, v in moe.moe_defs(cfg, n).items()}
 
     @classmethod
-    def _ffn(cls, cfg, p, h, valid=None, aux=None):
-        y, loss = moe.moe_ffn(cfg, _sub(p, "moe_"), h, valid=valid)
-        if aux is not None:
-            aux.append(loss)
+    def _ffn(cls, cfg, p, h, valid=None, opts=None):
+        y, loss = moe.moe_ffn(cfg, _sub(p, "moe_"), h, valid=valid,
+                              batch_sum=opts and opts.batch_sum)
+        if opts is not None and opts.aux is not None:
+            opts.aux.append(loss)
         return y
 
 
@@ -375,16 +380,17 @@ class RglruBlock(_FfnBlock):
     def defs(cls, cfg, n):
         d = cfg.d_model
 
-        def lin():
-            return ParamDef((n, d, d), cfg.dtype, binarize=True)
+        def lin(spec=(None, "fsdp", "tp")):
+            return ParamDef((n, d, d), spec, cfg.dtype, binarize=True)
         return {
             "ln1": _norm_def(cfg, n), "ln2": _norm_def(cfg, n),
             "w_gate": lin(), "w_x": lin(),
-            "conv_k": ParamDef((n, cfg.conv_width, d), torch.float32,
-                               scale=0.5),
+            "conv_k": ParamDef((n, cfg.conv_width, d), (None, None, "tp"),
+                               torch.float32, scale=0.5),
             "w_r": lin(), "w_i": lin(),
-            "lam": ParamDef((n, d), torch.float32, init="ones"),
-            "w_out": lin(),
+            "lam": ParamDef((n, d), (None, "tp"), torch.float32,
+                            init="ones"),
+            "w_out": lin((None, "tp", "fsdp")),
         } | cls._ffn_defs(cfg, n)
 
     @classmethod
@@ -471,18 +477,21 @@ class MlstmBlock(PagedLayout):
     def defs(cls, cfg, n):
         d, di, nh = cfg.d_model, cls._di(cfg), cfg.n_heads
 
-        def lin(k, m):
-            return ParamDef((n, k, m), cfg.dtype, binarize=True)
+        def lin(k, m, spec=(None, "fsdp", "tp")):
+            return ParamDef((n, k, m), spec, cfg.dtype, binarize=True)
         return {
             "ln1": _norm_def(cfg, n),
             "w_up": lin(d, di), "w_gate": lin(d, di),
-            "conv_k": ParamDef((n, cfg.conv_width, di), torch.float32,
-                               scale=0.5),
+            "conv_k": ParamDef((n, cfg.conv_width, di), (None, None, "tp"),
+                               torch.float32, scale=0.5),
             "wq": lin(di, di), "wk": lin(di, di), "wv": lin(di, di),
-            "w_if": ParamDef((n, di, 2 * nh), torch.float32),
-            "b_if": ParamDef((n, 2 * nh), torch.float32, init="zeros"),
-            "out_norm": ParamDef((n, di), torch.float32, init="ones"),
-            "w_down": lin(di, d),
+            "w_if": ParamDef((n, di, 2 * nh), (None, "fsdp", None),
+                             torch.float32),
+            "b_if": ParamDef((n, 2 * nh), (None, None), torch.float32,
+                             init="zeros"),
+            "out_norm": ParamDef((n, di), (None, "tp"), torch.float32,
+                                 init="ones"),
+            "w_down": lin(di, d, (None, "tp", "fsdp")),
         }
 
     @classmethod
@@ -597,16 +606,21 @@ class SlstmBlock(_FfnBlock):
         dff = int(4 * d / 3 / 64) * 64 * 2      # GLU up width (4/3 factor)
         return {
             "ln1": _norm_def(cfg, n),
-            "w_gates": ParamDef((n, d, 4 * d), cfg.dtype, binarize=True),
-            "r_kernel": ParamDef((n, 4, nh, dh, dh), torch.float32,
-                                 scale=0.05),
+            "w_gates": ParamDef((n, d, 4 * d), (None, "fsdp", "tp"), cfg.dtype,
+                                binarize=True),
+            # tiny, and nh does not divide a wide tp axis: whole
+            "r_kernel": ParamDef((n, 4, nh, dh, dh), (None,) * 5,
+                                 torch.float32, scale=0.05),
             "ln2": _norm_def(cfg, n),
-            "w_up": ParamDef((n, d, dff), cfg.dtype, binarize=True),
-            "w_down": ParamDef((n, dff // 2, d), cfg.dtype, binarize=True),
+            "w_up": ParamDef((n, d, dff), (None, "fsdp", "tp"), cfg.dtype,
+                             binarize=True),
+            "w_down": ParamDef((n, dff // 2, d), (None, "tp", "fsdp"),
+                               cfg.dtype,
+                               binarize=True),
         }
 
     @classmethod
-    def _ffn(cls, cfg, p, h, valid=None, aux=None):
+    def _ffn(cls, cfg, p, h, valid=None, opts=None):
         a, g = layers.linear(h, p["w_up"], cfg.quant).chunk(2, dim=-1)
         return layers.linear(a * layers.gelu(g), p["w_down"], cfg.quant)
 

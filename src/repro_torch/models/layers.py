@@ -103,9 +103,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def ffn_defs(cfg, n: int) -> dict:
     d, ff = cfg.d_model, cfg.d_ff
     return {
-        "w1": ParamDef((n, d, ff), cfg.dtype, binarize=True),
-        "w3": ParamDef((n, d, ff), cfg.dtype, binarize=True),
-        "w2": ParamDef((n, ff, d), cfg.dtype, binarize=True),
+        "w1": ParamDef((n, d, ff), (None, "fsdp", "tp"),
+                       cfg.dtype, binarize=True),
+        "w3": ParamDef((n, d, ff), (None, "fsdp", "tp"),
+                       cfg.dtype, binarize=True),
+        "w2": ParamDef((n, ff, d), (None, "tp", "fsdp"),
+                       cfg.dtype, binarize=True),
     }
 
 
@@ -153,9 +156,13 @@ def ffn(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
 def embed_defs(cfg) -> dict:
     v = cfg.padded_vocab
     return {
-        "tokens": ParamDef((v, cfg.d_model), cfg.dtype, init="embed"),
-        "final_norm": ParamDef((cfg.d_model,), torch.float32, init="ones"),
-        "lm_head": ParamDef((cfg.d_model, v), cfg.dtype),
+        "tokens": ParamDef((v, cfg.d_model), ("tp", "fsdp"), cfg.dtype,
+                           init="embed"),
+        "final_norm": ParamDef((cfg.d_model,), (None,), torch.float32,
+                               init="ones"),
+        # the d axis whole: fsdp on the contraction would gather the
+        # (tokens, vocab) logits instead of this weight
+        "lm_head": ParamDef((cfg.d_model, v), (None, "tp"), cfg.dtype),
     }
 
 

@@ -2,7 +2,7 @@
 per-segment blocks, the full-precision head.
 
 Public surface:
-  param_defs / abstract_params / init_params / pack_params
+  param_defs / param_pspecs / abstract_params / init_params / pack_params
   param_count / active_param_count / model_flops
   encode                                               (enc-dec archs)
   forward(cfg, params, tokens, ctx) -> (logits, aux)   (training)
@@ -41,14 +41,18 @@ def param_defs(cfg) -> dict:
         enc_segs = cfg.encoder_segments()
         for i, (kind, n, d) in enumerate(blocks.segment_defs(cfg, enc_segs)):
             defs[f"enc{i}_{kind}"] = d
-        defs["enc_norm"] = pdefs.ParamDef((cfg.d_model,), torch.float32,
-                                          init="ones")
+        defs["enc_norm"] = pdefs.ParamDef((cfg.d_model,), (None,),
+                                          torch.float32, init="ones")
     return defs
 
 
 def abstract_params(cfg) -> dict:
     """The parameter tree as ``meta`` tensors (shapes and dtypes only)."""
     return pdefs.abstract(param_defs(cfg))
+
+
+def param_pspecs(cfg, rules: dict) -> dict:
+    return pdefs.pspecs(param_defs(cfg), rules)
 
 
 def init_params(cfg, seed: int = 0, *, device="cuda") -> dict:
@@ -113,11 +117,11 @@ def encode(cfg, params, frames: torch.Tensor,
 
 def forward(cfg, params, tokens: torch.Tensor,
             ctx: torch.Tensor | None = None, q_chunk: int = 0,
-            remat: bool = False):
+            remat: bool = False, batch_sum=None):
     """tokens (B, S) -> (logits (B, S, V), the summed aux loss, f32).
     ``ctx`` (B, T_ctx, d): an enc-dec arch's frames (encoded first) or a
     vlm's patch rows.  ``remat`` checkpoints each decoder layer
-    (:func:`blocks.segment_fwd`)."""
+    (:func:`blocks.segment_fwd`); ``batch_sum`` as in :func:`loss_fn`."""
     x = layers.embed(params["embed"], tokens).to(cfg.dtype)
     if cfg.is_encdec():
         if ctx is None:
@@ -126,19 +130,29 @@ def forward(cfg, params, tokens: torch.Tensor,
     elif ctx is not None:
         ctx = ctx.to(cfg.dtype)
     x, aux, _ = blocks.segment_fwd(cfg, _seg_params(cfg, params), x,
-                                   blocks.FwdOpts(q_chunk=q_chunk), ctx,
-                                   remat=remat)
+                                   blocks.FwdOpts(q_chunk=q_chunk,
+                                                  batch_sum=batch_sum),
+                                   ctx, remat=remat)
     return layers.logits(cfg, params["embed"], x), aux
 
 
-def loss_fn(cfg, params, batch: dict, q_chunk: int = 0, remat: bool = True):
+def loss_fn(cfg, params, batch: dict, q_chunk: int = 0, remat: bool = True,
+            batch_sum=None):
     """Next-token cross-entropy over ``batch`` {tokens (B, S), labels (B,
     S) shifted by the data pipeline, -1 where there is no next token;
     ctx for context archs} -> (loss, {ce, aux, tokens}); loss = ce +
     ``router_aux_weight`` * aux.  The picked logit is a one-hot
-    contraction over the vocab, as the reference takes it."""
+    contraction over the vocab, as the reference takes it.
+
+    ``batch_sum`` (the sharded train step's;
+    :func:`repro_torch.distributed.sharding.batch_sum`): ``batch`` is one
+    rank's block of the batch, and ``batch_sum`` sums a tensor over the
+    ranks holding the others, with each rank's gradient left its own
+    share.  The CE's denominator is then the global count of valid
+    tokens, the routed FFNs' load balance the whole batch's, and the loss
+    the global batch's on every rank."""
     logits, aux = forward(cfg, params, batch["tokens"], batch.get("ctx"),
-                          q_chunk=q_chunk, remat=remat)
+                          q_chunk=q_chunk, remat=remat, batch_sum=batch_sum)
     labels = batch["labels"]
     valid = labels >= 0
     labels = labels.clamp_min(0)
@@ -148,8 +162,10 @@ def loss_fn(cfg, params, batch: dict, q_chunk: int = 0, remat: bool = True):
                                                device=logits.device)
     picked = (logits32 * onehot).sum(-1)
     ll = picked - lse
-    n_valid = valid.sum()
-    ce = -(ll * valid).sum() / n_valid.clamp_min(1)
+    n_valid, nll = valid.sum(), -(ll * valid).sum()
+    if batch_sum is not None:
+        n_valid, nll = batch_sum(n_valid), batch_sum(nll)
+    ce = nll / n_valid.clamp_min(1)
     loss = ce + cfg.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux, "tokens": n_valid.to(torch.int32)}
 

@@ -36,10 +36,13 @@ F32 = torch.float32
 def moe_defs(cfg, n: int) -> dict:
     d, e, ff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
     return {
-        "router": ParamDef((n, d, e), F32),
-        "w1": ParamDef((n, e, d, ff), cfg.dtype),
-        "w3": ParamDef((n, e, d, ff), cfg.dtype),
-        "w2": ParamDef((n, e, ff, d), cfg.dtype),
+        "router": ParamDef((n, d, e), (None, "fsdp", None), F32),
+        "w1": ParamDef((n, e, d, ff), (None, "ep", "fsdp", None),
+                       cfg.dtype),
+        "w3": ParamDef((n, e, d, ff), (None, "ep", "fsdp", None),
+                       cfg.dtype),
+        "w2": ParamDef((n, e, ff, d), (None, "ep", None, "fsdp"),
+                       cfg.dtype),
     }
 
 
@@ -158,12 +161,15 @@ def combine(cfg, r: Routing, ye: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def moe_ffn(cfg, p: dict, x: torch.Tensor,
-            valid: torch.Tensor | None = None):
+            valid: torch.Tensor | None = None, batch_sum=None):
     """x (B, S, d) -> (y (B, S, d) in x's dtype, aux loss f32 scalar).
 
     ``valid`` (B, S) bool excludes padding (a chunked prefill's ragged
     tail) from routing, capacity and the aux loss.  Raises where B * S is
-    not a whole number of groups, as the reference asserts."""
+    not a whole number of groups, as the reference asserts.  With
+    ``batch_sum`` (``x`` is one rank's block of the batch) the load
+    balance's two means are the whole batch's: their sums and counts are
+    summed over the ranks before the product."""
     b, s, d = x.shape
     tg = min(group_len(cfg), s)
     if (b * s) % tg:
@@ -177,7 +183,13 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor,
 
     # Switch / GShard load balance: E * sum_e f_e * P_e over valid tokens
     first = r.mask[:, :, 0, :]
-    if valid is None:
+    if batch_sum is not None:
+        v = torch.ones((g, tg, 1), dtype=F32, device=x.device) \
+            if vg is None else vg.reshape(g, tg, 1).to(F32)
+        denom = batch_sum(v.sum()).clamp_min(1.0)
+        f_e = batch_sum(first.sum((0, 1))) / denom
+        p_e = batch_sum((r.probs * v).sum((0, 1))) / denom
+    elif valid is None:
         f_e, p_e = first.mean((0, 1)), r.probs.mean((0, 1))
     else:
         v = vg.reshape(g, tg, 1).to(F32)

@@ -1,8 +1,16 @@
 """Parameter declarations: one tree of :class:`ParamDef` per model, from
-which :func:`init` draws real tensors and :func:`pack` derives the packed
-serve form.  Trees are nested dicts whose leaves are tensors (or
+which :func:`init` draws real tensors, :func:`pack` derives the packed
+serve form and :func:`pspecs` the placement over a mesh.  Trees are nested
+dicts whose leaves are tensors (or
 :class:`~repro_torch.core.xnor_layers.PackedLinear` after packing), with
 the same key names and layouts as the JAX package's parameter trees.
+
+Logical axes of a ``spec`` (mapped to mesh axes by the rules of
+:mod:`repro_torch.distributed.sharding`):
+  "fsdp"   parameter blocks over the data axis (ZeRO-3)
+  "tp"     tensor parallel over the model axis (heads / d_ff / vocab)
+  "ep"     expert parallel over the model axis
+  None     whole
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from repro_torch.core import xnor_layers
 
 class ParamDef(NamedTuple):
     shape: tuple
+    spec: tuple             # logical axis per dim ("fsdp"/"tp"/"ep"/None)
     dtype: Any = torch.float32
     init: str = "normal"    # "normal" | "zeros" | "ones" | "embed"
     scale: float | None = None  # None => 1/sqrt(fan_in)
@@ -44,6 +53,18 @@ def abstract(defs) -> dict:
     structure to restore into that allocates nothing."""
     return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
                                           device="meta"), defs)
+
+
+def logical_specs(defs) -> dict:
+    return tree_map(lambda d: d.spec, defs)
+
+
+def pspecs(defs, rules: dict[str, Any]) -> dict:
+    """Each leaf's placement: a tuple with one entry per dim, the mesh axis
+    (a name, a tuple of names, or None for whole) that ``rules`` maps its
+    logical axis to; the port's ``PartitionSpec``."""
+    return tree_map(lambda d: tuple(None if a is None else rules.get(a)
+                                    for a in d.spec), defs)
 
 
 def init(defs, generator: torch.Generator, device) -> dict:

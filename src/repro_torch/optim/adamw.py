@@ -48,15 +48,23 @@ def abstract(params) -> AdamWState:
                       _zeros(params, "meta"), _zeros(params, "meta"))
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 sum of squares, in leaf order."""
-    return torch.sqrt(sum(g.float().square().sum() for g in _leaves(grads)))
+def global_norm(grads, copies=None, psum=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's f32 sum of squares, in leaf order.
+
+    Over a mesh each rank holds blocks of the leaves (zero-padded):
+    ``copies`` (an int a leaf, in leaf order) says how many ranks hold
+    each block and ``psum`` sums a scalar over every rank, so that each
+    element counts once, not once a replica."""
+    sq = [g.float().square().sum() for g in _leaves(grads)]
+    if copies is None:
+        return torch.sqrt(sum(sq))
+    return torch.sqrt(psum(sum(s / c for s, c in zip(sq, copies))))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, copies=None, psum=None):
     """-> (grads scaled by min(1, max_norm / norm), each in its dtype;
-    the global norm)."""
-    gn = global_norm(grads)
+    the global norm; ``copies`` and ``psum`` as in :func:`global_norm`)."""
+    gn = global_norm(grads, copies, psum)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return verify.tree_map(lambda g: (g.float() * scale).to(g.dtype),
                            grads), gn
@@ -64,12 +72,14 @@ def clip_by_global_norm(grads, max_norm: float):
 
 @torch.no_grad()
 def update(params, grads, state: AdamWState, lr, *, b1=0.9, b2=0.95,
-           eps=1e-8, weight_decay=0.1, max_norm=1.0):
+           eps=1e-8, weight_decay=0.1, max_norm=1.0, copies=None,
+           psum=None):
     """One AdamW step after clipping -> (params, state, global norm).
     Matrices (``ndim >= 2``, layer-stacked norm scales among them) are
     decayed; vectors are not.  ``params``, ``state.m`` and ``state.v`` are
-    written in place."""
-    grads, gnorm = clip_by_global_norm(grads, max_norm)
+    written in place.  On a mesh they are this rank's blocks, and
+    ``copies`` and ``psum`` make the norm global (:func:`global_norm`)."""
+    grads, gnorm = clip_by_global_norm(grads, max_norm, copies, psum)
     step = state.step + 1
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=F32, device=step.device),
                           step.to(F32))

@@ -3,22 +3,30 @@ sequential microbatch accumulation), the LR schedule and AdamW.
 
 Everything runs on the device the state lies on.  The XNOR layers train
 through the float straight-through estimator (``bitpack.binarize_ste``),
-so no kernel has a backward to port.  ``grad_compress="onebit_pod"`` and
-``state_pspecs`` need a multi-pod mesh, which the port does not have
-yet.
+so no kernel has a backward to port.
+
+With a ``mesh`` (a ``DeviceMesh`` of ``launch.mesh``) the step is the
+reference's sharded program, written out over ``torch.distributed``:
+each rank keeps only its blocks of the parameters and of both moments
+(:func:`state_pspecs`), gathers every leaf at the step's start
+(``sharding.gather``), runs ``lm.loss_fn`` on its block of the batch with
+the global batch's means, and updates its blocks.  It computes the same
+function as the single-device step.  ``grad_compress="onebit_pod"``
+exchanges one-bit gradients across the mesh's ``pod`` axis.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core import verify
+from repro_torch.core import bitpack, verify
+from repro_torch.distributed import sharding
 from repro_torch.models import lm
+from repro_torch.models import params as pdefs
 from repro_torch.optim import adamw, schedule
-
-_MESH = "needs a device mesh: ROADMAP queue 1 item 6 (distributed/)"
 
 
 class TrainState(NamedTuple):
@@ -26,11 +34,31 @@ class TrainState(NamedTuple):
     opt: adamw.AdamWState
 
 
-def init_state(cfg, seed: int = 0, *, device="cuda") -> TrainState:
+def init_state(cfg, seed: int = 0, *, device="cuda", mesh=None,
+               rules=None) -> TrainState:
     """Fresh parameters drawn from ``seed`` (``lm.init_params``) and zero
-    moments, on ``device`` (CUDA unless the caller asks for the CPU)."""
+    moments, on ``device`` (CUDA unless the caller asks for the CPU).
+    With a ``mesh``: this rank's blocks of them under ``rules``
+    (:data:`sharding.DEFAULT_RULES` by default), each leaf drawn whole
+    and freed once its block is cut."""
     params = lm.init_params(cfg, seed, device=device)
+    if mesh is not None:
+        params = shard_params(cfg, params, mesh, rules)
     return TrainState(params, adamw.init(params))
+
+
+def shard_params(cfg, params: dict, mesh, rules=None) -> dict:
+    """This rank's blocks of a whole parameter tree under ``rules``.  The
+    tree is emptied as it goes: each whole leaf is freed once its block
+    is cut."""
+    def cut(tree: dict, specs: dict) -> dict:
+        out = {}
+        for k in sorted(tree):
+            v = tree.pop(k)
+            out[k] = cut(v, specs[k]) if isinstance(v, dict) \
+                else sharding.shard(v, specs[k], mesh)
+        return out
+    return cut(params, lm.param_pspecs(cfg, rules or sharding.DEFAULT_RULES))
 
 
 def abstract_state(cfg) -> TrainState:
@@ -40,8 +68,11 @@ def abstract_state(cfg) -> TrainState:
     return TrainState(params, adamw.abstract(params))
 
 
-def state_pspecs(cfg, rules):
-    raise NotImplementedError(f"state_pspecs {_MESH}")
+def state_pspecs(cfg, rules) -> TrainState:
+    """The state's placements: the parameters' (``lm.param_pspecs``) for
+    them and both moments, and the step counter whole."""
+    pspec = lm.param_pspecs(cfg, rules)
+    return TrainState(pspec, adamw.AdamWState((), pspec, pspec))
 
 
 def _leaves(tree) -> list:
@@ -91,6 +122,123 @@ def _grads(cfg, params, batch: dict, q_chunk: int = 0, microbatch: int = 1,
     return loss_sum / microbatch, metrics, grads
 
 
+def _onebit_pod_allreduce(grads: list, group, scales=None,
+                          slab: int = 1 << 26) -> list:
+    """Majority-vote one-bit gradient exchange across the pod axis
+    (``group``: the ranks that differ only in their pod).  Each pod packs
+    its gradient's sign bits (32 to a word), all-gathers the planes and
+    its L1 scale, and every pod rebuilds sign(sum of votes + 0.5) times
+    the mean scale.  Only uint32 planes and one scalar a tensor cross the
+    pod axis.  ``scales`` (one f32 scalar a leaf) replaces each leaf's
+    ``mean(|g|)`` where the rank holds a block of it; the signs are packed
+    and voted in ``slab``-element pieces (a multiple of 32), which changes
+    no bit."""
+    out = []
+    for i, g in enumerate(grads):
+        flat = g.reshape(-1)
+        n = flat.numel()
+        scale = g.float().abs().mean() if scales is None else scales[i]
+        planes = torch.cat([bitpack.pack_bits(bitpack.pad_to_word(
+            flat[s:s + slab].float())) for s in range(0, n, slab)])
+        all_planes = torch.stack(sharding.all_gather(planes, group))
+        mean_scale = torch.cat(sharding.all_gather(scale.reshape(1),
+                                                   group)).mean()
+        res = torch.empty(n, dtype=torch.float32, device=g.device)
+        for s in range(0, n, slab):
+            m = min(slab, n - s)
+            votes = bitpack.unpack_bits(
+                all_planes[:, s // 32:(s + m + 31) // 32], m)
+            res[s:s + m] = mean_scale * torch.sign(votes.sum(0) + 0.5)
+        out.append(res.reshape(g.shape).to(g.dtype))
+    return out
+
+
+def _pod_vote(grads: list, specs: list, defs: list, mesh) -> list:
+    """:func:`_onebit_pod_allreduce` over this rank's gradient blocks:
+    where a pod splits a leaf over its other axes, the leaf's L1 scale is
+    summed over them first; block padding stays zero."""
+    pods = sharding.axis_size(mesh, "pod")
+    inner = sharding.axis_group(mesh, tuple(
+        a for a in mesh.mesh_dim_names if a != "pod"))
+    valid = [sharding.unpad(g, d.shape, s, mesh)
+             for g, s, d in zip(grads, specs, defs)]
+    scales = None
+    if sharding.group_size(inner) > 1:
+        scales = [sharding.all_reduce(
+            v.float().abs().sum() / (sharding.copies(s, mesh) // pods),
+            inner) / math.prod(d.shape)
+            for v, s, d in zip(valid, specs, defs)]
+    voted = _onebit_pod_allreduce(valid, sharding.axis_group(mesh, "pod"),
+                                  scales)
+    out = []
+    for g, v, s, d in zip(grads, voted, specs, defs):
+        block = torch.zeros_like(g)
+        sharding.unpad(block, d.shape, s, mesh).copy_(v)
+        out.append(block)
+    return out
+
+
+def _sharded_grads(cfg, params, batch: dict, q_chunk: int, mesh, rules,
+                   onebit: bool):
+    """-> (loss, metrics, this rank's gradient blocks, the blocks'
+    copies, a sum over every rank) of the sharded step."""
+    defs = pdefs.leaves(lm.param_defs(cfg))
+    specs = pdefs.leaves(lm.param_pspecs(cfg, rules))
+    b = batch["tokens"].shape[0]
+    ba = sharding.batch_axes(mesh, b)
+    ba = () if ba is None else (ba,) if isinstance(ba, str) else ba
+    sum_axes = ba
+    if onebit:
+        if "pod" not in ba:
+            raise ValueError(f"onebit_pod splits the batch over pods: "
+                             f"batch {b} on mesh {mesh.mesh_dim_names}")
+        if any("pod" in ((a,) if isinstance(a, str) else a or ())
+               for s in specs for a in s):
+            raise ValueError("onebit_pod keeps the parameters whole across "
+                             "pods; these rules place them over 'pod'")
+        sum_axes = tuple(a for a in ba if a != "pod")
+    # every rank makes the multi-axis groups together, before any use
+    world = sharding.axis_group(mesh, mesh.mesh_dim_names)
+    sharding.axis_group(mesh, sum_axes)
+    dspecs = sharding.data_specs(mesh, b, "ctx" in batch)
+    local = {k: sharding.shard(v, dspecs[k], mesh) for k, v in batch.items()}
+    blocks = [p.detach().requires_grad_(True) for p in _leaves(params)]
+    with torch.enable_grad():
+        full = [sharding.gather(p, s, mesh, d.shape, sum_axes)
+                for p, s, d in zip(blocks, specs, defs)]
+        it = iter(full)
+        live = verify.tree_map(lambda _: next(it), params)
+        loss, metrics = lm.loss_fn(cfg, live, local, q_chunk=q_chunk,
+                                   batch_sum=sharding.batch_sum(mesh,
+                                                                sum_axes))
+        del live
+        # the whole gradients first, then each gather's backward (its
+        # all-reduce) in leaf order: autograd does not promise an order
+        # among independent leaves, and were it to differ between ranks,
+        # two leaves of one size would sum into each other
+        whole = list(torch.autograd.grad(loss, full, allow_unused=True))
+        grads = []
+        for i, (f, b) in enumerate(zip(full, blocks)):
+            g, whole[i] = whole[i], None
+            grads.append(torch.zeros_like(b) if g is None else
+                         torch.autograd.grad(f, b, g)[0])
+            del g
+    del full
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    loss = loss.detach()
+    if onebit:
+        grads = _pod_vote(grads, specs, defs, mesh)
+        pod = sharding.axis_group(mesh, "pod")
+        n = sharding.group_size(pod)
+        loss = sharding.all_reduce(loss.clone(), pod) / n
+        metrics = {k: sharding.all_reduce(v.float(), pod) / n
+                   for k, v in metrics.items()}
+    git = iter(grads)
+    return (loss, metrics, verify.tree_map(lambda _: next(git), params),
+            [sharding.copies(s, mesh) for s in specs],
+            lambda x: sharding.all_reduce(x.clone(), world))
+
+
 def train_step(cfg, state: TrainState, batch: dict, step, *,
                peak_lr: float = 3e-4, warmup: int = 100, total: int = 10000,
                q_chunk: int = 0, microbatch: int = 1,
@@ -99,13 +247,38 @@ def train_step(cfg, state: TrainState, batch: dict, step, *,
     """One optimizer step -> (state, metrics {ce, aux, tokens, loss,
     gnorm, lr}).  ``batch`` holds tensors on the state's device; ``step``
     addresses the schedule.  The parameters and moments are updated in
-    place (:func:`optim.adamw.update`)."""
-    if grad_compress != "none":
-        raise NotImplementedError(f"grad_compress={grad_compress!r} {_MESH}")
-    loss, metrics, grads = _grads(cfg, state.params, batch, q_chunk,
-                                  microbatch, acc_dtype)
+    place (:func:`optim.adamw.update`).
+
+    With a ``mesh``: ``state`` holds this rank's blocks (:func:`init_state`
+    with the same mesh and ``rules``), ``batch`` is the global batch (the
+    step takes this rank's block, ``sharding.data_specs``), and the
+    metrics are the global batch's.  ``grad_compress="onebit_pod"`` needs
+    a ``pod`` axis that splits the batch: each pod's gradients (summed
+    within the pod) go through the one-bit vote, and loss and metrics are
+    the pods' mean.  ``microbatch`` > 1 is single-device only."""
+    if grad_compress not in ("none", "onebit_pod"):
+        raise ValueError(f"unknown grad_compress {grad_compress!r}")
+    onebit = grad_compress == "onebit_pod"
+    if mesh is None:
+        if onebit:
+            raise ValueError("grad_compress='onebit_pod' needs a mesh with "
+                             "a 'pod' axis")
+        loss, metrics, grads = _grads(cfg, state.params, batch, q_chunk,
+                                      microbatch, acc_dtype)
+        copies = psum = None
+    else:
+        if microbatch > 1:
+            raise ValueError("microbatch > 1 is not ported to the sharded "
+                             "step")
+        if onebit and "pod" not in mesh.mesh_dim_names:
+            raise ValueError("grad_compress='onebit_pod' needs a mesh with "
+                             "a 'pod' axis")
+        loss, metrics, grads, copies, psum = _sharded_grads(
+            cfg, state.params, batch, q_chunk, mesh,
+            rules or sharding.DEFAULT_RULES, onebit)
     lr = schedule.warmup_cosine(step, peak_lr=peak_lr, warmup=warmup,
                                 total=total).to(loss.device)
-    params, opt, gnorm = adamw.update(state.params, grads, state.opt, lr)
+    params, opt, gnorm = adamw.update(state.params, grads, state.opt, lr,
+                                      copies=copies, psum=psum)
     metrics = dict(metrics, loss=loss, gnorm=gnorm, lr=lr)
     return TrainState(params, opt), metrics

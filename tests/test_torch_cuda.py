@@ -1104,3 +1104,34 @@ def test_cuda_train_mode_row_sums_do_not_depend_on_the_batch(gpu, d):
         assert torch.isfinite(grad).all()
         torch.testing.assert_close(grad, torch.cat([a[1] for a in alone[:b]]),
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_engine_matches_single_device(gpu):
+    """``ShardedCimEngine`` over 2 gloo ranks on the card against the
+    single-device ``CimEngine`` on the card, bitwise, on the CPU tests'
+    sweep (``mesh_ranks.engine_cases``): chunks in rank order rebuild
+    xor, xnor and the ciphertext; every rank holds the digests."""
+    from mesh_ranks import engine_cases, engine_rank
+    from repro_torch.core import bitpack
+    from repro_torch.core.engine import CimEngine
+    from repro_torch.launch import mesh as mesh_mod
+
+    ranks = mesh_mod.run_ranks(engine_rank, 2, 2, 0, "cuda")
+    ref = CimEngine(device="cuda")
+    for i, c in enumerate(engine_cases(0)):
+        a, b = (bitpack.from_numpy_u32(c[k]).cuda() for k in "ab")
+        key = [int(k) for k in c["key"]]
+        for op, want in (("xor", ref.xor(a, b)), ("xnor", ref.xnor(a, b)),
+                         ("cipher", ref.stream_cipher(a, key, c["ctr"]))):
+            got = np.concatenate([r["cases"][i][op] for r in ranks])
+            np.testing.assert_array_equal(got, bitpack.to_numpy_u32(want),
+                                          err_msg=f"{op} case {i}")
+        for r in ranks:
+            assert r["cases"][i]["round_trip"]
+            np.testing.assert_array_equal(
+                r["cases"][i]["digest"],
+                bitpack.to_numpy_u32(ref.digest(a, c["width"])))
+            np.testing.assert_array_equal(
+                r["cases"][i]["chunks"], bitpack.to_numpy_u32(
+                    ref.digest_chunks(a, c["chunk"], c["width"])))

@@ -254,5 +254,5 @@ def test_reference_resumes_port_training_checkpoint(tmp_path, straight):
     flat = {verify.leaf_key(p): leaf
             for p, leaf in verify.tree_flatten_with_path(resumed.params)}
     _hold_run(straight[0], straight[1],
-              {k: torch.from_numpy(np.asarray(v, np.float32))
+              {k: torch.from_numpy(np.array(v, np.float32, copy=True))
                for k, v in flat.items()}, losses)

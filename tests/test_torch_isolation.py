@@ -61,3 +61,30 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_mesh_modules_stand_alone():
+    """The mesh slice's modules are among those checked above, and
+    importing them joins no process group (ranks join inside
+    ``launch.mesh.run_ranks``)."""
+    rel = {p.relative_to(PKG).as_posix() for p in FILES
+           if p.is_relative_to(PKG)}
+    assert {"distributed/sharding.py", "launch/mesh.py", "core/engine.py",
+            "train/train_step.py"} <= rel
+    code = "\n".join([
+        "import sys",
+        f"for b in {BANNED!r}:",
+        "    sys.modules[b] = None",
+        "import torch.distributed as dist",
+        "from repro_torch.distributed import sharding",
+        "from repro_torch.launch import mesh",
+        "from repro_torch.core.engine import ShardedCimEngine",
+        "from repro_torch.train import train_step",
+        "assert not dist.is_initialized()",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -64,10 +64,15 @@ DTYPES = {"tokens": "bfloat16", "final_norm": "float32", "ln1": "float32",
 
 
 def _both(tree):
+    """The same leaves in both packages.  The torch leaves are copies:
+    ``np.asarray`` of an f32 JAX array is a view of its buffer, and the
+    port's AdamW writes its parameters in place, possibly before the
+    reference's asynchronously dispatched step has read them."""
     j = {k: {n: jnp.asarray(v, DTYPES[n]) for n, v in sub.items()}
          for k, sub in tree.items()}
-    t = {k: {n: torch.from_numpy(np.asarray(j[k][n], np.float32)).to(
-        getattr(torch, DTYPES[n])) for n in sub} for k, sub in tree.items()}
+    t = {k: {n: torch.from_numpy(np.array(j[k][n], np.float32, copy=True))
+             .to(getattr(torch, DTYPES[n])) for n in sub}
+         for k, sub in tree.items()}
     return j, t
 
 

@@ -36,6 +36,7 @@ import torch
 
 import repro.configs as jconfigs
 from repro.data import synthetic as jsynthetic
+from repro.distributed import sharding as jsharding
 from repro.models import lm as jlm
 from repro.optim import adamw as jadamw
 from repro.train import train_step as jtrain
@@ -261,11 +262,20 @@ def test_train_step_learns_and_reports():
 
 
 def test_onebit_pod_and_pspecs_need_a_mesh():
+    """The one-bit exchange runs across a mesh's pod axis: without a mesh
+    the step refuses it.  ``state_pspecs`` needs only the rules: the
+    reference's placements (``tests/test_torch_mesh_*.py`` run both on
+    gloo meshes)."""
     cfg = configs.get("qwen2-7b").smoke(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="'pod' axis"):
         ttrain.train_step(cfg, None, {}, 0, grad_compress="onebit_pod")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ttrain.state_pspecs(cfg, {})
+    specs = ttrain.state_pspecs(cfg, jsharding.DEFAULT_RULES)
+    want = jtrain.state_pspecs(jconfigs.get("qwen2-7b").smoke(),
+                               jsharding.DEFAULT_RULES)
+    assert specs.opt.step == ()
+    assert specs.params["seg0_attn"]["attn_wq"] == tuple(
+        want.params["seg0_attn"]["attn_wq"]) == (None, "data", "model")
+    assert specs.opt.m == specs.opt.v == specs.params
 
 
 def test_counts_match_reference():

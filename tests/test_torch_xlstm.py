@@ -79,7 +79,8 @@ def _mstate(rng, b, nh, dh):
     q, k, v, i, f = _qkvif(rng, b, 6, nh, dh)
     st0 = jssm.MLSTMState.zeros(b, nh, dh)
     _, st = jssm.mlstm_sequential(*map(jnp.asarray, (q, k, v, i, f)), st0)
-    return st, ssm.MLSTMState(*(torch.from_numpy(np.asarray(a)) for a in st))
+    return st, ssm.MLSTMState(*(torch.from_numpy(np.array(a, copy=True))
+                                for a in st))
 
 
 def test_smoke_shapes_are_the_references():
