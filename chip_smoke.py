@@ -23,6 +23,8 @@
     python3 chip_smoke.py --paged-plans      # paged decode at W 2048, the
                                              # fixed split plan against a
                                              # batch-sized one, B 1 to 32
+    python3 chip_smoke.py --roofline         # phase 11 alone, on phase
+                                             # 3's engine built alone
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -254,6 +256,17 @@ Phases (any failure raises and the script exits non-zero):
    written out, AdamW), and the bytes of sign planes that crossed.  A
    rank that fails fails the script.
 
+11. The roofline and the dry-run against the card (``roofline_phase``,
+   run after 3b on phase 3's drained engine): the datasheet constants of
+   ``roofline.analysis`` and ``paged_attn.H100_SMS`` against the card;
+   ``ServeEngine.decode_roofline`` (one decode step traced on ``meta``)
+   against one real step at 4 slots: its launches of the fused linear and
+   paged decode equal to the wrappers' counts (196 and 28), its dispatches
+   printed beside the step's CUDA kernel launches, the step's device busy
+   time at least the byte floor at HBM's rate; the dry-run of 9a's and
+   10b's cells in this process beside their readings, 10b's state bytes a
+   rank exactly the shard's.
+
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -274,10 +287,6 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
-# "f32" is the CUDA-core rate, also used for the word-wise integer ops
-# (XOR, multiply) of the streaming kernels: the table has no int32 entry
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 L2_BYTES = 50 * 2**20
 ROOT_KEY = "chip-smoke-root-key"
 MASK = 0xFFFFFFFF
@@ -390,9 +399,20 @@ def copies(make, nbytes: int):
 
 
 def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    """-> (the least ms the card could take for a launch's work, "bytes" or
+    "operations"): the larger of its bytes over HBM's rate and its
+    operations over their peak, ``roofline.analysis``'s datasheet figures.
+    Called on a wrapper's ``cost``."""
+    from repro_torch.roofline.analysis import HBM_BW, PEAK_OPS
+    t_bytes = nbytes / HBM_BW * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bytes_ms(nbytes: float) -> float:
+    """ms to move ``nbytes`` at HBM's datasheet rate."""
+    from repro_torch.roofline.analysis import HBM_BW
+    return nbytes / HBM_BW * 1e3
 
 
 LINEAR_SHAPES = {"wq/wo": (3584, 3584), "wk/wv": (512, 3584),
@@ -442,13 +462,11 @@ def kernel_checks(gpu: str) -> dict:
     assert torch.equal(kp, pp), "pack planes differ at ragged K"
     torch.testing.assert_close(ka, pa, rtol=1e-6, atol=0, equal_nan=True)
     n, k = linears["w1/w3"]
-    kw = bitpack.packed_width(k)
-    nbytes = n * k * 2 + n * kw * 4 + n * 4
     sets = copies(lambda: (randn(n, k, dtype=torch.bfloat16),), n * k * 2)
     ms = time_ms(kpack.pack, sets, 50)
     with cuda.plain_reference():
         plain = time_ms(kpack.pack, sets[:2], 2, 2)
-    b_ms, b_by = bound(nbytes, 2 * n * k, "bf16")
+    b_ms, b_by = bound(*kpack.cost(n, k))
     rec["pack"] = dict(
         name="pack", route="cuda",
         source="src/repro_torch/kernels/csrc/pack.cu",
@@ -483,7 +501,6 @@ def kernel_checks(gpu: str) -> dict:
             # kernel alpha f32 vs plain alpha rounded to bf16: <= 2^-9 rel
             torch.testing.assert_close(kk, pp, rtol=2 ** -8, atol=1e-6)
             e = (kk - pp).abs().max().item()
-            nbytes = m * k * 2 + n * kw * 4 + n * 4 + m * n * 4
             sets = copies(lambda: (randn(m, k, dtype=torch.bfloat16),
                                    *xnor_layers.pack_weights(
                                        randn(n, k, dtype=torch.bfloat16)),
@@ -494,7 +511,7 @@ def kernel_checks(gpu: str) -> dict:
             gemm = time_ms(F.linear, copies(
                 lambda: (xb, randn(n, k, dtype=torch.bfloat16)), n * k * 2),
                 200)
-            b_ms, b_by = bound(nbytes, 2 * m * n * k, "int8")
+            b_ms, b_by = bound(*kxnor.linear_cost(m, n, k))
             plan = kxnor.linear_plan(m, n, k)
             print(f"[xnor_linear_fused] {name} M={m} N={n} K={k}: {ms} ms, "
                   f"plain {plain} ms, bound {b_ms} ms ({b_by}), dense bf16 "
@@ -570,10 +587,8 @@ def kernel_checks(gpu: str) -> dict:
                   B * KV * G * dh * 2 + 2 * n_blocks * KV * bs * dh * 2)
     q, ck, cv, table, _ = sets[0]
     live = int((pos_main // bs + 1).sum())          # blocks this data reads
-    nbytes = (q.numel() * 2 * 2 + live * KV * 2 * bs * dh * 2
-              + table.numel() * 4 + B * 4)
-    b_ms, b_by = bound(nbytes, 4 * KV * G * dh * int((pos_main + 1).sum()),
-                       "bf16")
+    b_ms, b_by = bound(*kpaged.cost(B, KV, G, dh, bs, W, 2, 2, live,
+                                    int((pos_main + 1).sum())))
     ms = time_ms(lambda *a: kpaged.paged_decode_attention(
         *a, window=0, scale=scale), sets, 200)
     with cuda.plain_reference():
@@ -624,9 +639,9 @@ def decode_step_linears(gpu: str, randn) -> None:
             pb, beta = xnor_layers.pack_weights(
                 randn(n, k, dtype=torch.bfloat16))
             calls.append((randn(4, k, dtype=torch.bfloat16), pb, beta, k))
-            nbytes += 4 * k * 2 + pb.numel() * 4 + n * 4 + 4 * n * 4
+            nbytes += kxnor.linear_cost(4, n, k).bytes
     step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms = bytes_ms(nbytes)
     plain = plain_step_ms(kxnor.xnor_linear_fused, calls)
     print(f"[xnor_linear_fused decode step] {len(calls)} launches (7 a layer "
           f"x 28, M = 4) in one CUDA graph: {step} ms, bound {b_ms} ms "
@@ -673,10 +688,9 @@ def paged_long(gpu: str) -> dict:
     err = (kk.float() - pp.float()).abs().max().item()
     del kk, pp
     live = int((pos // bs + 1).sum())
-    nbytes = (q.numel() * 2 * 2 + live * KV * 2 * bs * dh * 2
-              + table.numel() * 4 + B * 4)
-    b_ms, b_by = bound(nbytes, 4 * KV * G * dh * int((pos + 1).sum()),
-                       "bf16")
+    cost = kpaged.cost(B, KV, G, dh, bs, W, 2, 2, live, int((pos + 1).sum()))
+    nbytes = cost.bytes
+    b_ms, b_by = bound(*cost)
     ms = time_ms(lambda *a: kpaged.paged_decode_attention(*a, scale=scale),
                  [args], 20)
     with cuda.plain_reference():
@@ -903,10 +917,8 @@ def paged_plans(gpu: str, batches=(1, 4, 16, 32)) -> None:
         with cuda.plain_reference():
             pp = kpaged.paged_decode_attention(*args, scale=scale)
         live = int((pos // bs + 1).sum())
-        nbytes = (q.numel() * 2 * 2 + live * KV * 2 * bs * dh * 2
-                  + table.numel() * 4 + b * 4)
-        b_ms, b_by = bound(nbytes, 4 * KV * G * dh * int((pos + 1).sum()),
-                           "bf16")
+        b_ms, b_by = bound(*kpaged.cost(b, KV, G, dh, bs, W, 2, 2, live,
+                                        int((pos + 1).sum())))
         row = {}
         for label, slots in (("fixed", fixed), ("batch", b)):
             kpaged.PLAN_SLOTS = slots
@@ -996,13 +1008,12 @@ def other_arch_kernels(gpu: str) -> dict:
                         atol=2e-5 if f32 else 1e-6)
             if arch == "recurrentgemma-2b":
                 kw = pb.shape[1]
-                nbytes = 4 * k * 2 + n * kw * 4 + n * 4 + 4 * n * 2
                 sets = copies(lambda: (randn(4, k, dtype=torch.bfloat16),
                                        *xnor_layers.pack_weights(
                                            randn(n, k, dtype=torch.bfloat16)),
                                        k), n * kw * 4)
                 ms = time_ms(kxnor.xnor_linear_fused, sets, 200)
-                b_ms, b_by = bound(nbytes, 2 * 4 * n * k, "int8")
+                b_ms, b_by = bound(*kxnor.linear_cost(4, n, k))
                 row[name] = dict(N=n, K=k, ms=ms, bound_ms=b_ms)
                 del sets
         print(f"[xnor_linear_fused {arch}] held bitwise in the kernel's "
@@ -1020,10 +1031,10 @@ def other_arch_kernels(gpu: str) -> dict:
             pb, beta = xnor_layers.pack_weights(
                 randn(n, k, dtype=torch.bfloat16))
             calls.append((randn(4, k, dtype=torch.bfloat16), pb, beta, k))
-            nbytes += 4 * k * 2 + pb.numel() * 4 + n * 4 + 4 * n * 2
+            nbytes += kxnor.linear_cost(4, n, k).bytes
     assert len(calls) == 200, len(calls)
     step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms = bytes_ms(nbytes)
     plain = plain_step_ms(kxnor.xnor_linear_fused, calls)
     print(f"[xnor_linear_fused recurrentgemma decode step] {len(calls)} "
           f"launches (8 a rglru layer x 18, 7 a local layer x 8, M = 4) in "
@@ -1127,8 +1138,8 @@ def integer_kernel_checks(gpu: str, linears: dict) -> dict:
             f"version at {[tuple(a.shape) if hasattr(a, 'shape') else a for a in args]}"
         return k
 
-    def row(name, src, replaces, ms, plain, nbytes, ops, kind, lib):
-        b_ms, b_by = bound(nbytes, ops, kind)
+    def row(name, src, replaces, ms, plain, cost, lib):
+        b_ms, b_by = bound(*cost)
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{src}",
                     replaces=replaces, max_abs_err=0.0, ms=ms,
@@ -1157,8 +1168,7 @@ def integer_kernel_checks(gpu: str, linears: dict) -> dict:
         with cuda.plain_reference():
             plain = time_ms(kxnor.xnor_gemm, sets[:2], 2, 2)
         r = row("xnor_gemm", "xnor_gemm.cu", "src/repro/kernels/xnor_gemm.py:80",
-                ms, plain, (m + n) * kw * 4 + m * n * 4, 2 * m * n * k, "int8",
-                None)
+                ms, plain, kxnor.gemm_cost(m, n, kw, k), None)
         print(f"[xnor_gemm] {label} ({m}, {kw}) x ({n}, {kw}), K={k}: {ms} "
               f"ms, plain {plain} ms, bound "
               f"{r['bound_ms']} ms ({r['bound_by']}); plan "
@@ -1218,7 +1228,7 @@ def integer_kernel_checks(gpu: str, linears: dict) -> dict:
         plain = time_ms(kbulk.bulk_xor, sets, 2, 2)
     lib = time_ms(torch.bitwise_xor, sets, 20)
     rec["bulk_xor"] = row("bulk_xor", "bulk.cu", "src/repro/kernels/bulk.py:39",
-                          ms, plain, 12 * n, n, "f32", lib)
+                          ms, plain, kbulk.cost(n), lib)
     print(f"[bulk_xor] {n} words: {ms} ms, plain {plain} ms, "
           f"torch.bitwise_xor {lib} ms, bound {rec['bulk_xor']['bound_ms']} "
           f"ms  [{gpu}]")
@@ -1228,7 +1238,7 @@ def integer_kernel_checks(gpu: str, linears: dict) -> dict:
         plain = time_ms(kparity.parity_digest, sets, 2, 2)
     rec["parity_digest"] = row("parity_digest", "parity.cu",
                                "src/repro/kernels/parity.py:47", ms, plain,
-                               4 * n + 512, n, "f32", None)
+                               kparity.cost(n), None)
     print(f"[parity_digest] {n} words: {ms} ms, plain {plain} ms, bound "
           f"{rec['parity_digest']['bound_ms']} ms  [{gpu}]")
     sets = [(w, 0x9E3779B9, 0x0BADF00D, 2 ** 32 - 5) for (w,) in sets]
@@ -1236,8 +1246,8 @@ def integer_kernel_checks(gpu: str, linears: dict) -> dict:
     with cuda.plain_reference():
         plain = time_ms(kcipher.xor_cipher, sets, 2, 2)
     rec["xor_cipher"] = row("xor_cipher", "cipher.cu",
-                            "src/repro/kernels/cipher.py:47", ms, plain, 8 * n,
-                            12 * n, "f32", None)
+                            "src/repro/kernels/cipher.py:47", ms, plain,
+                            kcipher.cost(n), None)
     print(f"[xor_cipher] {n} words: {ms} ms, plain {plain} ms, bound "
           f"{rec['xor_cipher']['bound_ms']} ms  [{gpu}]")
     return rec
@@ -1261,8 +1271,9 @@ def slice_trace(vocab: int) -> list:
     return trace
 
 
-def serve_slice(gpu: str) -> dict:
-    """Phase 3: full qwen2-7b+xnor through the port's ServeEngine."""
+def serve_slice(gpu: str) -> tuple:
+    """Phase 3: full qwen2-7b+xnor through the port's ServeEngine ->
+    (its kernels' launches, the drained engine, which phase 11 audits)."""
     import torch
 
     import repro_torch.configs as configs
@@ -1339,7 +1350,6 @@ def serve_slice(gpu: str) -> dict:
           f"check_paths failed with {failed!r}  [{gpu}]")
     assert "inputs drifted" in failed and "rounds one way" in failed, \
         "check_paths' bf16 holds must each fail a kernel that rounds one way"
-    del eng
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     for seed in (SEED, SEED + 1):
@@ -1348,7 +1358,136 @@ def serve_slice(gpu: str) -> dict:
         check_paths(cfg32, params32, toks, nxt, gpu, seed=seed)
         del params32
         torch.cuda.empty_cache()
-    return launches
+    return launches, eng
+
+
+# Readings the dry-run of phase 11 is held to (my chip runs, PRs 22-23;
+# NVIDIA H100 80GB HBM3, 700 W): 9a's peak device memory, 10b's train
+# state and peak a rank
+READ_9A_PEAK_GIB = 37.25
+READ_10B_STATE_BYTES = 17_497_901_060
+READ_10B_PEAK_GIB = 33.04
+
+
+def phase3_engine():
+    """Phase 3's engine, built alone: the seeded full-width, full-depth
+    qwen2-7b+xnor tree, packed at load, 4 slots, s_max 128."""
+    import repro_torch.configs as configs
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+    cfg = configs.get("qwen2-7b+xnor")
+    return ServeEngine(cfg, lm.init_params(cfg, SEED, device="cuda"),
+                       slots=4, s_max=128, device="cuda")
+
+
+def roofline_phase(gpu: str, eng) -> None:
+    """Phase 11: the roofline and the dry-run against the card, on phase
+    3's drained engine (full-width, full-depth qwen2-7b+xnor, 4 slots).
+
+    The datasheet constants against the card (its SM count, the split
+    plan's ``H100_SMS``, and its memory, ``CARD_BYTES``); the engine's
+    decode audit (``ServeEngine.decode_roofline``: one paged decode step
+    and its sampling traced on ``meta``) against one real decode step with
+    all four slots decoding: the audit's launches of the fused linear and
+    paged decode must equal the wrappers' counts over the real step, its
+    dispatches are printed beside the step's CUDA kernel launches
+    (``torch.profiler``), and the step's device busy time must be at least
+    the floor, ``roofline_bytes`` at HBM's rate.  Then the dry-run of two
+    cells the card ran, traced in this process (``meta``, a ``fake``
+    process group): 9a (1 rank, 4 of 28 layers, batch 4 x 256) and 10b (2
+    ranks on data, 8 layers), beside their readings; 10b's state bytes a
+    rank must equal the shard's exactly, the peaks' ratios are printed."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import paged_attn as kpaged
+    from repro_torch.kernels import xnor_gemm as kxnor
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.roofline import analysis
+    from repro_torch.serve import Request
+
+    props = torch.cuda.get_device_properties(0)
+    print(f"[roofline] SMs {props.multi_processor_count} (H100_SMS "
+          f"{kpaged.H100_SMS}), total_memory {props.total_memory} bytes "
+          f"(CARD_BYTES {analysis.CARD_BYTES})  [{gpu}]")
+    assert props.multi_processor_count == kpaged.H100_SMS
+    assert 0.97 * analysis.CARD_BYTES <= props.total_memory \
+        <= analysis.CARD_BYTES
+
+    t0 = time.perf_counter()
+    audit = eng.decode_roofline()
+    t_audit = time.perf_counter() - t0
+    want = {k: v["launches"] for k, v in audit["kernels"].items()}
+
+    cfg = eng.cfg
+    for i, r in enumerate(slice_trace(cfg.vocab)[:eng.slots]):
+        eng.submit(Request(100 + i, r.prompt, 24))
+    while eng._prefilling or len(eng.pool.active) < eng.slots:
+        eng.step()
+    eng.step()                                   # a warm decode step
+    torch.cuda.synchronize()
+    kernels = (kxnor.xnor_linear_fused, kpaged.paged_decode_attention)
+    for f in kernels:
+        f.launches = 0
+    eng.step()
+    torch.cuda.synchronize()
+    got = {f.__name__: f.launches for f in kernels}
+    steps = 3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    cuda_launches = sum(e.count for e in dev) / steps
+    floor_ms = audit["roofline_bytes"] / analysis.HBM_BW * 1e3
+    print(f"[roofline] decode audit of {cfg.name} at {eng.slots} slots "
+          f"({t_audit} s): {audit['dispatches']} dispatches, kernels "
+          f"{want}; roofline bytes {audit['roofline_bytes']} (floor "
+          f"{floor_ms} ms at HBM's rate), achieved bytes "
+          f"{audit['achieved_bytes']}, t_memory {audit['t_memory_s'] * 1e3}"
+          f" ms, t_compute {audit['t_compute_s'] * 1e3} ms  [{gpu}]")
+    print(f"[roofline] one real decode step: launches {got}; profiled over "
+          f"{steps} steps: {cuda_launches} CUDA kernel launches a step "
+          f"against the audit's {audit['dispatches']} dispatches, device "
+          f"busy {busy_ms} ms a step against the floor {floor_ms} ms "
+          f"({busy_ms / floor_ms} x)  [{gpu}]")
+    assert got == {"xnor_linear_fused": want.get("xnor_linear_fused"),
+                   "paged_decode_attention":
+                   want.get("paged_decode_attention")}, (got, want)
+    assert busy_ms > 0, "the profile shows no device time"
+    assert busy_ms >= floor_ms, \
+        f"busy {busy_ms} ms under the floor {floor_ms} ms: a count is wrong"
+    eng.run()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    r9 = dryrun.trace_cell(train_cfg(), ShapeConfig("9a", "train", 256, 4),
+                           None)
+    with dryrun.fake_group(2):
+        mesh = mesh_mod.make_mesh((2, 1), ("data", "model"), device="cpu")
+        r10 = dryrun.trace_cell(_mesh_cfg(MESH_LAYERS),
+                                ShapeConfig("10b", "train", 256, 4), mesh)
+    t_dry = time.perf_counter() - t0
+    p9 = r9["memory_analysis"]["peak_bytes"] / 2**30
+    p10 = r10["memory_analysis"]["peak_bytes"] / 2**30
+    print(f"[roofline] dry-run 9a (1 rank, 4 of 28 layers, batch 4 x 256):"
+          f" state {r9['state_bytes']} bytes, peak {p9} GiB against the "
+          f"reading {READ_9A_PEAK_GIB} GiB ({p9 / READ_9A_PEAK_GIB} x), "
+          f"{r9['dispatches']} dispatches, t = ({r9['t_compute_s'] * 1e3}, "
+          f"{r9['t_memory_s'] * 1e3}) ms  [{gpu}]")
+    print(f"[roofline] dry-run 10b (2 ranks on data, {MESH_LAYERS} layers):"
+          f" state {r10['state_bytes']} bytes a rank against the shard's "
+          f"{READ_10B_STATE_BYTES}, peak {p10} GiB against the reading "
+          f"{READ_10B_PEAK_GIB} GiB ({p10 / READ_10B_PEAK_GIB} x), "
+          f"collectives {r10['collectives']}; both traced in {t_dry} s  "
+          f"[{gpu}]")
+    assert r10["state_bytes"] == READ_10B_STATE_BYTES
 
 
 class LaunchHolds:
@@ -2084,11 +2223,8 @@ def paged_readings(gpu: str, label: str, geom: dict, w: int, pos,
         ms = time_ms(run, sets, 200)
         with cuda.plain_reference():
             plain = time_ms(run, sets[:2], 10, 2)
-        nbytes = (2 * b * kv * gq * dh * qb
-                  + int(live.sum()) * kv * 2 * bs * dh * item
-                  + b * w * 4 + b * 4)
-        b_ms, b_by = bound(nbytes, 4 * kv * gq * dh * keys,
-                           "bf16" if dtype == torch.bfloat16 else "f32")
+        b_ms, b_by = bound(*kpaged.cost(b, kv, gq, dh, bs, w, qb, item,
+                                        int(live.sum()), keys))
         lib = None
         if not i8:
             mask = valid[:, None, None, :]
@@ -2159,8 +2295,7 @@ def moe_arch_kernels(gpu: str) -> dict:
                                            randn(n, k, dtype=torch.bfloat16)),
                                        k), n * kw * 4)
                 ms = time_ms(kxnor.xnor_linear_fused, sets, 200)
-                b_ms, _ = bound(4 * k * 2 + n * kw * 4 + n * 4 + 4 * n * 2,
-                                2 * 4 * n * k, "int8")
+                b_ms, _ = bound(*kxnor.linear_cost(4, n, k))
                 row[name] = dict(N=n, K=k, ms=ms, bound_ms=b_ms)
                 del sets
         print(f"[xnor_linear_fused {arch}] held bitwise in the kernel's "
@@ -2175,9 +2310,9 @@ def moe_arch_kernels(gpu: str) -> dict:
         n, k = MOE_LINEARS["moonshot-v1-16b-a3b"]["wq/wk/wv/wo"]
         pb, beta = xnor_layers.pack_weights(randn(n, k, dtype=torch.bfloat16))
         calls.append((randn(4, k, dtype=torch.bfloat16), pb, beta, k))
-        nbytes += 4 * k * 2 + pb.numel() * 4 + n * 4 + 4 * n * 2
+        nbytes += kxnor.linear_cost(4, n, k).bytes
     step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms = bytes_ms(nbytes)
     plain = plain_step_ms(kxnor.xnor_linear_fused, calls)
     print(f"[xnor_linear_fused moonshot decode step] {len(calls)} launches "
           f"(4 a layer x 48, M = 4) in one CUDA graph: {step} ms, bound "
@@ -2474,9 +2609,6 @@ def vlm_arch_kernels(gpu: str) -> dict:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    def linear_bytes(m, n, k, kw):
-        return m * k * 2 + n * kw * 4 + n * 4 + m * n * 2
-
     for arch, shapes in VLM_LINEARS.items():
         ctx_m, ctx_names = VLM_CTX_ROWS[arch]
         row = {}
@@ -2497,16 +2629,14 @@ def vlm_arch_kernels(gpu: str) -> dict:
                         kk, pp, rtol=2e-5 if f32 else 2 ** -8,
                         atol=2e-5 if f32 else 1e-6)
             if arch == "llama-3.2-vision-11b":
-                kw = pb.shape[1]
                 for m in (4, ctx_m) if name in ctx_names else (4,):
                     sets = copies(lambda: (
                         randn(m, k, dtype=torch.bfloat16),
                         *xnor_layers.pack_weights(
                             randn(n, k, dtype=torch.bfloat16)), k),
-                        linear_bytes(m, n, k, kw))
+                        kxnor.linear_cost(m, n, k).bytes)
                     ms_ = time_ms(kxnor.xnor_linear_fused, sets, 50)
-                    b_ms, b_by = bound(linear_bytes(m, n, k, kw),
-                                       2 * m * n * k, "int8")
+                    b_ms, b_by = bound(*kxnor.linear_cost(m, n, k))
                     plain = plain_step_ms(kxnor.xnor_linear_fused,
                                           sets[:2]) / 2
                     row[f"{name} M={m}"] = dict(ms=ms_, plain_ms=plain,
@@ -2534,10 +2664,10 @@ def vlm_arch_kernels(gpu: str) -> dict:
             pb, beta = xnor_layers.pack_weights(randn(n, k,
                                                       dtype=torch.bfloat16))
             calls.append((randn(4, k, dtype=torch.bfloat16), pb, beta, k))
-            nbytes += linear_bytes(4, n, k, pb.shape[1])
+            nbytes += kxnor.linear_cost(4, n, k).bytes
     assert len(calls) == 264
     step = time_ms(kxnor.xnor_linear_fused, calls, len(calls), 5) * len(calls)
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms = bytes_ms(nbytes)
     plain = plain_step_ms(kxnor.xnor_linear_fused, calls)
     print(f"[xnor_linear_fused llama-3.2-vision decode step] {len(calls)} "
           f"launches (7 a layer x 32 attn + 5 a layer x 8 cross, M = 4) in "
@@ -2913,9 +3043,6 @@ def xlstm_arch_kernels(gpu: str) -> dict:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    def linear_bytes(m, n, k, kw, item):
-        return m * k * item + n * kw * 4 + n * 4 + m * n * item
-
     out = {}
     for arch, shapes in XLSTM_LINEARS.items():
         dt_time = torch.float32 if arch == "xnor-cnn" else torch.bfloat16
@@ -2935,14 +3062,13 @@ def xlstm_arch_kernels(gpu: str) -> dict:
                     torch.testing.assert_close(
                         kk, pp, rtol=2e-5 if f32 else 2 ** -8,
                         atol=2e-5 if f32 else 1e-6)
-            kw = pb.shape[1]
-            nbytes = linear_bytes(4, n, k, kw, item)
+            nbytes = kxnor.linear_cost(4, n, k, item).bytes
             sets = copies(lambda: (
                 randn(4, k, dtype=dt_time),
                 *xnor_layers.pack_weights(randn(n, k, dtype=dt_time)), k),
                 nbytes)
             ms = time_ms(kxnor.xnor_linear_fused, sets, 50)
-            b_ms, b_by = bound(nbytes, 2 * 4 * n * k, "int8")
+            b_ms, b_by = bound(*kxnor.linear_cost(4, n, k, item))
             plain = plain_step_ms(kxnor.xnor_linear_fused, sets[:2]) / 2
             row[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                              bound_by=b_by)
@@ -2963,10 +3089,10 @@ def xlstm_arch_kernels(gpu: str) -> dict:
                 pb, beta = xnor_layers.pack_weights(randn(n, k,
                                                           dtype=dt_time))
                 calls.append((randn(4, k, dtype=dt_time), pb, beta, k))
-                nbytes += linear_bytes(4, n, k, pb.shape[1], item)
+                nbytes += kxnor.linear_cost(4, n, k, item).bytes
         step = time_ms(kxnor.xnor_linear_fused, calls, len(calls),
                        5) * len(calls)
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms = bytes_ms(nbytes)
         plain = plain_step_ms(kxnor.xnor_linear_fused, calls)
         print(f"[xnor_linear_fused {arch} decode step] {len(calls)} "
               f"launches (M = 4, {str(dt_time)[6:]}) in one CUDA graph: "
@@ -4356,6 +4482,7 @@ def integer_chain(gpu: str) -> dict:
     from repro_torch.kernels import cuda, ops
     from repro_torch.kernels import parity as kparity
     from repro_torch.models import lm
+    from repro_torch.roofline.analysis import HBM_BW
     from repro_torch.serve import ServeEngine
 
     cfg = configs.get("qwen2-7b+xnor")
@@ -4481,7 +4608,7 @@ def integer_chain(gpu: str) -> dict:
     print(f"[chain] digest, encrypt, decrypt, verify_copy and re-digest of "
           f"all {len(digs)} leaves ({gb} GB) in {wall} s wall; device ms "
           f"per pass {passes}; GB/s over the tree {rates} against "
-          f"{HBM_BYTES_PER_S / 1e9} GB/s of HBM  [{gpu}]")
+          f"{HBM_BW / 1e9} GB/s of HBM  [{gpu}]")
     print(f"[chain] engine stats: {st.cycles} cycles = cycles_for the "
           f"{st.bit_ops} bits streamed in {st.calls} calls; by op "
           f"{st.by_op}; peak memory {peak / 2**30} GiB  [{gpu}]")
@@ -4596,11 +4723,6 @@ def qwen_qkv(g, s: int):
     return q, k, v
 
 
-def attention_flops(bh: int, s: int, dh: int, causal: bool) -> float:
-    """4 * dh flops per query-key pair the mask keeps."""
-    return 4.0 * dh * bh * (s * (s + 1) / 2 if causal else s * s)
-
-
 # The attention holds (flash attention and paged decode).  Each kernel and
 # its plain versions compute in f32 from upcast inputs (the flash kernel's
 # bf16 instance rounds P to bf16 for its P.V product, 2^-9 of |o| with no
@@ -4657,7 +4779,6 @@ def flash_checks(gpu: str) -> dict:
           f"{err[torch.bfloat16]}  [{gpu}]")
 
     h, dh, s = QWEN_ATTN["heads"], QWEN_ATTN["dh"], 4096
-    nbytes = 4 * h * s * dh * 2
     sets = copies(lambda: qwen_qkv(g, s), 3 * h * s * dh * 2)
     kk = kflash.flash_attention(*sets[0], causal=True)
     with cuda.plain_reference():
@@ -4679,8 +4800,8 @@ def flash_checks(gpu: str) -> dict:
                         sets[:2], 2, 2)
     lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
         q[None], k[None], v[None], is_causal=True), sets, 10, 3)
-    b_ms, b_by = bound(nbytes, attention_flops(h, s, dh, True), "bf16")
-    flops = attention_flops(h, s, dh, True)
+    b_ms, b_by = bound(*kflash.cost(h, s, dh, True))
+    flops = kflash.flops(h, s, dh, True)
     print(f"[flash_attention] bf16 causal BH={h} S={s} dh={dh}, {len(sets)} "
           f"input sets rotated: {ms} ms ({flops / ms / 1e9} TFLOP/s), plain "
           f"{plain} ms, SDPA {lib} ms ({flops / lib / 1e9} TFLOP/s), bound "
@@ -4735,8 +4856,8 @@ def long_context(gpu: str) -> dict:
                      [(q, k, v)], 1, 2)
         lib = time_ms(lambda a, b, c: F.scaled_dot_product_attention(
             a[None], b[None], c[None], is_causal=causal), [(q, k, v)], 1, 2)
-        flops = attention_flops(h, s, dh, causal)
-        b_ms, b_by = bound(4 * q.numel() * 2, flops, "bf16")
+        flops = kflash.flops(h, s, dh, causal)
+        b_ms, b_by = bound(*kflash.cost(h, s, dh, causal))
         print(f"[long] {'causal' if causal else 'full'}: kernel {ms} ms "
               f"({flops / ms / 1e9} TFLOP/s), SDPA {lib} ms "
               f"({flops / lib / 1e9} TFLOP/s), bound {b_ms} ms ({b_by})  "
@@ -5476,6 +5597,11 @@ def main() -> int:
         print(f"[mesh] phase 10 launches {mesh_phase(gpu)} "
               f"({time.perf_counter() - t} s)")
         return 0
+    if sys.argv[1:] == ["--roofline"]:
+        t = time.perf_counter()
+        roofline_phase(gpu, phase3_engine())
+        print(f"[roofline] phase 11 {time.perf_counter() - t} s")
+        return 0
     if sys.argv[1:] == ["--moe"]:
         moe_arch_kernels(gpu)
         t = time.perf_counter()
@@ -5497,8 +5623,11 @@ def main() -> int:
     timed(xlstm_arch_kernels, gpu)
     rec.update(timed(integer_kernel_checks, gpu, LINEAR_SHAPES))
     rec.update(timed(flash_checks, gpu))
-    launches = timed(serve_slice, gpu)
+    launches, eng = timed(serve_slice, gpu)
     tier = timed(serving_tier, gpu)            # launches of its five kernels
+    timed(roofline_phase, gpu, eng)            # phase 11
+    del eng
+    torch.cuda.empty_cache()
     recurrent = timed(recurrent_serving, gpu)  # and of its three
     moe = timed(moe_serving, gpu)              # and of the same three
     timed(llama4_serving, gpu)

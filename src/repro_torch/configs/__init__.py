@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
+                                      shape_applicable)
 from repro_torch.configs.qwen2_7b import CONFIG as qwen2_7b
 from repro_torch.configs.qwen3_4b import CONFIG as qwen3_4b
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as phi4_mini_3_8b
@@ -44,4 +45,5 @@ def get(name: str) -> ArchConfig:
     return cfg
 
 
-__all__ = ["ALL", "ArchConfig", "get"]
+__all__ = ["ALL", "SHAPES", "ArchConfig", "ShapeConfig", "get",
+           "shape_applicable"]

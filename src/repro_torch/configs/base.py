@@ -138,3 +138,28 @@ class ArchConfig:
             scale["n_layers"] = len(self.pattern)
         scale.update(over)
         return dataclasses.replace(self, **scale)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k":  ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k":   ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Spec rules: long_* only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("full-attention arch: 524k dense KV decode is the "
+                       "quadratic regime sub-quadratic archs exist to avoid "
+                       "(DESIGN.md §5)")
+    return True, ""

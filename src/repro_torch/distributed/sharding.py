@@ -24,7 +24,10 @@ the three that gloo runs on CUDA tensors (with ``broadcast``).  Each
 takes a process group (``None``: a group of one rank, no traffic), so a
 recording group (torch's ``fake`` backend) can stand in for a real one,
 and counts its calls and the bytes this rank takes in from the others
-(``.calls``, ``.bytes``, as the kernel wrappers count launches).
+(``.calls``, ``.bytes``, as the kernel wrappers count launches).  On
+``meta`` tensors (a trace under ``cuda.dry_run``) they send nothing and
+count nothing: they hand the collective, its group's ranks and its
+result's bytes to ``cuda.record_collective``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import math
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.kernels import cuda
 
 DEFAULT_RULES = {"fsdp": "data", "tp": "model", "ep": "model"}
 
@@ -50,6 +55,10 @@ def all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
         return [x]
     x = x.contiguous()
     out = [torch.empty_like(x) for _ in range(n)]
+    if x.is_meta:
+        cuda.record_collective("all-gather", _ranks(group, x),
+                               n * x.numel() * x.element_size())
+        return out
     dist.all_gather(out, x, group=group)
     all_gather.calls += 1
     all_gather.bytes += (n - 1) * x.numel() * x.element_size()
@@ -59,11 +68,21 @@ def all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` over the group, in place (``x`` must be contiguous)."""
     n = group_size(group)
-    if n > 1:
+    if n > 1 and x.is_meta:
+        cuda.record_collective("all-reduce", _ranks(group, x),
+                               x.numel() * x.element_size())
+    elif n > 1:
         dist.all_reduce(x, group=group)
         all_reduce.calls += 1
         all_reduce.bytes += (n - 1) * x.numel() * x.element_size()
     return x
+
+
+def _ranks(group, x: torch.Tensor) -> list:
+    """The group's global ranks; a ``meta`` tensor only under
+    ``cuda.dry_run``."""
+    cuda.on_card(x)
+    return dist.get_process_group_ranks(group)
 
 
 def reset_counts() -> None:
@@ -170,6 +189,13 @@ def copies(spec, mesh) -> int:
     used = {a for axes in spec for a in _names(axes)}
     return math.prod(mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)
                      if a not in used)
+
+
+def block_shape(shape, spec, mesh) -> tuple:
+    """The shape of each rank's block of a tensor of ``shape`` (its
+    padded length ``ceil(n / k)`` on every dim split ``k`` ways)."""
+    return tuple(-(-n // axis_size(mesh, axes)) for n, axes in
+                 zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
 
 
 def shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:

@@ -12,6 +12,11 @@ import torch
 from repro_torch.kernels import cuda, ref
 
 
+def cost(n: int) -> cuda.Cost:
+    """One launch on n words: two read, one written, one XOR each."""
+    return cuda.Cost(12 * n, n, "f32")
+
+
 def bulk_xor(a: torch.Tensor, b: torch.Tensor,
              invert: bool = False) -> torch.Tensor:
     """Elementwise XOR (XNOR with ``invert``) of two flat int32 word
@@ -31,6 +36,9 @@ def bulk_xor(a: torch.Tensor, b: torch.Tensor,
                "bulk_xor needs contiguous buffers")
     n = a.numel()
     if n == 0:
+        return torch.empty_like(a)
+    if cuda.traced(a):
+        cuda.record("bulk_xor", cost(n))
         return torch.empty_like(a)
     off = a.data_ptr() % 16 // 4
     if off and b.data_ptr() % 16 == a.data_ptr() % 16:

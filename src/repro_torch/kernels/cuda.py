@@ -13,6 +13,17 @@ CUDA tensors, which get the kernel or an exception — never a fallback.
 The one exception is :func:`plain_reference`, a scoped mode in which the
 wrappers run their plain versions on CUDA tensors too; it exists so a
 check can hold the kernel path against the plain path on the card.
+
+:func:`on_card` is the one predicate every branch between the card's
+code and the CPU's decides by (the wrappers, ``ops.fused_mode`` and the
+models' device-dependent orders).  Inside :func:`dry_run` a tensor on
+the ``meta`` device takes the card's branch (``card=True``) or the
+CPU's, so a trace on ``meta`` follows the program either device runs
+while allocating and launching nothing; outside it a ``meta`` tensor
+raises.  On ``meta`` a wrapper launches nothing: after its checks and its
+output allocation it hands its kernel's bytes and operations (its
+``cost``) to the sinks of :func:`recording`, and its launch count does
+not move.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import os
 import shutil
 import subprocess
 import time
+import typing
 from pathlib import Path
 
 import torch
@@ -57,6 +69,18 @@ ENTRY_POINTS = {
 }
 
 _plain = contextvars.ContextVar("plain_reference", default=False)
+_dry = contextvars.ContextVar("dry_run", default=None)
+_sinks = contextvars.ContextVar("launch_sinks", default=())
+
+
+class Cost(typing.NamedTuple):
+    """The work of one kernel launch: the bytes it must move (each input
+    read once, each output written once), its operations, and the
+    ``roofline.analysis.PEAK_OPS`` entry they run at."""
+
+    bytes: float
+    ops: float
+    kind: str
 
 
 class _Build:
@@ -159,21 +183,83 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_card(where) -> bool:
+    """True when ``where`` (a tensor or a device) runs the card's branch:
+    a CUDA device, or ``meta`` inside ``dry_run(card=True)``.  ``meta``
+    outside :func:`dry_run` raises."""
+    dev = where.device if isinstance(where, torch.Tensor) \
+        else torch.device(where)
+    if dev.type == "meta":
+        card = _dry.get()
+        if card is None:
+            raise ValueError("a meta tensor outside cuda.dry_run: the meta "
+                             "device traces a program, it does not run one")
+        return card
+    return dev.type == "cuda"
+
+
+@contextlib.contextmanager
+def dry_run(card: bool):
+    """Trace on the ``meta`` device: inside, a ``meta`` tensor takes the
+    card's branch of every device decision (``card=True``) or the CPU's
+    (``card=False``)."""
+    token = _dry.set(bool(card))
+    try:
+        yield
+    finally:
+        _dry.reset(token)
+
+
+@contextlib.contextmanager
+def recording(sink):
+    """Hand what a trace on ``meta`` launches to ``sink`` while inside:
+    ``sink.kernel(name, cost)`` for a wrapper's kernel,
+    ``sink.collective(kind, ranks, result_bytes)`` for a collective of
+    ``repro_torch.distributed.sharding``."""
+    token = _sinks.set(_sinks.get() + (sink,))
+    try:
+        yield
+    finally:
+        _sinks.reset(token)
+
+
+def traced(t: torch.Tensor) -> bool:
+    """True for a ``meta`` tensor inside :func:`dry_run`: the wrapper that
+    took the kernel's branch records its launch (:func:`record`) instead
+    of making it."""
+    return t.is_meta and _dry.get() is not None
+
+
+def record(kernel: str, cost: Cost) -> None:
+    """One launch of ``kernel`` traced on ``meta``: to every sink."""
+    for sink in _sinks.get():
+        sink.kernel(kernel, cost)
+
+
+def record_collective(kind: str, ranks: list, result_bytes: int) -> None:
+    """One collective traced on ``meta`` over the global ``ranks``, whose
+    result on this rank is ``result_bytes``: to every sink."""
+    for sink in _sinks.get():
+        sink.collective(kind, ranks, result_bytes)
+
+
 def use_kernel(*tensors: torch.Tensor) -> bool:
-    """True when the wrapper must launch its kernel on these tensors.
+    """True when the wrapper must launch its kernel on these tensors (on
+    ``meta``: record it, see :func:`record`).
 
     All tensors must share one device.  CPU tensors take the plain path;
-    CUDA tensors take the kernel (outside :func:`plain_reference`); any
-    other device raises."""
+    CUDA tensors take the kernel (outside :func:`plain_reference`), and
+    so do ``meta`` tensors under ``dry_run(card=True)``; any other device
+    raises."""
     dev = tensors[0].device
     for t in tensors[1:]:
         if t.device != dev:
             raise ValueError(f"tensors on different devices: {dev} and "
                              f"{t.device}")
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {dev}")
+    if not on_card(dev):
+        return False
     return not _plain.get()
 
 

@@ -26,6 +26,18 @@ MAX_DH = 256
 MAX_HEADS = 65535          # the grid's y extent
 
 
+def flops(bh: int, s: int, dh: int, causal: bool) -> float:
+    """4 * dh operations for each query-key pair the mask keeps."""
+    return 4.0 * dh * bh * (s * (s + 1) / 2 if causal else s * s)
+
+
+def cost(bh: int, s: int, dh: int, causal: bool = True,
+         itemsize: int = 2) -> cuda.Cost:
+    """One launch: q, k, v read and the output written once."""
+    return cuda.Cost(4 * bh * s * dh * itemsize, flops(bh, s, dh, causal),
+                     "bf16" if itemsize == 2 else "f32")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int = 256,
                     bk: int = 256) -> torch.Tensor:
@@ -55,6 +67,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                f"heads per launch, got BH={bh}")
     out = torch.empty_like(q)
     if out.numel() == 0:
+        return out
+    if cuda.traced(q):
+        cuda.record("flash_attention",
+                    cost(bh, s, dh, causal, q.element_size()))
         return out
     with torch.cuda.device(q.device):
         cuda.launch("flash_attention", q.data_ptr(), k.data_ptr(),

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels import bulk as _bulk
 from repro_torch.kernels import cipher as _cipher
+from repro_torch.kernels import cuda as _cuda
 from repro_torch.kernels import pack as _pack
 from repro_torch.kernels import parity as _parity
 from repro_torch.kernels import xnor_gemm as _xnor_gemm
@@ -36,13 +37,13 @@ def fused_mode(mode: str = "auto", device="cuda") -> str:
     :func:`xnor_matmul` (the ``xnor_gemm`` kernel) -> scale for the
     linears, and the gather / mask / softmax chain in plain PyTorch for
     decode attention (the reference's XLA code, no kernel of its own).
-    ``"auto"`` picks the kernels exactly when ``device`` is a card, as the
-    reference picks them exactly on a TPU: on the CPU both packages run the
-    unfused chain, whose bf16 roundings (P rounded before P.V) the fused
-    ops do not share.
+    ``"auto"`` picks the kernels exactly when ``device`` is a card
+    (:func:`cuda.on_card`), as the reference picks them exactly on a TPU:
+    on the CPU both packages run the unfused chain, whose bf16 roundings
+    (P rounded before P.V) the fused ops do not share.
     """
     if mode == "auto":
-        return "kernel" if torch.device(device).type == "cuda" else "ref"
+        return "kernel" if _cuda.on_card(device) else "ref"
     if mode in ("on", "kernel", "fused"):
         return "kernel"
     if mode in ("off", "ref", "unfused"):

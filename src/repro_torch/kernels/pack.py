@@ -13,6 +13,14 @@ from repro_torch.core import bitpack
 from repro_torch.kernels import cuda, ref
 
 
+def cost(m: int, k: int, itemsize: int = 2) -> cuda.Cost:
+    """One launch on (M, K): x read, planes and alpha written; two
+    operations an element (sign and |x| summed) at the input's rate."""
+    kw = bitpack.packed_width(k)
+    return cuda.Cost(m * k * itemsize + m * kw * 4 + m * 4, 2 * m * k,
+                     "bf16" if itemsize == 2 else "f32")
+
+
 def pack(x: torch.Tensor):
     """(M, K) f32/bf16 -> ((M, ceil(K/32)) int32 planes, (M,) f32 alpha).
 
@@ -30,6 +38,9 @@ def pack(x: torch.Tensor):
     kw = bitpack.packed_width(k)
     planes = torch.empty((m, kw), dtype=torch.int32, device=x.device)
     alpha = torch.empty((m,), dtype=torch.float32, device=x.device)
+    if cuda.traced(x):
+        cuda.record("pack", cost(m, k, x.element_size()))
+        return planes, alpha
     with torch.cuda.device(x.device):
         cuda.launch("xnor_pack", x.data_ptr(), cuda.DTYPE_CODES[x.dtype],
                     planes.data_ptr(), alpha.data_ptr(), m, k, kw,

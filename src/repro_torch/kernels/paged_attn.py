@@ -122,8 +122,32 @@ def smem_bytes(g: int, dh: int, bs: int, item: int) -> int:
     return max(ring, red) + 4 * WARPS * (bs * gm + 3 * gm) + 16
 
 
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+# SMs of the H100 SXM (the card the port is written for): the split plan
+# of a launch traced on ``meta``, where there is no card to ask
+H100_SMS = 132
+
+
+def _sm_count(t: torch.Tensor) -> int:
+    if t.is_meta:
+        return H100_SMS
+    return torch.cuda.get_device_properties(t.device.index
+                                            ).multi_processor_count
+
+
+def cost(b: int, kv: int, g: int, dh: int, bs: int, w: int,
+         q_item: int = 2, kv_item: int = 2, live: int | None = None,
+         keys: int | None = None) -> cuda.Cost:
+    """One launch: q read and the output written, the ``live`` pool
+    blocks the walk reads (K and V), the table and the positions;
+    ``keys`` query-key pairs a row, 4 dh operations each for the G rows
+    of a KV head.  ``live`` and ``keys`` depend on the positions: by
+    default every column of every slot's table (a trace on ``meta`` has
+    no positions to read)."""
+    live = b * w if live is None else live
+    keys = b * w * bs if keys is None else keys
+    return cuda.Cost(2 * b * kv * g * dh * q_item
+                     + live * kv * 2 * bs * dh * kv_item + b * w * 4 + b * 4,
+                     4 * kv * g * dh * keys, "bf16" if q_item == 2 else "f32")
 
 
 _tickets: dict[int, torch.Tensor] = {}
@@ -188,13 +212,18 @@ def paged_decode_attention(q: torch.Tensor, ck: torch.Tensor,
     cuda.check(smem <= MAX_SMEM, f"G={g}, bs={bs}, dh={dh} need {smem} "
                "bytes of shared memory")
     out = torch.empty_like(q)
-    n_split, cols = split_plan(w, kv, _sm_count(q.device.index))
+    n_split, cols = split_plan(w, kv, _sm_count(q))
     scratch = [0, 0, 0]
     if n_split > 1:
         part_acc = torch.empty(b * kv * n_split * g * dh,
                                dtype=torch.float32, device=q.device)
         part_ml = torch.empty(b * kv * n_split * g * 2, dtype=torch.float32,
                               device=q.device)
+    if cuda.traced(q):
+        cuda.record("paged_decode_attention",
+                    cost(b, kv, g, dh, bs, w, q.element_size(), item))
+        return out
+    if n_split > 1:
         scratch = [part_acc.data_ptr(), part_ml.data_ptr(),
                    _ticket_buffer(q.device, b * kv).data_ptr()]
     with torch.cuda.device(q.device):

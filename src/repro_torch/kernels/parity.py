@@ -17,6 +17,12 @@ from repro_torch.kernels import cuda, ref
 MAX_WIDTH = 1024            # the kernel folds spans of at most 1024 words
 
 
+def cost(n: int, digest_width: int = 128, n_chunks: int = 1) -> cuda.Cost:
+    """One launch on n words: each read once and folded once, the digest
+    rows written."""
+    return cuda.Cost(4 * n + 4 * n_chunks * digest_width, n, "f32")
+
+
 def parity_digest(words: torch.Tensor, digest_width: int = 128,
                   chunk_words: int | None = None) -> torch.Tensor:
     """(n,) int32 words -> (n_chunks, digest_width) int32 digest rows.
@@ -47,6 +53,9 @@ def parity_digest(words: torch.Tensor, digest_width: int = 128,
     out = torch.zeros((n_chunks, digest_width), dtype=torch.int32,
                       device=words.device)
     if n == 0:
+        return out
+    if cuda.traced(words):
+        cuda.record("parity_digest", cost(n, digest_width, n_chunks))
         return out
     with torch.cuda.device(words.device):
         cuda.launch("parity_digest", words.data_ptr(), n, chunk_words,

@@ -37,6 +37,14 @@ def xnor_gemm(pa: torch.Tensor, pb: torch.Tensor, valid_k: int) -> torch.Tensor:
     return (valid_k - 2 * popc).to(torch.int32)
 
 
+def xnor_dot_float(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Float-domain equivalence oracle: sign(a) @ sign(b).T as int32
+    (sign(0) = +1)."""
+    sa = torch.where(a >= 0, 1.0, -1.0)
+    sb = torch.where(b >= 0, 1.0, -1.0)
+    return (sa @ sb.T).to(torch.int32)
+
+
 def pack(x: torch.Tensor):
     """(M, K) -> ((M, Kw) int32 planes, (M,) f32 alpha = mean|x|).
 

@@ -231,6 +231,21 @@ def gemm_plan(m: int, n: int, kw: int) -> GemmPlan:
     return GemmPlan(nt, ks, ct, row_tiles, -(-tiles // ct))
 
 
+def gemm_cost(m: int, n: int, kw: int, k: int) -> cuda.Cost:
+    """One ``xnor_gemm`` launch: both planes read, the (M, N) int32 dots
+    written; 2 M N K binary operations at the int8 tensor-core rate."""
+    return cuda.Cost((m + n) * kw * 4 + m * n * 4, 2 * m * n * k, "int8")
+
+
+def linear_cost(m: int, n: int, k: int, itemsize: int = 2) -> cuda.Cost:
+    """One ``xnor_linear_fused`` launch: x, the planes and beta read, the
+    (M, N) f32 output written; 2 M N K binary operations at the int8
+    tensor-core rate."""
+    kw = bitpack.packed_width(k)
+    return cuda.Cost(m * k * itemsize + n * kw * 4 + n * 4 + m * n * 4,
+                     2 * m * n * k, "int8")
+
+
 def xnor_gemm(pa: torch.Tensor, pb: torch.Tensor,
               valid_k: int) -> torch.Tensor:
     """(M, Kw) x (N, Kw) int32 planes -> (M, N) int32 ``valid_k - 2*popc``.
@@ -257,6 +272,9 @@ def xnor_gemm(pa: torch.Tensor, pb: torch.Tensor,
                f"xnor_gemm takes shapes whose plan has fewer than 2^31 "
                f"blocks, got M={m}, N={n}, Kw={kw}")
     out = torch.empty((m, n), dtype=torch.int32, device=pa.device)
+    if cuda.traced(pa):
+        cuda.record("xnor_gemm", gemm_cost(m, n, kw, valid_k))
+        return out
     with torch.cuda.device(pa.device):
         cuda.launch("xnor_gemm", pa.data_ptr(), pb.data_ptr(),
                     out.data_ptr(), m, n, kw, valid_k, cuda.stream(pa))
@@ -304,6 +322,10 @@ def xnor_linear_fused(x: torch.Tensor, pb: torch.Tensor, beta: torch.Tensor,
                f"{MAX_CLUSTER} and the grid; M={m}, N={n}, K={k} need "
                f"{plan.smem} bytes, a cluster of {plan.cluster} and grid "
                f"{plan.grid}")
+    if cuda.traced(x):
+        cuda.record("xnor_linear_fused", linear_cost(m, n, k,
+                                                     x.element_size()))
+        return out
     with torch.cuda.device(x.device):
         cuda.launch("xnor_linear_fused", x.data_ptr(),
                     cuda.DTYPE_CODES[x.dtype], pb.data_ptr(),

@@ -104,6 +104,11 @@ class BinDenseBlock(PagedLayout):
         return torch.zeros((n, batch, 1, cfg.d_model), dtype=cfg.dtype,
                            device=device)
 
+    @classmethod
+    def state_pspec(cls, cfg, ba, kv_shard: str = "heads",
+                    tp_size: int = 16):
+        return (ba, None, "model")
+
 
 # ---------------------------------------------------------------------------
 # classifier-as-generation plumbing

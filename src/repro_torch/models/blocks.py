@@ -27,6 +27,7 @@ Every kind implements:
   chunk(cfg, p, x, state, pos0, valid, n_valid, table, ctx)
                                               one chunked-prefill piece
   state_spec(cfg, n, batch, s_max, device)    dense decode state
+  state_pspec(cfg, ba, kv_shard, tp_size)     its placements, one layer
 and, from :class:`PagedLayout`, the paged state its contract implies
 (``paged_state_spec``, ``paged_split`` / ``paged_merge``) and the session
 migration surface (``export_slot`` / ``import_slot``).  A state is a tree
@@ -330,6 +331,18 @@ class AttnBlock(_FfnBlock):
         cap = min(s_max, win) if win else s_max
         return KVCache.zeros(cfg, batch, cap, _kv_dtype(cfg), device, n)
 
+    @classmethod
+    def state_pspec(cls, cfg, ba, kv_shard: str = "heads",
+                    tp_size: int = 16):
+        """One layer's dense-state placements (``ba``: the batch mesh
+        axes): the cache (B, KV, S, dh) split over the model axis by its
+        KV heads (``"heads"``) or its positions (``"seq"``)."""
+        if kv_shard == "seq":
+            spec = (ba, None, "model", None)
+        else:
+            spec = (ba, "model", None, None)
+        return KVCache(spec, spec)
+
 
 @register
 class LocalBlock(AttnBlock):
@@ -456,6 +469,11 @@ class RglruBlock(_FfnBlock):
                                            device=device)),
                 torch.zeros((n, batch, w1, d), dtype=cfg.dtype,
                             device=device))
+
+    @classmethod
+    def state_pspec(cls, cfg, ba, kv_shard: str = "heads",
+                    tp_size: int = 16):
+        return (ssm.RGLRUState((ba, "model")), (ba, None, "model"))
 
 
 @register
@@ -588,6 +606,13 @@ class MlstmBlock(PagedLayout):
                 torch.zeros((n, batch, cfg.conv_width - 1, di),
                             dtype=cfg.dtype, device=device))
 
+    @classmethod
+    def state_pspec(cls, cfg, ba, kv_shard: str = "heads",
+                    tp_size: int = 16):
+        # NH rarely divides the model axis: the memory's first dh axis
+        return (ssm.MLSTMState((ba, None, "model", None), (ba, None, "model"),
+                               (ba, None)), (ba, None, "model"))
+
 
 @register
 class SlstmBlock(_FfnBlock):
@@ -655,6 +680,11 @@ class SlstmBlock(_FfnBlock):
     def state_spec(cls, cfg, n, batch, s_max, device):
         return ssm.SLSTMState.zeros(batch, cfg.d_model, device, (n,))
 
+    @classmethod
+    def state_pspec(cls, cfg, ba, kv_shard: str = "heads",
+                    tp_size: int = 16):
+        return ssm.SLSTMState(*((ba, "model"),) * 4)
+
 
 def _ctx_kv_spec(cfg, n, batch, device) -> tuple:
     """Zeroed per-slot ``ctx_kv``: (k, v) each (n, batch, T_ctx, KV, dh)
@@ -716,6 +746,15 @@ class CrossBlock(_FfnBlock):
     @classmethod
     def state_spec(cls, cfg, n, batch, s_max, device):
         return _ctx_kv_spec(cfg, n, batch, device)
+
+    @classmethod
+    def state_pspec(cls, cfg, ba, kv_shard: str = "heads",
+                    tp_size: int = 16):
+        # ctx_kv (B, T_ctx, KV, dh): the context's tokens over the model
+        # axis where they divide it, else whole
+        if cfg.n_ctx_tokens % tp_size == 0:
+            return ((ba, "model", None, None),) * 2
+        return ((ba, None, None, None),) * 2
 
 
 @register
@@ -800,6 +839,12 @@ class DecBlock(_FfnBlock):
         # the self-cache honours kv_cache_dtype as AttnBlock's does
         return (KVCache.zeros(cfg, batch, s_max, _kv_dtype(cfg), device, n),
                 cls.slot_spec(cfg, n, batch, device))
+
+    @classmethod
+    def state_pspec(cls, cfg, ba, kv_shard: str = "heads",
+                    tp_size: int = 16):
+        return (AttnBlock.state_pspec(cfg, ba, kv_shard, tp_size),
+                CrossBlock.state_pspec(cfg, ba, kv_shard, tp_size))
 
 
 # ---------------------------------------------------------------------------
@@ -967,6 +1012,19 @@ def segment_states(cfg, segments, batch: int, s_max: int, device) -> list:
     ``(n, batch, ...)`` leaves."""
     return [registry.get(kind).state_spec(cfg, n, batch, s_max, device)
             for kind, n in segments]
+
+
+def segment_state_pspecs(cfg, segments, ba, kv_shard: str = "heads",
+                         tp_size: int = 16) -> list:
+    """Placements of :func:`segment_states`' leaves, the layer axis whole:
+    each kind's ``state_pspec`` laid over its state's structure."""
+    out = []
+    for kind, n in segments:
+        block = registry.get(kind)
+        like = block.state_spec(cfg, 1, 1, 1, "meta")
+        out.append(state_map(lambda _, s: (None, *s), like,
+                             block.state_pspec(cfg, ba, kv_shard, tp_size)))
+    return out
 
 
 def segment_paged_states(cfg, segments, batch: int, n_blocks: int,

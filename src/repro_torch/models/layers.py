@@ -9,6 +9,7 @@ import math
 import torch
 
 from repro_torch.core import xnor_layers
+from repro_torch.kernels import cuda
 from repro_torch.models.params import ParamDef
 
 
@@ -26,7 +27,7 @@ def row_sum(x: torch.Tensor, square: bool = False) -> torch.Tensor:
     summed in a ``SUM_ROWS``-row buffer (zero-padded under autograd).  On
     the CPU torch's own sum, which reads each row alone."""
     n = x.shape[-1]
-    if not x.is_cuda or n <= 32 or x.numel() >= SUM_ROWS * n:
+    if not cuda.on_card(x) or n <= 32 or x.numel() >= SUM_ROWS * n:
         return (x * x if square else x).sum(-1, keepdim=True)
     return _padded_sum(x, square)
 

@@ -3,12 +3,14 @@ per-segment blocks, the full-precision head.
 
 Public surface:
   param_defs / param_pspecs / abstract_params / init_params / pack_params
+  packed_abstract_params / packed_param_pspecs        (the packed serve form)
   param_count / active_param_count / model_flops
   encode                                               (enc-dec archs)
   forward(cfg, params, tokens, ctx) -> (logits, aux)   (training)
   loss_fn(cfg, params, batch) -> (loss, metrics)
-  decode_state_spec / prefill / decode_step            (dense layout)
-  paged_table_widths / paged_decode_state_spec
+  decode_state_spec / decode_state_pspecs / prefill / decode_step
+                                                       (dense layout)
+  paged_table_widths / paged_decode_layer_classes / paged_decode_state_spec
   paged_decode_step(cfg, params, token, state, tables, active)
   prefill_chunk_step(cfg, params, tokens, state, slot, n_valid, tables, ...)
   paged_copy_block / prefix_cache_eligible / prefix_table_class
@@ -71,6 +73,20 @@ def pack_params(cfg, params) -> dict:
     if cfg.quant != "xnor":
         return params
     return pdefs.pack(param_defs(cfg), params)
+
+
+def packed_abstract_params(cfg) -> dict:
+    """The tree :func:`pack_params` gives, as ``meta`` tensors."""
+    if cfg.quant != "xnor":
+        return abstract_params(cfg)
+    return pdefs.pack_abstract(param_defs(cfg))
+
+
+def packed_param_pspecs(cfg, rules: dict) -> dict:
+    """Placements of :func:`pack_params`' tree (``params.pack_pspecs``)."""
+    if cfg.quant != "xnor":
+        return param_pspecs(cfg, rules)
+    return pdefs.pack_pspecs(param_defs(cfg), rules)
 
 
 def _seg_params(cfg, params, enc: bool = False):
@@ -197,20 +213,21 @@ def decode_state_spec(cfg, batch: int, s_max: int, *, device,
 
 
 def prefill(cfg, params, tokens: torch.Tensor, s_max: int,
-            ctx: torch.Tensor | None = None):
+            ctx: torch.Tensor | None = None, q_chunk: int = 0):
     """tokens (B, S) -> (logits of the last position (B, 1, V), a fresh
     dense DecodeState of capacity ``s_max`` with scalar ``pos`` = S): the
     caches (a window's as its ring), the recurrent state after S and the
     context's ``ctx_kv``.  ``ctx`` (B, T_ctx, d): an enc-dec arch's frames
-    are encoded first; the state keeps the context it read."""
+    are encoded first; the state keeps the context it read.  ``q_chunk``
+    runs self-attention's queries in chunks of that many."""
     if cfg.is_encdec():
         if ctx is None:
             raise ValueError(f"arch {cfg.name} needs encoder frames")
-        ctx = encode(cfg, params, ctx)
+        ctx = encode(cfg, params, ctx, q_chunk)
     elif ctx is not None:
         ctx = ctx.to(cfg.dtype)
     x = layers.embed(params["embed"], tokens).to(cfg.dtype)
-    opts = blocks.FwdOpts(want_state=True, s_max=s_max)
+    opts = blocks.FwdOpts(want_state=True, s_max=s_max, q_chunk=q_chunk)
     x, _, states = blocks.segment_fwd(cfg, _seg_params(cfg, params), x,
                                       opts, ctx)
     logits = layers.logits(cfg, params["embed"], x[:, -1:])
@@ -251,6 +268,31 @@ def paged_table_widths(cfg, s_max: int, block_size: int,
         w = -(-cap // block_size)
         widths[c.table_class] = max(widths.get(c.table_class, 0), w)
     return widths
+
+
+def paged_decode_layer_classes(cfg) -> dict:
+    """Paged decoder layers per block-table class: the layer-count side of
+    the decode step's byte floor (``roofline.analysis.decode_roofline_bytes``
+    streams each paged layer's live K/V once), from the same contracts as
+    :func:`paged_table_widths`."""
+    counts: dict[str, int] = {}
+    for kind, n in cfg.segments():
+        c = registry.contract(kind)
+        if c.paged_kv:
+            counts[c.table_class] = counts.get(c.table_class, 0) + n
+    return counts
+
+
+def decode_state_pspecs(cfg, ba, kv_shard: str = "heads",
+                        tp_size: int = 16) -> DecodeState:
+    """Placements of :func:`decode_state_spec`'s leaves (``ba``: the batch
+    mesh axes), the reference's, as the port's tuple placements."""
+    seg = blocks.segment_state_pspecs(cfg, cfg.segments(), ba, kv_shard,
+                                      tp_size)
+    ctx = None
+    if cfg.n_ctx_tokens and not cfg.is_encdec():
+        ctx = (ba, None, None)
+    return DecodeState((), seg, ctx)
 
 
 def paged_decode_state_spec(cfg, batch: int, *, n_blocks: int,

@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import cuda
 from repro_torch.models import layers
 from repro_torch.models.params import ParamDef
 
@@ -73,7 +74,7 @@ def route(cfg, router: torch.Tensor, xg: torch.Tensor,
     takes padding out: it occupies no place and gets no weight."""
     g, tg, _ = xg.shape
     e, k, c = cfg.n_experts, cfg.top_k, capacity(cfg, tg)
-    if xg.is_cuda and tg == 1:
+    if cuda.on_card(xg) and tg == 1:
         # a decode step: one row a slot, and cuBLAS picks its product by
         # the row count, so a slot's bits would hang on the batch (F4)
         logits = layers.row_sum(xg.to(F32)[..., None, :]

@@ -103,5 +103,35 @@ def pack(defs, tree) -> dict:
     return tree_map(one, defs, tree)
 
 
+def pack_abstract(defs) -> dict:
+    """The tree :func:`pack` gives, as ``meta`` tensors: every
+    ``binarize``-marked leaf a ``PackedLinear`` of (..., N, Kw) int32
+    planes (the reference's uint32 words) and (..., N) f32 beta."""
+    from repro_torch.core import bitpack
+
+    def one(d: ParamDef):
+        if not d.binarize:
+            return torch.empty(d.shape, dtype=d.dtype, device="meta")
+        *lead, k, n = d.shape
+        kw = bitpack.packed_width(k)
+        return xnor_layers.PackedLinear(
+            torch.empty((*lead, n, kw), dtype=torch.int32, device="meta"),
+            torch.empty((*lead, n), dtype=torch.float32, device="meta"), k)
+    return tree_map(one, defs)
+
+
+def pack_pspecs(defs, rules: dict[str, Any]) -> dict:
+    """Placements of :func:`pack`'s tree: a packed leaf's planes (...,
+    N, Kw) and beta (..., N) keep the float weight's axes for N and K."""
+    def one(d: ParamDef):
+        spec = tuple(None if a is None else rules.get(a) for a in d.spec)
+        if not d.binarize:
+            return spec
+        *lead, k, n = spec
+        return xnor_layers.PackedLinear((*lead, n, k), (*lead, n),
+                                        d.shape[-2])
+    return tree_map(one, defs)
+
+
 def count(defs) -> int:
     return sum(math.prod(d.shape) for d in leaves(defs))

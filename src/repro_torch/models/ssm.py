@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import cuda
 from repro_torch.models import layers
 
 F32 = torch.float32
@@ -235,7 +236,7 @@ def _contract(eq: str, a: torch.Tensor, b: torch.Tensor, lanes: int = 1,
     normalizer cancels, so the last bits of these sums decide bf16
     roundings and, on some traces, greedy tokens).  On the card
     ``torch.einsum``."""
-    if a.is_cuda:
+    if cuda.on_card(a):
         return torch.einsum(eq, a, b)
     ins, out = eq.split("->")
     ia, ib = ins.split(",")
@@ -256,7 +257,7 @@ def _cumsum(x: torch.Tensor) -> torch.Tensor:
     summed left to right in x's dtype, as the jitted reference's
     ``reduce_window`` does (torch's CPU cumsum accumulates in f64); on the
     card torch's scan, one launch."""
-    if x.is_cuda:
+    if cuda.on_card(x):
         return torch.cumsum(x, dim=1)
     out = x.clone()
     for t in range(1, x.shape[1]):
@@ -270,7 +271,7 @@ def rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     a decode step's rows are its slots), on the CPU in the reference's
     order (:func:`_contract`)."""
     x = x.to(F32)
-    if x.is_cuda:
+    if cuda.on_card(x):
         return _dot(x[..., None, :], w.to(F32).t().contiguous())
     flat = _contract("mk,kn->mn", x.reshape(-1, x.shape[-1]), w.to(F32),
                      lanes=4)
@@ -306,7 +307,7 @@ def mlstm_step(state: MLSTMState, q, k, v, i_raw, f_raw):
     c = fp[..., None, None] * state.c + ip[..., None, None] * (
         v32[..., :, None] * k32[..., None, :])
     n = fp[..., None] * state.n + ip[..., None] * k32
-    if c.is_cuda:
+    if cuda.on_card(c):
         num, nq = _dot(c, q32[..., None, :]), _dot(n, q32)
     else:
         num = _contract("bhij,bhj->bhi", c, q32, lanes=8)

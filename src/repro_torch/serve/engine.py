@@ -50,6 +50,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import prng
+from repro_torch.core.xnor_layers import PackedLinear
+from repro_torch.kernels import cuda
 from repro_torch.models import blocks, lm
 from repro_torch.models.params import tree_map
 from repro_torch.serve.pools import BlockPool, SlotPool
@@ -681,6 +683,61 @@ class ServeEngine:
             self._dev_tables = {c: self._dev(t)
                                 for c, t in self._tables.items()}
         return self._dev_tables
+
+    def decode_roofline(self) -> dict:
+        """Roofline audit of this engine's decode step (nothing runs).
+
+        Traces one paged decode step and its sampling on ``meta`` copies
+        of the engine's parameters, state, tables, tokens and seeds, under
+        ``cuda.dry_run`` with the branches of the engine's device, and
+        returns the ``analysis.roofline`` dict with the step's analytic
+        byte floor (``roofline_bytes``), ``achieved_bytes`` and
+        ``dispatches``, also kept in ``stats.decode_dispatches``.  Nothing
+        else moves: the state, the pool and the launch counts stay as
+        they were."""
+        if not self.paged:
+            raise ValueError("decode_roofline needs the paged layout")
+        from repro_torch.roofline import analysis
+        cfg, temperature = self.cfg, self.temperature
+
+        def meta(t):
+            if isinstance(t, PackedLinear):
+                return PackedLinear(meta(t.pb), meta(t.beta), t.k)
+            return torch.empty_like(t, device="meta")
+
+        def fn(params, tokens, state, tables, active, key, seeds):
+            logits, state = lm.paged_decode_step(cfg, params, tokens, state,
+                                                 tables, active=active)
+            return _sample_tokens(cfg, logits, key, seeds, temperature), state
+
+        state = lm.DecodeState(
+            meta(self._state.pos),
+            [blocks.state_map(meta, s) for s in self._state.seg_states],
+            None if self._state.ctx is None else meta(self._state.ctx))
+        args = (tree_map(meta, self.params),
+                torch.empty((self.slots, 1), dtype=torch.int32,
+                            device="meta"),
+                state, {c: torch.empty(t.shape, dtype=torch.int32,
+                                       device="meta")
+                        for c, t in self._tables.items()},
+                torch.empty((self.slots,), dtype=torch.bool, device="meta"),
+                meta(self._key),
+                torch.empty((self.slots,), dtype=torch.int32, device="meta"))
+        with torch.inference_mode():
+            _, counter = analysis.trace(fn, *args,
+                                        card=cuda.on_card(self.device))
+        r = analysis.roofline(counter)
+        self.stats.decode_dispatches = counter.dispatches
+        kv_itemsize = 1 if cfg.kv_cache_dtype == "i8" else cfg.dtype.itemsize
+        r["roofline_bytes"] = analysis.decode_roofline_bytes(
+            param_bytes=analysis.tree_bytes(self.params), widths=self._widths,
+            layers_per_class=lm.paged_decode_layer_classes(cfg),
+            slots=self.slots, block_size=self.block_size,
+            n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+            kv_itemsize=kv_itemsize)
+        r["achieved_bytes"] = r["hlo_bytes_per_chip"]
+        r["dispatches"] = self.stats.decode_dispatches
+        return r
 
     @torch.inference_mode()
     def _decode_once(self) -> None:

@@ -25,6 +25,9 @@ class EngineStats:
     decode_steps: int = 0
     prefills: int = 0
     prefill_chunks: int = 0
+    decode_dispatches: int = 0  # dispatches of the decode step traced on
+                                # meta (ServeEngine.decode_roofline; 0
+                                # until an audit runs)
     blocks_total: int = 0       # allocatable blocks (0: dense layout)
     blocks_in_use: int = 0
     blocks_peak: int = 0

@@ -156,3 +156,37 @@ def onebit_step_rank(rank: int, arch: str, batch: dict, step: int,
     return dict(params=_blocks(new.params), bytes=sharding.all_gather.bytes,
                 reduced=sharding.all_reduce.bytes,
                 metrics={k: float(v) for k, v in metrics.items()})
+
+
+# -- the sharded serving steps ---------------------------------------------
+
+def serve_rank(rank: int, cases: dict, s_max: int) -> dict:
+    """The sharded ``prefill_step`` and two ``decode_step``s of each case
+    {name: (arch, packed, rules, batch)} (smoke, f32, parameters from seed
+    0) on the (pod, data, model) = (2, 2, 2) mesh, the decode tokens
+    teacher-forced from ``batch["next"]`` -> {name: this rank's logits
+    rows of each step, its mesh coordinate}."""
+    from repro_torch.models import lm
+    from repro_torch.train import serve_step
+    mesh = mesh_mod.make_smoke_mesh(8, device="cpu")
+    out = {}
+    for name, (arch, packed, rules, batch) in cases.items():
+        cfg = configs.get(arch).smoke(dtype=torch.float32)
+        params = lm.init_params(cfg, 0, device="cpu")
+        if packed:
+            params = lm.pack_params(cfg, params)
+        blocks = serve_step.shard_params(cfg, params, mesh, rules)
+        del params
+        data = {k: torch.from_numpy(v) for k, v in batch.items()
+                if k != "next"}
+        with torch.inference_mode():
+            logits, state = serve_step.prefill_step(
+                cfg, blocks, data, s_max, mesh=mesh, rules=rules)
+            steps = [_np(logits)]
+            for tok in batch["next"]:
+                logits, state = serve_step.decode_step(
+                    cfg, blocks, torch.from_numpy(tok), state, mesh=mesh,
+                    rules=rules)
+                steps.append(_np(logits))
+        out[name] = dict(coord=mesh.get_coordinate(), logits=steps)
+    return out
