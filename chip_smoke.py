@@ -25,6 +25,8 @@
                                              # batch-sized one, B 1 to 32
     python3 chip_smoke.py --roofline         # phase 11 alone, on phase
                                              # 3's engine built alone
+    python3 chip_smoke.py --tp               # phase 12 alone: tensor- and
+                                             # expert-parallel serving
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -266,6 +268,23 @@ Phases (any failure raises and the script exits non-zero):
    time at least the byte floor at HBM's rate; the dry-run of 9a's and
    10b's cells in this process beside their readings, 10b's state bytes a
    rank exactly the shard's.
+
+12. Tensor- and expert-parallel serving (``tp_serving``, after phase 10):
+   qwen2-7b+xnor and llama4-scout-17b-a16e+xnor (all 16 experts) in bf16
+   at full width and ``TP_LAYERS`` layers, first single-process on the
+   card from the whole seeded tree (a prefill of a 4 x 32 prompt, 4
+   greedy decode steps), then over ``TP_RANKS`` gloo ranks on the card
+   (mesh data 1 x model 4: whole heads, d_ff, 4 experts and the vocab's
+   block a rank), each rank drawing the same tree a leaf at a time and
+   keeping only its blocks, fed the same tokens: greedy tokens equal at
+   every step on every rank, logits within ``TP_LOGIT_BOUND``, the ranks'
+   logits identical; every ``pack`` and ``xnor_gemm`` launch of the
+   row-parallel chain and every fused linear held against its plain
+   version; the launches a rank of the three; each rank's peak beside
+   the dry-run's trace of the same prefill and decode cells; hazard H2's
+   probe of the model axis's sums (the row-parallel linears at 1-8 rows,
+   each row against itself alone: no element may differ).  gloo stages
+   every collective through the host, so its times are the host's.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -1501,11 +1520,11 @@ class LaunchHolds:
     the reference's rounded one) and bitwise against the plain version
     summed in the kernel's order, ``pack``'s planes bitwise and alpha
     within 1e-6 or 2^-8, ``bulk_xor``, ``parity_digest`` and
-    ``xor_cipher`` bitwise.
+    ``xor_cipher`` bitwise (and, with ``gemm``, ``xnor_gemm`` bitwise).
     While not active (the timed runs), each launch's shape is recorded so
     that :meth:`check` can require it to be one that was held."""
 
-    def __init__(self, per_key: int = 28):
+    def __init__(self, per_key: int = 28, gemm: bool = False):
         from repro_torch.kernels import bulk, cipher, pack, paged_attn
         from repro_torch.kernels import parity, xnor_gemm
         self.per_key, self.active = per_key, False
@@ -1514,6 +1533,8 @@ class LaunchHolds:
                       "paged_decode_attention": paged_attn,
                       "parity_digest": parity, "xor_cipher": cipher,
                       "bulk_xor": bulk}
+        if gemm:                 # phase 12's row-parallel chain: bitwise
+            self.sites["xnor_gemm"] = xnor_gemm
         self.orig = {n: getattr(m, n) for n, m in self.sites.items()}
 
     @staticmethod
@@ -1522,6 +1543,8 @@ class LaunchHolds:
         dt = str(a.dtype)[6:]
         if name == "xnor_linear_fused":
             return (name, dt, a.shape[0], args[1].shape[0], args[3])
+        if name == "xnor_gemm":
+            return (name, a.shape[0], args[1].shape[0], a.shape[1], args[2])
         if name == "paged_decode_attention":
             return (name, dt, str(args[1].dtype)[6:], a.shape[0],
                     args[3].shape[1], kw.get("window", 0))
@@ -4462,6 +4485,305 @@ def mesh_phase(gpu: str) -> dict:
     return launches
 
 
+# -- phase 12: tensor- and expert-parallel serving ----------------------------
+
+TP_RANKS = 4                 # (data, model) = (1, 4): every rank all rows
+TP_LAYERS = 4                # of 28 (qwen2-7b) and of 48 (llama4-scout)
+TP_ARCHS = ("qwen2-7b+xnor", "llama4-scout-17b-a16e+xnor")
+TP_BATCH, TP_PROMPT, TP_STEPS = 4, 32, 4
+TP_S_MAX = TP_PROMPT + TP_STEPS + 1
+# the bf16 logits of the sharded steps against the single-process ones:
+# the CPU tests' bound (tests/test_torch_mesh_tp.py), |d| <= 2^-6 (|y| + 1)
+TP_LOGIT_BOUND = 2 ** -6
+TP_RULES = {"fsdp": "data", "tp": "model", "ep": "model"}
+
+
+def _tp_cfg(arch: str):
+    import repro_torch.configs as configs
+    return dataclasses.replace(configs.get(arch), n_layers=TP_LAYERS)
+
+
+def _tp_leaves(defs, path=()):
+    """(path, ParamDef) in ``params.init``'s order (sorted keys)."""
+    if isinstance(defs, dict):
+        for k in sorted(defs):
+            yield from _tp_leaves(defs[k], path + (k,))
+    else:
+        yield path, defs
+
+
+def tp_blocks(cfg, mesh) -> dict:
+    """This rank's blocks of the serve-resident tree ``lm.pack_params(cfg,
+    lm.init_params(cfg, SEED))`` (the same values), drawn a leaf at a time
+    on the card in ``params.init``'s order, packed where the serve form
+    packs, cut to the rank's head-aligned block and the whole leaf freed:
+    no rank holds the tree whole."""
+    import torch
+
+    from repro_torch.core.xnor_layers import PackedLinear
+    from repro_torch.distributed import sharding
+    from repro_torch.models import lm
+    from repro_torch.models import params as pdefs
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    specs = lm.packed_param_pspecs(cfg, TP_RULES, head_aligned=True)
+    out: dict = {}
+    for path, d in _tp_leaves(lm.param_defs(cfg)):
+        w = pdefs.init(d, gen, "cuda")
+        if cfg.quant == "xnor":
+            w = pdefs.pack(d, w)
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        if isinstance(w, PackedLinear):
+            w = PackedLinear(sharding.shard(w.pb, spec.pb, mesh),
+                             sharding.shard(w.beta, spec.beta, mesh), w.k)
+        else:
+            w = sharding.shard(w, spec, mesh)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = w
+    return out
+
+
+def tp_prompt(vocab: int):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 12)
+    return torch.from_numpy(rng.integers(0, vocab, (TP_BATCH, TP_PROMPT),
+                                         dtype=np.int32))
+
+
+def tp_single(cfg) -> dict:
+    """The single-process steps on the card from the whole tree: a
+    prefill of the prompt, then ``TP_STEPS`` greedy decode steps -> the
+    tokens fed, each step's logits (f32, host), ms and the peak."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.train import serve_step
+    params = lm.pack_params(cfg, lm.init_params(cfg, SEED, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, state = serve_step.prefill_step(
+            cfg, params, {"tokens": tp_prompt(cfg.vocab).cuda()}, TP_S_MAX)
+        out, feed = [logits[:, -1].float().cpu()], []
+        for _ in range(TP_STEPS):
+            tok = serve_step.sample(logits[..., :cfg.vocab])
+            feed.append(tok.cpu().numpy())
+            logits, state = serve_step.decode_step(cfg, params, tok, state)
+            out.append(logits[:, -1].float().cpu())
+    torch.cuda.synchronize()
+    res = {"logits": out, "feed": feed,
+           "ms": (time.perf_counter() - t0) * 1e3,
+           "peak": torch.cuda.max_memory_allocated()}
+    del params, state, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rows_probe(p: dict, cfg) -> dict:
+    """Hazard H2 at the model axis's sums: the row-parallel linears of
+    one layer (packed ``wo`` over the rank's heads, packed ``w2`` over its
+    d_ff block where the layer has a dense FFN, and a float bf16 block of
+    ``wo``'s shape) at 1 to 8 rows, each row against itself alone ->
+    {linear: elements of rows 1-8 that differ}."""
+    import torch
+
+    from repro_torch.distributed import ctx
+    from repro_torch.models import layers
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 13)
+    hb = ctx.heads(cfg)
+    _, f0, f1 = ctx.extent(cfg.d_ff)
+    kq = cfg.n_heads * cfg.d_head
+    wo = p["attn_wo"]
+    cases = {"wo packed": (hb.nq * cfg.d_head, wo, kq),
+             "wo bf16": (hb.nq * cfg.d_head, torch.randn(
+                 (hb.qb * cfg.d_head, cfg.d_model), generator=g,
+                 device="cuda").to(cfg.dtype), kq)}
+    if "ffn_w2" in p:
+        cases["w2 packed"] = (f1 - f0, p["ffn_w2"], cfg.d_ff)
+    out = {}
+    for name, (kv, w, k) in cases.items():
+        x = torch.randn((8, 1, kv), generator=g, device="cuda").to(cfg.dtype)
+        alone = torch.cat([layers.row_linear(x[j:j + 1], w, cfg.quant, k)
+                           for j in range(8)])
+        out[name] = [int((layers.row_linear(x[:n], w, cfg.quant, k)
+                          != alone[:n]).sum()) for n in range(1, 9)]
+    return out
+
+
+def tp_rank(rank: int, arch: str, feed: list) -> dict:
+    """Phase 12 on one of ``TP_RANKS`` gloo ranks (mesh data 1 x model
+    4): this rank's blocks (:func:`tp_blocks`), then the sharded prefill
+    and ``TP_STEPS`` decode steps fed the single-process run's tokens,
+    every launch of ``pack``, ``xnor_gemm`` and the fused linear held
+    against its plain version (``LaunchHolds``), then the same unheld
+    (its launches of shapes that were held, its logits the same bits) ->
+    the held run's logits and launches, the unheld run's peaks of the
+    prefill and of the decode steps, host ms and collective bytes, and
+    the H2 probe (:func:`tp_rows_probe`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.kernels import pack, xnor_gemm
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import blocks as blocks_mod
+    from repro_torch.roofline import analysis
+    from repro_torch.train import serve_step
+    cfg = _tp_cfg(arch)
+    mesh = mesh_mod.make_mesh((1, TP_RANKS), ("data", "model"))
+    t0 = time.perf_counter()
+    params = tp_blocks(cfg, mesh)
+    built = time.perf_counter() - t0
+    held_bytes = analysis.tree_bytes(params)
+    wrappers = (pack.pack, xnor_gemm.xnor_gemm, xnor_gemm.xnor_linear_fused)
+    out = {"built_s": built, "bytes": held_bytes}
+
+    def run():
+        """The prefill and the decode steps -> (logits, peaks, ms)."""
+        logits_, peaks = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, state = serve_step.prefill_step(
+            cfg, params, {"tokens": tp_prompt(cfg.vocab).cuda()}, TP_S_MAX,
+            mesh=mesh)
+        logits_.append(logits[:, -1].float().cpu().numpy())
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        for tok in feed:
+            logits, state = serve_step.decode_step(
+                cfg, params, torch.from_numpy(tok).cuda(), state, mesh=mesh)
+            logits_.append(logits[:, -1].float().cpu().numpy())
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        out["kv_heads"] = int(state.seg_states[0].k.shape[2])
+        return logits_, peaks, (time.perf_counter() - t0) * 1e3
+
+    with LaunchHolds(per_key=10**9, gemm=True) as holds, \
+            torch.inference_mode():
+        for f in wrappers:                  # the main path: every launch held
+            f.launches = 0
+        holds.active = True
+        out["logits"] = run()[0]
+        out["launches"] = {f.__name__: f.launches for f in wrappers}
+        out["held"] = {n: sum(v for k, v in holds.held.items() if k[0] == n)
+                       for n in ("pack", "xnor_gemm", "xnor_linear_fused")}
+        out["worst"] = dict(holds.worst)
+        sharding.reset_counts()
+        with holds.off():                   # unheld: the peaks and ms
+            logits, out["peak"], out["ms"] = run()
+        out["traffic"] = {f.__name__: f.bytes for f in (
+            sharding.all_gather, sharding.all_reduce)}
+        out["repeat"] = all(np.array_equal(a, b) for a, b in zip(
+            logits, out["logits"]))
+        out["unheld"] = sorted(holds.unheld - set(holds.held))
+        with ctx.activation_rules({"batch": None, "tp": "model",
+                                   "ep": "model"}, mesh):
+            out["h2"] = tp_rows_probe(blocks_mod.layer_params(
+                params[f"seg0_{cfg.pattern[0]}"], 0), cfg)
+    return out
+
+
+def tp_dry(cfg) -> tuple:
+    """The dry-run's trace of phase 12's two cells (rank 0 of a ``fake``
+    group of ``TP_RANKS``) -> (prefill, decode) roofline dicts."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    with dryrun.fake_group(TP_RANKS):
+        mesh = mesh_mod.make_mesh((1, TP_RANKS), ("data", "model"),
+                                  device="cpu")
+        pre = dryrun.trace_cell(cfg, ShapeConfig(
+            "12", "prefill", TP_PROMPT, TP_BATCH), mesh)
+        dec = dryrun.trace_cell(cfg, ShapeConfig(
+            "12", "decode", TP_S_MAX, TP_BATCH), mesh)
+    return pre, dec
+
+
+def tp_serving(gpu: str) -> dict:
+    """Phase 12: tensor- and expert-parallel serving over ``TP_RANKS``
+    gloo ranks on the one card -> the launches a rank of pack, xnor_gemm
+    and the fused linear (the most of the two archs)."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import lm
+    launches: dict = {}
+    for arch in TP_ARCHS:
+        cfg = _tp_cfg(arch)
+        t0 = time.perf_counter()
+        ref = tp_single(cfg)
+        ranks = mesh_mod.run_ranks(tp_rank, TP_RANKS, arch, ref["feed"],
+                                   timeout_s=900)
+        took = time.perf_counter() - t0
+        fails = []
+        for r in ranks:
+            r["logits"] = [torch.from_numpy(t) for t in r["logits"]]
+        for i, r in enumerate(ranks):
+            for s, (got, want) in enumerate(zip(r["logits"], ref["logits"])):
+                got, want = got[:, :cfg.vocab], want[:, :cfg.vocab]
+                if not torch.equal(got.argmax(-1), want.argmax(-1)):
+                    fails.append((i, s, "token"))
+                d = (got - want).abs()
+                if not bool((d <= TP_LOGIT_BOUND * (want.abs() + 1)).all()):
+                    fails.append((i, s, float(d.max())))
+            if any(r["launches"][k] == 0 for k in r["launches"]):
+                fails.append((i, "a kernel never launched", r["launches"]))
+            if r["held"]["pack"] != r["launches"]["pack"] or \
+                    r["held"]["xnor_gemm"] != r["launches"]["xnor_gemm"]:
+                fails.append((i, "a launch not held", r["held"]))
+            if any(any(v) for v in r["h2"].values()):
+                fails.append((i, "h2", r["h2"]))
+            if not r["repeat"] or r["unheld"]:
+                fails.append((i, "unheld run", r["repeat"], r["unheld"]))
+        same = all(torch.equal(a, b) for r in ranks[1:]
+                   for a, b in zip(r["logits"], ranks[0]["logits"]))
+        err = max(float((a - b).abs().max()) for a, b in zip(
+            ranks[0]["logits"], ref["logits"]))
+        pre, dec = tp_dry(cfg)
+        dry = [pre["memory_analysis"]["peak_bytes"],
+               dec["memory_analysis"]["peak_bytes"]]
+        print(f"[tp] 12 {cfg.name} bf16, full width, {TP_LAYERS} of "
+              f"{configs.get(arch).n_layers} layers ({lm.param_count(cfg)} "
+              f"params), {TP_RANKS} gloo ranks on model (heads, d_ff, "
+              f"experts and vocab), batch {TP_BATCH}, a {TP_PROMPT}-token "
+              f"prompt then {TP_STEPS} decode steps fed the single-process "
+              f"greedy tokens: tokens equal on every rank at every step "
+              f"{not any(f[2] == 'token' for f in fails if len(f) > 2)}; "
+              f"max |logit diff| {err} (bound {TP_LOGIT_BOUND} (|y| + 1)); "
+              f"ranks' logits identical {same}; KV heads a rank "
+              f"{[r['kv_heads'] for r in ranks]}  [{gpu}]")
+        for i, r in enumerate(ranks):
+            print(f"[tp] 12 rank {i}: launches {r['launches']}, held "
+                  f"{r['held']} (max abs err {r['worst']}); blocks "
+                  f"{r['bytes']} bytes, built in {r['built_s']} s; peak "
+                  f"prefill {r['peak'][0] / 2**30} GiB / decode "
+                  f"{r['peak'][1] / 2**30} GiB against the dry-run's "
+                  f"{dry[0] / 2**30} / {dry[1] / 2**30} GiB "
+                  f"({r['peak'][0] / dry[0]} x, {r['peak'][1] / dry[1]} x);"
+                  f" {r['ms']} ms (host clock, gloo through the host: not a "
+                  f"TP speed), bytes in {r['traffic']}; H2 probe (elements "
+                  f"differing at 1-8 rows) {r['h2']}  [{gpu}]")
+        print(f"[tp] 12 {cfg.name} single-process on the card: peak "
+              f"{ref['peak'] / 2**30} GiB, {ref['ms']} ms; the dry-run's "
+              f"decode cell {dec['collectives']}; phase {took} s  [{gpu}]")
+        assert not fails, f"phase 12 {arch}: {fails[:20]}"
+        assert same, f"phase 12 {arch}: the ranks' logits differ"
+        for k in ranks[0]["launches"]:
+            launches[k] = max(launches.get(k, 0), ranks[0]["launches"][k])
+    return launches
+
+
 def popcount_bits(a, b) -> int:
     """Number of bits in which two int32 tensors differ."""
     import numpy as np
@@ -5597,6 +5919,11 @@ def main() -> int:
         print(f"[mesh] phase 10 launches {mesh_phase(gpu)} "
               f"({time.perf_counter() - t} s)")
         return 0
+    if sys.argv[1:] == ["--tp"]:
+        t = time.perf_counter()
+        print(f"[tp] phase 12 launches {tp_serving(gpu)} "
+              f"({time.perf_counter() - t} s)")
+        return 0
     if sys.argv[1:] == ["--roofline"]:
         t = time.perf_counter()
         roofline_phase(gpu, phase3_engine())
@@ -5648,6 +5975,8 @@ def main() -> int:
     for name, n in timed(training, gpu).items():     # phase 9
         launches[name] = max(launches[name], n)
     for name, n in timed(mesh_phase, gpu).items():   # phase 10
+        launches[name] = max(launches[name], n)
+    for name, n in timed(tp_serving, gpu).items():   # phase 12
         launches[name] = max(launches[name], n)
     kernels = []
     for key in ("pack", "xnor_linear_fused", "paged_decode_attention",

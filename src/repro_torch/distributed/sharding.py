@@ -11,13 +11,15 @@ A placement (the port's ``PartitionSpec``) is a tuple with one entry per
 dim of a tensor: ``None`` (the dim is whole on every rank), a mesh axis,
 or a tuple of axes (the dim split over their product, the first axis
 the major).  A dim of n split k ways is cut into blocks of ceil(n / k)
-and the last blocks are padded with zeros, as GSPMD pads.  Meshes are
-laid out as ``launch.mesh`` builds them (rank = the row-major index of
-its coordinates), so a group's ranks are in coordinate order.
-
-Activations stay split over the batch axes only and whole in every
-other dim: the port has no counterpart of the reference's
-``ctx.constrain`` (tensor and expert parallel compute are not ported).
+and the last blocks are padded with zeros, as GSPMD pads.  Two entries
+are the port's own, for the tensor-parallel serving steps
+(:mod:`repro_torch.distributed.ctx`): :class:`Heads` splits a dim of
+attention heads so that no head is cut (the reference's ceil-div blocks
+cut heads and GSPMD reshards at its ``constrain``; the port has no such
+resharding), and :class:`Bits` splits a packed plane's words as its float
+K was split, each block packed on its own.  Meshes are laid out as
+``launch.mesh`` builds them (rank = the row-major index of its
+coordinates), so a group's ranks are in coordinate order.
 
 The collectives are :func:`all_gather` and :func:`all_reduce`, two of
 the three that gloo runs on CUDA tensors (with ``broadcast``).  Each
@@ -33,10 +35,12 @@ result's bytes to ``cuda.record_collective``.
 from __future__ import annotations
 
 import math
+from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import bitpack
 from repro_torch.kernels import cuda
 
 DEFAULT_RULES = {"fsdp": "data", "tp": "model", "ep": "model"}
@@ -110,10 +114,63 @@ def pxor(x: torch.Tensor, group) -> torch.Tensor:
 
 # -- mesh axes -------------------------------------------------------------
 
+class Heads(NamedTuple):
+    """A placement entry for a dim of whole heads split over ``axes``:
+    ``n_heads`` query heads, the dim holding one entry of ``size``
+    elements per ``per`` of them (``per`` 1 for queries, ``q_per_kv`` for
+    keys and values).  Each rank takes ceil(n_heads / k) query heads, the
+    tail ranks zero-padded; a K/V dim gives each rank the KV heads its
+    query heads read, padded to the most any rank reads
+    (:func:`head_blocks`)."""
+    axes: Any
+    n_heads: int
+    size: int = 1
+    per: int = 1
+
+
+class Bits(NamedTuple):
+    """A placement entry for the word dim of packed planes whose float K
+    (``k`` elements) is placed by ``inner`` (axes or :class:`Heads`):
+    each rank's K block is packed on its own, into packed_width(block)
+    words, its tail bits 1 as a whole plane's are."""
+    inner: Any
+    k: int
+
+
+def head_blocks(n_heads: int, per: int, k: int, i: int) -> tuple:
+    """-> (block, lo, hi) in entries of a :class:`Heads` dim for rank
+    ``i`` of ``k``: its block length and the entries [lo, hi) it holds."""
+    hpr = -(-n_heads // k)
+
+    def heads(j):
+        h0 = min(j * hpr, n_heads)
+        return h0, min(h0 + hpr, n_heads)
+    if per == 1:
+        return (hpr, *heads(i))
+
+    def kv(j):
+        h0, h1 = heads(j)
+        return (h0 // per, -(-h1 // per)) if h1 > h0 else (n_heads // per,) * 2
+    return (max(hi - lo for lo, hi in map(kv, range(k))), *kv(i))
+
+
 def _names(axes) -> tuple:
+    if isinstance(axes, Heads):
+        axes = axes.axes
+    elif isinstance(axes, Bits):
+        return _names(axes.inner)
     if axes is None:
         return ()
     return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def without(axes, axis: str):
+    """A placement entry with ``axis`` taken out (None if nothing is
+    left)."""
+    rest = tuple(a for a in _names(axes) if a != axis)
+    if not rest:
+        return None
+    return rest[0] if len(rest) == 1 else rest
 
 
 def axis_size(mesh, axes) -> int:
@@ -177,11 +234,25 @@ def data_specs(mesh, global_batch: int, has_ctx: bool = False) -> dict:
 
 def _extent(n: int, mesh, axes) -> tuple[int, int, int]:
     """-> (block length, start, stop) of this rank's block of a dim of
-    ``n`` split over ``axes``; [start, stop) is its unpadded part."""
-    k = axis_size(mesh, axes)
+    ``n`` split over ``axes`` (or a :class:`Heads` entry); [start, stop)
+    is its unpadded part."""
+    return extent(n, axes, axis_size(mesh, axes), axis_index(mesh, axes))
+
+
+def extent(n: int, axes, k: int, i: int) -> tuple[int, int, int]:
+    """:func:`_extent` for rank ``i`` of ``k``."""
+    if isinstance(axes, Heads):
+        bs, lo, hi = head_blocks(axes.n_heads, axes.per, k, i)
+        return bs * axes.size, lo * axes.size, hi * axes.size
     bs = -(-n // k)
-    start = min(axis_index(mesh, axes) * bs, n)
+    start = min(i * bs, n)
     return bs, start, min(start + bs, n)
+
+
+def _block_len(n: int, axes, mesh) -> int:
+    if isinstance(axes, Bits):
+        return bitpack.packed_width(_extent(axes.k, mesh, axes.inner)[0])
+    return _extent(n, mesh, axes)[0]
 
 
 def copies(spec, mesh) -> int:
@@ -193,9 +264,21 @@ def copies(spec, mesh) -> int:
 
 def block_shape(shape, spec, mesh) -> tuple:
     """The shape of each rank's block of a tensor of ``shape`` (its
-    padded length ``ceil(n / k)`` on every dim split ``k`` ways)."""
-    return tuple(-(-n // axis_size(mesh, axes)) for n, axes in
+    padded length ``ceil(n / k)`` on every dim split ``k`` ways; a
+    :class:`Heads` or :class:`Bits` dim's own block)."""
+    return tuple(_block_len(n, axes, mesh) for n, axes in
                  zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+
+
+def shard_bits(words: torch.Tensor, k: int, bs: int, start: int,
+               stop: int) -> torch.Tensor:
+    """The block of packed planes (..., Kw) of K = ``k`` whose signs are
+    [start, stop) of K, padded to ``bs``, repacked on their own into
+    packed_width(bs) words."""
+    signs = bitpack.unpack_bits(words, k, dtype=torch.int8)
+    block = signs.narrow(-1, start, stop - start)
+    block = torch.nn.functional.pad(block, (0, bs - (stop - start)))
+    return bitpack.pack_bits(bitpack.pad_to_word(block))
 
 
 def shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
@@ -203,6 +286,9 @@ def shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     block runs past the end of a dim)."""
     for dim, axes in enumerate(spec):
         if axis_size(mesh, axes) == 1:
+            continue
+        if isinstance(axes, Bits):
+            t = shard_bits(t, axes.k, *_extent(axes.k, mesh, axes.inner))
             continue
         bs, start, stop = _extent(t.shape[dim], mesh, axes)
         t = t.narrow(dim, start, stop - start)
@@ -228,6 +314,10 @@ def _gather(block: torch.Tensor, spec, mesh, shape) -> torch.Tensor:
     for dim, axes in enumerate(spec):
         if axis_size(mesh, axes) == 1:
             continue
+        if isinstance(axes, (Heads, Bits)):
+            raise NotImplementedError(
+                f"a {type(axes).__name__} dim is never gathered: its "
+                "ranks compute on their blocks")
         for a in reversed(_names(axes)):          # the minor axis first
             x = torch.cat(all_gather(x, axis_group(mesh, a)), dim)
         x = x.narrow(dim, 0, shape[dim])

@@ -86,9 +86,12 @@ def _blocks(tree, specs, mesh):
     if isinstance(tree, PackedLinear):
         return PackedLinear(_blocks(tree.pb, specs.pb, mesh),
                             _blocks(tree.beta, specs.beta, mesh), tree.k)
-    if isinstance(tree, tuple):
-        return type(tree)(*(_blocks(t, s, mesh)
-                            for t, s in zip(tree, specs)))
+    if tree is None:
+        return None
+    if isinstance(tree, (list, tuple)):
+        kids = [_blocks(t, s, mesh) for t, s in zip(tree, specs)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") \
+            else type(tree)(kids)
     shape = tree.shape if mesh is None else \
         sharding.block_shape(tree.shape, specs, mesh)
     return torch.empty(shape, dtype=tree.dtype, device="meta")
@@ -121,7 +124,6 @@ def build_cell(cfg, shape, mesh, *, rules=None, kv_shard="auto",
         rules["fsdp"] = None
     b = shape.global_batch
     ba = None if mesh is None else sharding.batch_axes(mesh, b)
-    local_b = b // (1 if mesh is None else sharding.axis_size(mesh, ba))
     qc = default_q_chunk(cfg, shape, unroll) if q_chunk is None else q_chunk
     ins = input_specs(cfg, shape)
     kw = {} if mesh is None else {"mesh": mesh, "rules": rules}
@@ -141,7 +143,8 @@ def build_cell(cfg, shape, mesh, *, rules=None, kv_shard="auto",
         return fn, (state, ins, step), lm.model_flops(cfg, "train", tokens)
 
     params = _blocks(lm.packed_abstract_params(cfg),
-                     lm.packed_param_pspecs(cfg, rules), mesh)
+                     lm.packed_param_pspecs(cfg, rules, head_aligned=True),
+                     mesh)
     if shape.kind == "prefill":
         def fn(params, batch):
             return serve_step.prefill_step(cfg, params, batch,
@@ -151,8 +154,11 @@ def build_cell(cfg, shape, mesh, *, rules=None, kv_shard="auto",
         return fn, (params, ins), lm.model_flops(cfg, "prefill", tokens)
 
     # decode: one token against this rank's block of the resident state
-    # (its batch rows, whole in every other dim) of depth seq_len
-    state = lm.decode_state_spec(cfg, local_b, shape.seq_len, device="meta")
+    # of depth seq_len (its batch rows and, in a tensor-parallel layer's
+    # cache, the KV heads its query heads read)
+    state = _blocks(lm.decode_state_spec(cfg, b, shape.seq_len,
+                                         device="meta"),
+                    lm.decode_state_pspecs(cfg, ba, head_aligned=True), mesh)
 
     def fn(params, token, state):
         return serve_step.decode_step(cfg, params, token, state, **kw)
@@ -246,9 +252,10 @@ def main() -> int:
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--kv-shard", default="auto",
                     choices=["auto", "heads", "seq"],
-                    help="kept for the reference's CLI: the port holds the "
-                         "decode state whole in its model-axis dim, split "
-                         "over the batch axes only")
+                    help="kept for the reference's CLI, no effect: the "
+                         "port splits a tensor-parallel layer's cache by "
+                         "the KV heads each rank's query heads read, and "
+                         "holds other kinds' state whole over model")
     ap.add_argument("--q-chunk", type=int, default=None)
     ap.add_argument("--microbatch", type=int, default=1,
                     help="> 1 is not ported to the sharded step: such a "

@@ -14,6 +14,13 @@ Layouts, as in the JAX package:
 Scores accumulate in f32; softmax is f32.  The reference computes the
 dense products with ``einsum`` outside any kernel, so the dense path is
 plain PyTorch on every device, in the reference's rounding order.
+
+Under tensor parallelism (:mod:`repro_torch.distributed.ctx`; the
+full-sequence :func:`attention` and the dense :func:`decode_attention`
+of the sharded serving steps) a rank computes its whole query heads
+(``ctx.heads``) end to end against the KV heads they read, its block of
+``wk`` / ``wv`` / the cache holding those, and ``wo`` is row-parallel
+over the heads' K (``layers.row_linear``).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed import ctx
 from repro_torch.kernels import ops, paged_attn
 from repro_torch.models import layers
 from repro_torch.models.params import ParamDef
@@ -39,23 +47,25 @@ def attn_defs(cfg, n: int, cross: bool = False) -> dict:
     """Stacked projections; the cross projections (``cross``) carry no
     q/k/v bias."""
     d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    qh, kvh = (H, dh, 1), (H, dh, cfg.q_per_kv)    # the "tp" dim's heads
     defs = {
         "wq": ParamDef((n, d, H * dh), (None, "fsdp", "tp"),
-                       cfg.dtype, binarize=True),
+                       cfg.dtype, binarize=True, heads=qh),
         "wk": ParamDef((n, d, KV * dh), (None, "fsdp", "tp"),
-                       cfg.dtype, binarize=True),
+                       cfg.dtype, binarize=True, heads=kvh),
         "wv": ParamDef((n, d, KV * dh), (None, "fsdp", "tp"),
-                       cfg.dtype, binarize=True),
+                       cfg.dtype, binarize=True, heads=kvh),
         "wo": ParamDef((n, H * dh, d), (None, "tp", "fsdp"),
-                       cfg.dtype, binarize=True),
+                       cfg.dtype, binarize=True, heads=qh),
     }
     if cfg.qkv_bias and not cross:
         defs |= {
-            "bq": ParamDef((n, H * dh), (None, "tp"), cfg.dtype, init="zeros"),
+            "bq": ParamDef((n, H * dh), (None, "tp"), cfg.dtype, init="zeros",
+                           heads=qh),
             "bk": ParamDef((n, KV * dh), (None, "tp"),
-                           cfg.dtype, init="zeros"),
+                           cfg.dtype, init="zeros", heads=kvh),
             "bv": ParamDef((n, KV * dh), (None, "tp"),
-                           cfg.dtype, init="zeros"),
+                           cfg.dtype, init="zeros", heads=kvh),
         }
     if cfg.qk_norm:
         defs |= {
@@ -68,10 +78,15 @@ def attn_defs(cfg, n: int, cross: bool = False) -> dict:
 
 
 def _project_q(cfg, p, x, positions):
-    """-> (B, S, H, dh); ``positions`` None applies no RoPE."""
+    """-> (B, S, H, dh), this rank's query heads under tensor
+    parallelism; ``positions`` None applies no RoPE."""
     b, s, _ = x.shape
     q = layers.linear(x, p["wq"], cfg.quant, p.get("bq"))
-    q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
+    hb = ctx.heads(cfg)
+    if hb is None:
+        q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
+    else:
+        q = q.reshape(b, s, hb.qb, cfg.d_head)[:, :, :hb.nq]
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["q_norm"])
     if positions is None:
@@ -80,12 +95,16 @@ def _project_q(cfg, p, x, positions):
 
 
 def _project_kv(cfg, p, x, positions):
-    """-> k, v each (B, S, KV, dh); ``positions`` None applies no RoPE."""
+    """-> k, v each (B, S, KV, dh), this rank's block of KV heads (its
+    padding zero) under tensor parallelism; ``positions`` None applies no
+    RoPE."""
     b, s, _ = x.shape
     k = layers.linear(x, p["wk"], cfg.quant, p.get("bk"))
     v = layers.linear(x, p["wv"], cfg.quant, p.get("bv"))
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    hb = ctx.heads(cfg)
+    kv = cfg.n_kv_heads if hb is None else hb.kvb
+    k = k.reshape(b, s, kv, cfg.d_head)
+    v = v.reshape(b, s, kv, cfg.d_head)
     if cfg.qk_norm:
         k = layers.rms_norm(k, p["k_norm"])
     if positions is None:
@@ -94,7 +113,15 @@ def _project_kv(cfg, p, x, positions):
 
 
 def _expand_kv(cfg, k, v):
-    """(B, S, KV, dh) -> (B, S, H, dh): repeat each KV head q_per_kv times."""
+    """(B, S, KV, dh) -> (B, S, H, dh): repeat each KV head q_per_kv
+    times (under tensor parallelism, this rank's KV heads for each of its
+    query heads)."""
+    hb = ctx.heads(cfg)
+    if hb is not None:
+        idx = torch.tensor([kv for kv, j0, j1 in hb.groups(cfg.q_per_kv)
+                            for _ in range(j0, j1)], device=k.device,
+                           dtype=torch.long)
+        return k.index_select(2, idx), v.index_select(2, idx)
     if cfg.q_per_kv == 1:
         return k, v
     return (torch.repeat_interleave(k, cfg.q_per_kv, dim=2),
@@ -162,8 +189,14 @@ def attention(cfg, p: dict, x: torch.Tensor, *, causal: bool = True,
                         if causal else None)
                 outs.append(_sdpa(cfg, qc, k, v, mask))
         out = torch.cat(outs, dim=1)
-    return layers.linear(out.reshape(b, s, cfg.n_heads * cfg.d_head),
-                         p["wo"], cfg.quant)
+    return _out(cfg, p, out.reshape(b, s, -1))
+
+
+def _out(cfg, p, out):
+    """The output projection of (B, S, heads x dh): row-parallel over this
+    rank's heads under tensor parallelism."""
+    return layers.row_linear(out, p["wo"], cfg.quant,
+                             cfg.n_heads * cfg.d_head)
 
 
 def _band_mask(sq: int, span: int, q0: int, k0: int, window: int,
@@ -253,7 +286,6 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache: KVCache,
     pos_b = pos.to(torch.int64).expand(b)
     positions = pos_b[:, None]
     q = _project_q(cfg, p, x, positions)                  # (B, 1, H, dh)
-    q = q.reshape(b, 1, cfg.n_kv_heads, cfg.q_per_kv, cfg.d_head)
     k, v = _project_kv(cfg, p, x, positions)
 
     slot_b = pos_b % s_max if window else pos_b
@@ -268,8 +300,6 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache: KVCache,
     scale = cfg.d_head ** -0.5
     if i8:
         scale = scale / cfg.kv_i8_scale
-    scores = torch.einsum("bqkgd,bksd->bkgqs", q.float(),
-                          cache.k.to(q.dtype).float()) * scale
     kpos = torch.arange(s_max, device=x.device)
     if window:
         # rolling buffer: slot s holds position pos - ((slot - s) mod s_max)
@@ -277,14 +307,31 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache: KVCache,
         valid = age < torch.clamp(pos_b[:, None] + 1, max=window)
     else:
         valid = kpos[None, :] <= pos_b[:, None]            # (B, s_max)
-    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bksd->bqkgd", probs.to(q.dtype).float(),
-                       cache.v.to(q.dtype).float()).to(x.dtype)
+    hb = ctx.heads(cfg)
+    if hb is None:
+        q = q.reshape(b, 1, cfg.n_kv_heads, cfg.q_per_kv, cfg.d_head)
+        out = _decode_heads(q, cache.k, cache.v, valid, scale)
+    else:               # each run of query heads against its KV head
+        out = torch.cat([q.new_zeros((b, 1, 1, 0, cfg.d_head))] + [
+            _decode_heads(q[:, :, None, j0:j1], cache.k[:, kv:kv + 1],
+                          cache.v[:, kv:kv + 1], valid, scale)
+            for kv, j0, j1 in hb.groups(cfg.q_per_kv)], dim=3)
+    out = out.to(x.dtype)
     if i8:
         out = out / cfg.kv_i8_scale
-    out = out.reshape(b, 1, cfg.n_heads * cfg.d_head)
-    return layers.linear(out, p["wo"], cfg.quant)
+    return _out(cfg, p, out.reshape(b, 1, -1))
+
+
+def _decode_heads(q, ck, cv, valid, scale):
+    """q (B, 1, KV, G, dh) against the caches (B, KV, S, dh) -> (B, 1, KV,
+    G, dh) f32: f32 scores, the ``valid`` (B, S) keys, P rounded to q's
+    dtype before P.V."""
+    scores = torch.einsum("bqkgd,bksd->bkgqs", q.float(),
+                          ck.to(q.dtype).float()) * scale
+    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgqs,bksd->bqkgd", probs.to(q.dtype).float(),
+                        cv.to(q.dtype).float())
 
 
 class PagedKVCache(NamedTuple):

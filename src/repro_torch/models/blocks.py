@@ -28,6 +28,10 @@ Every kind implements:
                                               one chunked-prefill piece
   state_spec(cfg, n, batch, s_max, device)    dense decode state
   state_pspec(cfg, ba, kv_shard, tp_size)     its placements, one layer
+and ``tensor_parallel``: whether the kind computes on its blocks over
+the model axis under :mod:`repro_torch.distributed.ctx` (``attn`` and
+``moe``; every other kind's layer is gathered whole and computes as on
+one device),
 and, from :class:`PagedLayout`, the paged state its contract implies
 (``paged_state_spec``, ``paged_split`` / ``paged_merge``) and the session
 migration surface (``export_slot`` / ``import_slot``).  A state is a tree
@@ -45,6 +49,8 @@ from typing import Callable, NamedTuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed import ctx as dctx
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, moe, registry, ssm
 from repro_torch.models.attention import KVCache, PagedKVCache
@@ -71,8 +77,11 @@ def _sub(p: dict, prefix: str) -> dict:
     return {k[cut:]: v for k, v in p.items() if k.startswith(prefix)}
 
 
-def layer_params(p: dict, i: int) -> dict:
-    """Layer ``i`` of a segment's stacked parameters (views, no copies)."""
+def layer_params(p, i: int) -> dict:
+    """Layer ``i`` of a segment's stacked parameters (views, no copies),
+    or of a sharded step's ``ctx.Segment`` (its blocks gathered)."""
+    if isinstance(p, dctx.Segment):
+        return p.layer(i)
     return {k: v[i] for k, v in p.items()}
 
 
@@ -166,6 +175,8 @@ class PagedLayout:
     Kinds with ``per_slot_state`` may override :meth:`slot_spec` (default:
     the dense :meth:`state_spec`, right whenever the dense state is all
     per-slot)."""
+
+    tensor_parallel = False
 
     @classmethod
     def slot_spec(cls, cfg, n, batch, device):
@@ -274,6 +285,7 @@ class AttnBlock(_FfnBlock):
                              prefix_shareable=True)
     causal = True
     window = 0
+    tensor_parallel = True
 
     @classmethod
     def defs(cls, cfg, n):
@@ -343,6 +355,15 @@ class AttnBlock(_FfnBlock):
             spec = (ba, "model", None, None)
         return KVCache(spec, spec)
 
+    @classmethod
+    def tp_state_pspec(cls, cfg, ba):
+        """The cache's placement in the tensor-parallel serving steps: its
+        KV heads split as ``wk``'s columns (the KV heads a rank's query
+        heads read)."""
+        spec = (ba, sharding.Heads("model", cfg.n_heads, 1, cfg.q_per_kv),
+                None, None)
+        return KVCache(spec, spec)
+
 
 @register
 class LocalBlock(AttnBlock):
@@ -350,6 +371,7 @@ class LocalBlock(AttnBlock):
     contract = BlockContract("local", paged_kv=True, table_class="win",
                              window=True)
     window = 1
+    tensor_parallel = False
 
 
 @register
@@ -359,6 +381,7 @@ class EncBlock(AttnBlock):
     contract = BlockContract("enc", paged_kv=True, table_class="full",
                              decodes=False)
     causal = False
+    tensor_parallel = False
 
 
 @register
@@ -868,12 +891,13 @@ def segment_fwd(cfg, seg_params: list, x, opts: FwdOpts = FwdOpts(),
     for (kind, n), p in seg_params:
         block = registry.get(kind)
         sts = []
-        for i in range(n):
-            x, a, st = _layer_fwd(cfg, block, layer_params(p, i), x, opts,
-                                  ctx, remat)
-            if a is not None:
-                aux = a if aux is None else aux + a
-            sts.append(st)
+        with dctx.layers_of(block.tensor_parallel):
+            for i in range(n):
+                x, a, st = _layer_fwd(cfg, block, layer_params(p, i), x,
+                                      opts, ctx, remat)
+                if a is not None:
+                    aux = a if aux is None else aux + a
+                sts.append(st)
         states.append(_stack(sts))
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -925,9 +949,10 @@ def segment_decode(cfg, seg_params: list, x, states: list, pos,
         old = (None if per_slot is None or active is None
                or not block.contract.decode_writes_slot
                else state_map(torch.clone, per_slot))
-        for i in range(n):
-            x = block.decode(cfg, layer_params(p, i), x, _layer(st, i),
-                             pos, table, valid=valid, ctx=ctx)
+        with dctx.layers_of(block.tensor_parallel):
+            for i in range(n):
+                x = block.decode(cfg, layer_params(p, i), x, _layer(st, i),
+                                 pos, table, valid=valid, ctx=ctx)
         if old is not None:
             _freeze_inactive(per_slot, old, active)
     return x
@@ -1015,15 +1040,25 @@ def segment_states(cfg, segments, batch: int, s_max: int, device) -> list:
 
 
 def segment_state_pspecs(cfg, segments, ba, kv_shard: str = "heads",
-                         tp_size: int = 16) -> list:
+                         tp_size: int = 16, head_aligned: bool = False
+                         ) -> list:
     """Placements of :func:`segment_states`' leaves, the layer axis whole:
-    each kind's ``state_pspec`` laid over its state's structure."""
+    each kind's ``state_pspec`` laid over its state's structure.
+    ``head_aligned``: the tensor-parallel serving steps' own (a
+    ``tensor_parallel`` kind's ``tp_state_pspec``; every other kind's
+    state whole in its model-axis dims)."""
     out = []
     for kind, n in segments:
         block = registry.get(kind)
         like = block.state_spec(cfg, 1, 1, 1, "meta")
-        out.append(state_map(lambda _, s: (None, *s), like,
-                             block.state_pspec(cfg, ba, kv_shard, tp_size)))
+        if head_aligned and block.tensor_parallel:
+            spec = block.tp_state_pspec(cfg, ba)
+        else:
+            spec = block.state_pspec(cfg, ba, kv_shard, tp_size)
+        whole = head_aligned and not block.tensor_parallel
+        out.append(state_map(
+            lambda _, s: (None, *(sharding.without(a, "model") if whole
+                                  else a for a in s)), like, spec))
     return out
 
 

@@ -1,6 +1,13 @@
 """Shared neural layers: RMSNorm, projections (optionally XNOR-binarized),
 RoPE, SwiGLU FFN, the tanh GELU, embeddings and the full-precision lm
-head."""
+head.
+
+Under the tensor-parallel context (:mod:`repro_torch.distributed.ctx`)
+a column-parallel linear is :func:`linear` on the rank's block of
+output columns; :func:`row_linear` is the row-parallel one (the rank's
+block of K, then a sum over the model axis); the embedding is looked up
+in the rank's block of the vocab and :func:`logits` gathers the vocab
+blocks.  Outside a context every function runs as on one device."""
 
 from __future__ import annotations
 
@@ -9,7 +16,8 @@ import math
 import torch
 
 from repro_torch.core import xnor_layers
-from repro_torch.kernels import cuda
+from repro_torch.distributed import ctx
+from repro_torch.kernels import cuda, ops
 from repro_torch.models.params import ParamDef
 
 
@@ -76,6 +84,70 @@ def linear(x: torch.Tensor, w, quant: str = "none",
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def row_linear(x: torch.Tensor, w, quant: str, k: int) -> torch.Tensor:
+    """The row-parallel linear: ``x`` (..., Kv) is this rank's valid part
+    of a K block of the whole K = ``k``, ``w`` its block of the weight
+    ((Kb, N) float, or packed planes of the block, Kb >= Kv) -> x @ W over
+    the whole K (..., N), summed over the model axis (:func:`linear`
+    outside a tensor-parallel context).
+
+    Float weights: each rank's partial product stays f32 until after the
+    sum, then rounds once to x's dtype, as one matmul rounds once.
+    Packed weights: the fused kernel's alpha is a mean over the whole K,
+    so the chain is the unfused one of ``xnor_layers.
+    xnor_linear_prepacked`` (:func:`row_partial`), its int32 dots and the
+    rows' f32 |x| sums summed over the ranks, then ``dots * alpha *
+    beta``.  alpha is the one the single-process linear takes on the same
+    device: on the CPU the unfused chain's, sum * (1/K) rounded to x's
+    dtype (``bitpack.mean_abs``); on the card the fused kernel's, sum / K
+    in f32 (``xnor_gemm.alpha_kernel_order``), which differs from it in
+    the order of the f32 sum alone: a binarized layer turns a rounding of
+    its input into flipped signs downstream."""
+    if ctx.tp_size() == 1:
+        return linear(x, w, quant)
+    lead, kv = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(math.prod(lead), kv)
+    if isinstance(w, xnor_layers.PackedLinear):
+        if w.k != k:
+            raise ValueError(f"packed weight's K {w.k} != {k}")
+        dots, sums = row_partial(x2, w)
+        total = ctx.reduce_sum(sums)
+        alpha = total / k if ops.fused_mode("auto", x.device) == "kernel" \
+            else (total * (1.0 / k)).to(x.dtype)
+        y = ctx.sum_exact(dots).float() * alpha[:, None] * w.beta[None, :]
+        return y.reshape(*lead, w.pb.shape[0]).to(x.dtype)
+    wv = w[:kv]
+    if quant == "xnor":
+        part = torch.matmul(xnor_layers.binarize_ste(x2).float(),
+                            xnor_layers.binarize_ste(wv).float())
+        alpha = (ctx.reduce_sum(row_sum(x2.abs().float())[:, 0])
+                 * (1.0 / k)).to(x.dtype)
+        beta = (ctx.reduce_sum(wv.abs().float().sum(0))
+                * (1.0 / k)).to(w.dtype)
+        y = ctx.reduce_sum(part) * alpha[:, None] * beta
+    else:
+        y = ctx.reduce_sum(torch.matmul(x2.float(), wv.float()))
+    return y.reshape(*lead, w.shape[-1]).to(x.dtype)
+
+
+def row_partial(x: torch.Tensor, w) -> tuple[torch.Tensor, torch.Tensor]:
+    """One rank's share of a packed row-parallel linear: x (M, Kv), the
+    valid part of its K block, against ``w``'s planes of the block (N, Kw)
+    -> (int32 dots (M, N), each row's f32 sum of |x|).  The pack kernel
+    packs x, its words are padded to the block's with 1 bits (the
+    block's padding is 1 bits too, so they XOR to 0) and the ``xnor_gemm``
+    kernel counts at the true Kv."""
+    sums = row_sum(x.abs().float())[:, 0]
+    if not x.shape[1]:
+        return x.new_zeros((x.shape[0], w.pb.shape[0]),
+                           dtype=torch.int32), sums
+    pa, _ = ops.binarize(x)
+    if pa.shape[-1] < w.pb.shape[-1]:
+        pa = torch.nn.functional.pad(pa, (0, w.pb.shape[-1] - pa.shape[-1]),
+                                     value=-1)
+    return ops.xnor_matmul(pa, w.pb, x.shape[1]), sums
 
 
 # --- RoPE -------------------------------------------------------------------
@@ -147,9 +219,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def ffn(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU FFN; under tensor parallelism w1 / w3 are the rank's
+    ceil-div block of d_ff columns and w2 its rows (:func:`row_linear`)."""
     g = linear(x, p["w1"], cfg.quant)
     h = silu_mul(g, linear(x, p["w3"], cfg.quant))
-    return linear(h, p["w2"], cfg.quant)
+    if ctx.tp_size() == 1:
+        return linear(h, p["w2"], cfg.quant)
+    _, start, stop = ctx.extent(cfg.d_ff)
+    return row_linear(h[..., :stop - start], p["w2"], cfg.quant, cfg.d_ff)
 
 
 # --- embedding / unembedding --------------------------------------------------
@@ -168,9 +245,23 @@ def embed_defs(cfg) -> dict:
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tokens"][tokens]
+    """The table's rows of ``tokens``; under tensor parallelism the table
+    is the rank's block of the vocab: a row outside it reads 0 and the
+    ranks' rows are summed (exact: one term is non-zero)."""
+    table = p["tokens"]
+    if ctx.tp_size() == 1:
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens.long() - ctx.tp_rank() * rows
+    hit = (local >= 0) & (local < rows)
+    out = torch.where(hit[..., None], table[local.clamp(0, rows - 1)], 0)
+    return ctx.sum_exact(out.to(table.dtype))
 
 
 def logits(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
-    # the lm head stays full precision even under quant="xnor"
-    return torch.matmul(rms_norm(x, p["final_norm"]), p["lm_head"])
+    """The full-precision lm head (even under quant="xnor"); under tensor
+    parallelism over the rank's vocab block, the blocks then gathered."""
+    y = torch.matmul(rms_norm(x, p["final_norm"]), p["lm_head"])
+    if ctx.tp_size() == 1:
+        return y
+    return ctx.gather_last(y)[..., :cfg.padded_vocab]

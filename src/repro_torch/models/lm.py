@@ -25,6 +25,7 @@ text-only archs.
 
 from __future__ import annotations
 
+import re
 from typing import Any, NamedTuple
 
 import torch
@@ -53,8 +54,24 @@ def abstract_params(cfg) -> dict:
     return pdefs.abstract(param_defs(cfg))
 
 
-def param_pspecs(cfg, rules: dict) -> dict:
-    return pdefs.pspecs(param_defs(cfg), rules)
+def _tensor_parallel(key: str) -> bool:
+    """Whether the top-level leaf group ``key`` is a segment of a kind
+    that computes on its blocks over the model axis."""
+    m = re.fullmatch(r"(?:seg|enc)\d+_(\w+)", key)
+    return m is not None and registry.get(m.group(1)).tensor_parallel
+
+
+def _pspecs(cfg, fn, rules: dict, head_aligned: bool) -> dict:
+    return {key: fn(d, rules, head_aligned and _tensor_parallel(key))
+            for key, d in param_defs(cfg).items()}
+
+
+def param_pspecs(cfg, rules: dict, head_aligned: bool = False) -> dict:
+    """Every leaf's placement (the reference's).  ``head_aligned``: the
+    tensor-parallel serving steps' own, where a ``tensor_parallel``
+    kind's dims of heads are split into whole heads
+    (``params.pspecs``)."""
+    return _pspecs(cfg, pdefs.pspecs, rules, head_aligned)
 
 
 def init_params(cfg, seed: int = 0, *, device="cuda") -> dict:
@@ -82,11 +99,13 @@ def packed_abstract_params(cfg) -> dict:
     return pdefs.pack_abstract(param_defs(cfg))
 
 
-def packed_param_pspecs(cfg, rules: dict) -> dict:
-    """Placements of :func:`pack_params`' tree (``params.pack_pspecs``)."""
+def packed_param_pspecs(cfg, rules: dict, head_aligned: bool = False
+                        ) -> dict:
+    """Placements of :func:`pack_params`' tree (``params.pack_pspecs``;
+    ``head_aligned`` as in :func:`param_pspecs`)."""
     if cfg.quant != "xnor":
-        return param_pspecs(cfg, rules)
-    return pdefs.pack_pspecs(param_defs(cfg), rules)
+        return param_pspecs(cfg, rules, head_aligned)
+    return _pspecs(cfg, pdefs.pack_pspecs, rules, head_aligned)
 
 
 def _seg_params(cfg, params, enc: bool = False):
@@ -284,11 +303,15 @@ def paged_decode_layer_classes(cfg) -> dict:
 
 
 def decode_state_pspecs(cfg, ba, kv_shard: str = "heads",
-                        tp_size: int = 16) -> DecodeState:
+                        tp_size: int = 16, head_aligned: bool = False
+                        ) -> DecodeState:
     """Placements of :func:`decode_state_spec`'s leaves (``ba``: the batch
-    mesh axes), the reference's, as the port's tuple placements."""
+    mesh axes), the reference's, as the port's tuple placements;
+    ``head_aligned``: those of the port's tensor-parallel serving steps
+    (``blocks.segment_state_pspecs``), where ``kv_shard`` has no
+    effect."""
     seg = blocks.segment_state_pspecs(cfg, cfg.segments(), ba, kv_shard,
-                                      tp_size)
+                                      tp_size, head_aligned)
     ctx = None
     if cfg.n_ctx_tokens and not cfg.is_encdec():
         ctx = (ba, None, None)

@@ -18,6 +18,20 @@ rounds to ``cfg.dtype`` once, from an f32 sum (``layers.silu_mul`` keeps
 the reference's SwiGLU chain); the combine weights round to ``cfg.dtype``
 and each token's kept contributions are summed in f32 in ascending expert
 order and rounded once.
+
+Expert parallel (:mod:`repro_torch.distributed.ctx`, the sharded serving
+steps): the reference places the experts over ``model`` and names the
+dispatch "the all-to-all boundary"; here the batch is split over (pod,
+data) only, so each token is whole on every rank of the model axis and
+the dispatch needs no all-to-all.  Every rank routes the same tokens
+identically (the router is whole), runs only its ceil-div block of the
+E experts (:func:`experts`), and :func:`combine` meets the others' rows:
+where a token's k kept rows fit ``ctx.GATHER_BYTES`` (every top-1 layer
+and every decode step) the rows themselves are summed over the ranks,
+exactly (each comes from one rank), and combined as on one device;
+past it (a top-k > 1 prefill) each rank's f32 partial sum of its own
+rows is summed over the ranks, which reorders the f32 sum of a token's
+choices.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed import ctx
 from repro_torch.kernels import cuda
 from repro_torch.models import layers
 from repro_torch.models.params import ParamDef
@@ -124,17 +139,27 @@ def _f32_reductions():
         matmul.allow_bf16_reduced_precision_reduction = was
 
 
+def _local(cfg) -> tuple[int, int]:
+    """-> (first expert, count) of this rank's block of the experts."""
+    _, e0, e1 = ctx.extent(cfg.n_experts)
+    return e0, e1 - e0
+
+
 def experts(cfg, p: dict, xg: torch.Tensor, r: Routing) -> torch.Tensor:
-    """The capacity buffers through every expert: xg (G, T, d) -> ye
-    (E, G * C, d) in xg's dtype, three batched products, each summed in
-    f32."""
+    """The capacity buffers through every expert (this rank's block of
+    them under expert parallelism): xg (G, T, d) -> ye (E, G * C, d) in
+    xg's dtype, three batched products, each summed in f32."""
     g, _, d = xg.shape
     combine = combine_weights(cfg, r)
     c = combine.shape[-1]
+    e0, ne = _local(cfg)
+    if ctx.tp_size() > 1:
+        combine = combine[:, :, e0:e0 + ne]
+        p = {k: p[k][:ne] for k in ("w1", "w3", "w2")}
     dispatch = (combine > 0).to(xg.dtype)                     # (G, T, E, C)
     # one token a (expert, group, place): the dispatch product is exact
     xe = torch.einsum("gtec,gtd->egcd", dispatch, xg).reshape(
-        cfg.n_experts, g * c, d)
+        ne, g * c, d)
     with _f32_reductions():
         h = layers.silu_mul(torch.bmm(xe, p["w1"]), torch.bmm(xe, p["w3"]))
         return torch.bmm(h, p["w2"])
@@ -146,18 +171,32 @@ def combine(cfg, r: Routing, ye: torch.Tensor, dtype) -> torch.Tensor:
     only nonzero terms are a token's kept choices; they are gathered and
     summed in ascending expert order."""
     g, tg, k = r.idx.shape
-    e, d = cfg.n_experts, ye.shape[-1]
+    d = ye.shape[-1]
     c = ye.shape[1] // g
+    e0, e = _local(cfg)
     order = torch.argsort(r.idx, dim=-1)
     ex = r.idx.gather(-1, order)
     w = r.gate.gather(-1, order).to(dtype).to(F32)
+    if ctx.tp_size() > 1:
+        mine = (ex >= e0) & (ex < e0 + e)
+        ex = (ex - e0).clamp(0, max(e - 1, 0))
     row = (ex * g + torch.arange(g, device=ye.device)[:, None, None]) * c \
         + r.pos.gather(-1, order).long()
     rows = ye.reshape(e * g * c, d).index_select(0, row.reshape(-1)) \
-        .reshape(g, tg, k, d).to(F32)
+        .reshape(g, tg, k, d) if e else ye.new_zeros((g, tg, k, d))
+    if ctx.tp_size() > 1:
+        rows = torch.where(mine[..., None], rows, 0)
+        # the ranks' rows where they fit (exact), else their partial sums
+        exact = k == 1 or \
+            rows.numel() * rows.element_size() <= ctx.GATHER_BYTES
+        if exact:
+            rows = ctx.sum_exact(rows)
+    rows = rows.to(F32)
     y = w[..., 0, None] * rows[:, :, 0]
     for j in range(1, k):
         y = y + w[..., j, None] * rows[:, :, j]
+    if ctx.tp_size() > 1 and not exact:
+        y = ctx.reduce_sum(y)
     return y
 
 

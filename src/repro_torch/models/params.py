@@ -11,6 +11,12 @@ Logical axes of a ``spec`` (mapped to mesh axes by the rules of
   "tp"     tensor parallel over the model axis (heads / d_ff / vocab)
   "ep"     expert parallel over the model axis
   None     whole
+
+A leaf whose "tp" dim holds attention heads says so (``heads``); under
+``head_aligned`` placements (the tensor-parallel serving steps) that dim
+is split into whole heads (``sharding.Heads``) and a packed plane whose
+K is split over the model axis packs each rank's K block on its own
+(``sharding.Bits``).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core import xnor_layers
+from repro_torch.distributed.sharding import Bits, Heads
 
 
 class ParamDef(NamedTuple):
@@ -32,6 +39,8 @@ class ParamDef(NamedTuple):
     binarize: bool = False  # binarizable linear: packed to sign planes for
                             # serving under quant="xnor" (norms, embeddings
                             # and the lm head stay full precision)
+    heads: tuple | None = None  # (n_heads, d_head, q heads an entry) of a
+                            # "tp" dim of heads (q_per_kv for K / V)
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -59,12 +68,22 @@ def logical_specs(defs) -> dict:
     return tree_map(lambda d: d.spec, defs)
 
 
-def pspecs(defs, rules: dict[str, Any]) -> dict:
+def _spec(d: ParamDef, rules: dict, head_aligned: bool) -> tuple:
+    def one(a):
+        if a is None:
+            return None
+        if a == "tp" and head_aligned and d.heads is not None:
+            return Heads(rules.get(a), *d.heads)
+        return rules.get(a)
+    return tuple(map(one, d.spec))
+
+
+def pspecs(defs, rules: dict[str, Any], head_aligned: bool = False) -> dict:
     """Each leaf's placement: a tuple with one entry per dim, the mesh axis
     (a name, a tuple of names, or None for whole) that ``rules`` maps its
-    logical axis to; the port's ``PartitionSpec``."""
-    return tree_map(lambda d: tuple(None if a is None else rules.get(a)
-                                    for a in d.spec), defs)
+    logical axis to; the port's ``PartitionSpec``.  ``head_aligned``
+    splits a dim of heads into whole heads."""
+    return tree_map(lambda d: _spec(d, rules, head_aligned), defs)
 
 
 def init(defs, generator: torch.Generator, device) -> dict:
@@ -120,14 +139,34 @@ def pack_abstract(defs) -> dict:
     return tree_map(one, defs)
 
 
-def pack_pspecs(defs, rules: dict[str, Any]) -> dict:
-    """Placements of :func:`pack`'s tree: a packed leaf's planes (...,
-    N, Kw) and beta (..., N) keep the float weight's axes for N and K."""
+def shapes(defs, packed: bool = False) -> dict:
+    """Each leaf's whole shape (a ``PackedLinear`` of the planes' and
+    beta's shapes for a ``binarize`` leaf when ``packed``): the tree's
+    geometry with no tensor, not even a ``meta`` one."""
+    from repro_torch.core import bitpack
+
     def one(d: ParamDef):
-        spec = tuple(None if a is None else rules.get(a) for a in d.spec)
+        if not (packed and d.binarize):
+            return tuple(d.shape)
+        *lead, k, n = d.shape
+        return xnor_layers.PackedLinear(
+            (*lead, n, bitpack.packed_width(k)), (*lead, n), k)
+    return tree_map(one, defs)
+
+
+def pack_pspecs(defs, rules: dict[str, Any],
+                head_aligned: bool = False) -> dict:
+    """Placements of :func:`pack`'s tree: a packed leaf's planes (...,
+    N, Kw) and beta (..., N) keep the float weight's axes for N and K;
+    under ``head_aligned`` a K split over the model axis packs each
+    block on its own (``sharding.Bits``)."""
+    def one(d: ParamDef):
+        spec = _spec(d, rules, head_aligned)
         if not d.binarize:
             return spec
         *lead, k, n = spec
+        if head_aligned and d.spec[-2] == "tp":
+            k = Bits(k, d.shape[-2])
         return xnor_layers.PackedLinear((*lead, n, k), (*lead, n),
                                         d.shape[-2])
     return tree_map(one, defs)

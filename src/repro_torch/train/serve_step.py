@@ -14,15 +14,23 @@ run on ``device`` (CUDA unless the caller asks for the CPU).
 
 With a ``mesh`` (a ``DeviceMesh`` of ``launch.mesh``) the two steps are
 the reference's sharded serving programs, written out over
-``torch.distributed``: ``params`` holds this rank's blocks
-(:func:`shard_params` under ``rules``; ``rules["fsdp"] = None`` is the
-reference's serving placement, the parameters whole over the data axis),
-every leaf is gathered whole at the step's start (``sharding.gather``, as
-the sharded train step does), and the rank computes its block of the
-batch over the batch axes (``sharding.batch_axes``).  The decode state
-is held as ``lm.decode_state_pspecs`` places it over the batch axes, and
-whole in its other dims: the port splits activations over the batch
-axes only.
+``torch.distributed`` under ``ctx.activation_rules`` (``{"batch": the
+batch axes, "tp": "model", "ep": "model"}``): ``params`` holds this
+rank's blocks (:func:`shard_params` under ``rules``; ``rules["fsdp"] =
+None`` is the reference's serving placement, the parameters whole over
+the data axis), the rank computes its block of the batch over the batch
+axes (``sharding.batch_axes``), and the ``attn`` and ``moe`` layers
+compute tensor and expert parallel over ``model``: a rank keeps its
+blocks of heads, ``d_ff``, experts and vocab (the head-aligned
+placements of ``lm.param_pspecs(..., head_aligned=True)``) and computes
+on them.  A layer's FSDP blocks are gathered just before it runs and
+dropped after (``ctx.Segment``); a kind with no tensor-parallel form has
+its layer gathered over ``model`` too and computes as on one device; the
+embedding and the head are gathered at their use.  No step holds the
+whole tree.  The decode state is held as ``lm.decode_state_pspecs(...,
+head_aligned=True)`` places it: its batch rows, the KV heads of a
+tensor-parallel layer's cache that the rank's query heads read, and
+whole in every other dim.
 """
 
 from __future__ import annotations
@@ -33,8 +41,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import prng
 from repro_torch.core.xnor_layers import PackedLinear
-from repro_torch.distributed import sharding
+from repro_torch.distributed import ctx, sharding
 from repro_torch.models import lm
+from repro_torch.models import params as pdefs
 from repro_torch.models.params import tree_map
 
 
@@ -45,15 +54,15 @@ def _packed(params) -> bool:
 
 
 def _specs(cfg, params, rules):
-    """-> (placements, meta tree of whole shapes) of ``params``, the
-    packed serve form's where it is packed."""
+    """-> (placements, whole shapes) of ``params``' leaves, the packed
+    serve form's where it is packed; head-aligned."""
     rules = dict(rules or sharding.DEFAULT_RULES)
     if rules.get("fsdp") == "off":       # the reference's serving placement
         rules["fsdp"] = None
-    if _packed(params):
-        return (lm.packed_param_pspecs(cfg, rules),
-                lm.packed_abstract_params(cfg))
-    return lm.param_pspecs(cfg, rules), lm.abstract_params(cfg)
+    packed = _packed(params)
+    specs = (lm.packed_param_pspecs if packed else lm.param_pspecs)(
+        cfg, rules, head_aligned=True)
+    return specs, pdefs.shapes(lm.param_defs(cfg), packed)
 
 
 def shard_params(cfg, params: dict, mesh, rules=None) -> dict:
@@ -66,15 +75,29 @@ def shard_params(cfg, params: dict, mesh, rules=None) -> dict:
     return tree_map(one, params, *_specs(cfg, params, rules))
 
 
-def whole_params(cfg, params: dict, mesh, rules=None) -> dict:
-    """Every leaf gathered whole from the ranks' blocks."""
-    def one(p, s, like):
-        if isinstance(p, PackedLinear):
-            return PackedLinear(
-                sharding.gather(p.pb, s.pb, mesh, like.pb.shape),
-                sharding.gather(p.beta, s.beta, mesh, like.beta.shape), p.k)
-        return sharding.gather(p, s, mesh, like.shape)
-    return tree_map(one, params, *_specs(cfg, params, rules))
+def _view(cfg, params: dict, mesh, rules) -> dict:
+    """The tree the layers read: a segment's blocks gathered a layer at a
+    time (over ``model`` too for a kind without a tensor-parallel form),
+    the embedding's at their use, the rest gathered now."""
+    specs, shapes = _specs(cfg, params, rules)
+    out = {}
+    for key, blocks in params.items():
+        if key.startswith(("seg", "enc")) and isinstance(blocks, dict):
+            # a segment's layer-stacked leaves
+            keep = ("model",) if lm._tensor_parallel(key) else ()
+            out[key] = ctx.Segment(blocks, specs[key], shapes[key], mesh,
+                                   keep)
+        elif isinstance(blocks, dict):
+            out[key] = ctx.Leaves(blocks, specs[key], shapes[key], mesh,
+                                  ("model",))
+        else:
+            out[key] = ctx.gather_leaf(blocks, specs[key], shapes[key], mesh)
+    return out
+
+
+def _rules(mesh, batch: int) -> dict:
+    return {"batch": sharding.batch_axes(mesh, batch), "tp": "model",
+            "ep": "model"}
 
 
 def prefill_step(cfg, params, batch: dict, s_max: int, *, q_chunk: int = 0,
@@ -83,15 +106,17 @@ def prefill_step(cfg, params, batch: dict, s_max: int, *, q_chunk: int = 0,
     dense DecodeState).  With a ``mesh``: ``params`` are this rank's
     blocks, ``batch`` the global batch, and the logits and the state this
     rank's block of the batch (a ``cross`` or enc-dec arch's context cut
-    with it)."""
-    if mesh is not None:
-        params = whole_params(cfg, params, mesh, rules)
-        specs = sharding.data_specs(mesh, batch["tokens"].shape[0],
-                                    "ctx" in batch)
-        batch = {k: sharding.shard(v, specs[k], mesh)
-                 for k, v in batch.items()}
-    return lm.prefill(cfg, params, batch["tokens"], s_max=s_max,
-                      ctx=batch.get("ctx"), q_chunk=q_chunk)
+    with it; the state's KV heads as the module docstring says)."""
+    if mesh is None:
+        return lm.prefill(cfg, params, batch["tokens"], s_max=s_max,
+                          ctx=batch.get("ctx"), q_chunk=q_chunk)
+    b = batch["tokens"].shape[0]
+    specs = sharding.data_specs(mesh, b, "ctx" in batch)
+    batch = {k: sharding.shard(v, specs[k], mesh) for k, v in batch.items()}
+    with ctx.activation_rules(_rules(mesh, b), mesh):
+        return lm.prefill(cfg, _view(cfg, params, mesh, rules),
+                          batch["tokens"], s_max=s_max, ctx=batch.get("ctx"),
+                          q_chunk=q_chunk)
 
 
 def decode_step(cfg, params, token: torch.Tensor, state: lm.DecodeState, *,
@@ -99,11 +124,13 @@ def decode_step(cfg, params, token: torch.Tensor, state: lm.DecodeState, *,
     """token (B, 1) -> (logits (B, 1, V), state).  With a ``mesh``:
     ``params`` are this rank's blocks, ``token`` the global batch's, and
     ``state`` and the logits this rank's block of the batch."""
-    if mesh is not None:
-        params = whole_params(cfg, params, mesh, rules)
-        ba = sharding.batch_axes(mesh, token.shape[0])
-        token = sharding.shard(token, (ba, None), mesh)
-    return lm.decode_step(cfg, params, token, state)
+    if mesh is None:
+        return lm.decode_step(cfg, params, token, state)
+    b = token.shape[0]
+    token = sharding.shard(token, (sharding.batch_axes(mesh, b), None), mesh)
+    with ctx.activation_rules(_rules(mesh, b), mesh):
+        return lm.decode_step(cfg, _view(cfg, params, mesh, rules), token,
+                              state)
 
 
 def sample(logits: torch.Tensor, key: torch.Tensor | None = None,

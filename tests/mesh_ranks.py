@@ -190,3 +190,180 @@ def serve_rank(rank: int, cases: dict, s_max: int) -> dict:
                 steps.append(_np(logits))
         out[name] = dict(coord=mesh.get_coordinate(), logits=steps)
     return out
+
+
+# -- tensor- and expert-parallel serving -----------------------------------
+
+def tp_rank(rank: int, shape: tuple, axes: tuple, cases: dict,
+            s_max: int, units: bool) -> dict:
+    """The sharded ``prefill_step`` and two teacher-forced ``decode_step``s
+    of each case {name: dict(arch, over, dtype, packed, params, batch,
+    count)} (smoke; parameters from seed 0, or the reference's numpy tree
+    ``params``) on a ``shape`` mesh named ``axes`` -> {"coord", "cases":
+    {name: this rank's logits rows of each step, and with ``count`` what
+    the second decode step gathered (:func:`_count_gathers`)}, "units":
+    the unit checks of :func:`_tp_units` (with ``units``)}."""
+    mesh = mesh_mod.make_mesh(shape, axes, "cpu")
+    out = {"coord": mesh.get_coordinate(), "cases": {}}
+    for name, case in cases.items():
+        out["cases"][name] = _tp_case(mesh, s_max, **case)
+    if units:
+        out["units"] = _tp_units(mesh)
+    return out
+
+
+def tp_params(arch: str, over: dict, dtype: str, packed: bool,
+              params=None):
+    """(config, the whole parameter tree) of a ``tp_rank`` case."""
+    from repro_torch.models import lm
+    cfg = configs.get(arch).smoke(dtype=getattr(torch, dtype), **over)
+    tree = lm.init_params(cfg, 0, device="cpu") if params is None \
+        else convert.from_jax(cfg, params)
+    return cfg, lm.pack_params(cfg, tree) if packed else tree
+
+
+def _tp_case(mesh, s_max, arch, over, dtype, packed, batch, params=None,
+             count=False) -> dict:
+    from repro_torch.train import serve_step
+    cfg, whole = tp_params(arch, over, dtype, packed, params)
+    blocks = serve_step.shard_params(cfg, whole, mesh)
+    del whole
+    data = {k: torch.from_numpy(v) for k, v in batch.items() if k != "next"}
+    out = {}
+    with torch.inference_mode():
+        logits, state = serve_step.prefill_step(cfg, blocks, data, s_max,
+                                                mesh=mesh)
+        steps = [_np(logits)]
+        for i, tok in enumerate(batch["next"]):
+            with _count_gathers(count and i == 1) as seen:
+                logits, state = serve_step.decode_step(
+                    cfg, blocks, torch.from_numpy(tok), state, mesh=mesh)
+            steps.append(_np(logits))
+        out["logits"] = steps
+    if count:
+        out["gathers"] = seen
+        out["blocks"] = {verify.leaf_key(p): (t.numel() * t.element_size(),
+                                              tuple(t.shape))
+                         for p, t in verify.tree_flatten_with_path(blocks)}
+        out["kv_heads"] = int(state.seg_states[0].k.shape[2])
+    return out
+
+
+class _count_gathers:
+    """While on: every ``sharding.gather`` call (a parameter's blocks
+    gathered) as (the mesh axes it gathers over, the bytes this rank took
+    in), and the bytes every ``all_gather`` took in, in ``["total"]``."""
+
+    def __init__(self, on: bool):
+        self.on, self.seen = on, {"calls": [], "total": 0}
+
+    def __enter__(self):
+        if not self.on:
+            return self.seen
+        self.orig = sharding.gather
+        seen = self.seen
+
+        def counted(block, spec, mesh, shape, sum_axes=None):
+            before = sharding.all_gather.bytes
+            out = self.orig(block, spec, mesh, shape, sum_axes)
+            axes = sorted({a for e in spec for a in sharding._names(e)
+                           if sharding.axis_size(mesh, a) > 1})
+            seen["calls"].append((axes, sharding.all_gather.bytes - before))
+            return out
+        sharding.gather = counted
+        sharding.reset_counts()
+        return seen
+
+    def __exit__(self, *exc):
+        if self.on:
+            sharding.gather = self.orig
+            self.seen["total"] = sharding.all_gather.bytes
+
+
+def _tp_units(mesh) -> dict:
+    """On the rank's mesh: the vocab-parallel lookup against the whole
+    table's rows, and moonshot's top-2 combine of a decode step (its
+    rows from this rank's experts only) against the single-process
+    combine, both under the serving steps' context."""
+    from repro_torch.distributed import ctx
+    from repro_torch.models import layers, moe
+    from repro_torch.models import params as pdefs
+    rules = {"batch": None, "tp": "model", "ep": "model"}
+    g = torch.Generator().manual_seed(11)
+    table = torch.randn((256, 64), generator=g, dtype=torch.bfloat16)
+    tokens = torch.randint(0, 256, (3, 5), generator=g)
+    cfg = configs.get("moonshot-v1-16b-a3b").smoke(dtype=torch.bfloat16)
+    defs = moe.moe_defs(cfg, 1)
+    p = {k: v[0] for k, v in pdefs.init(defs, g, "cpu").items()}
+    x = torch.randn((8, 1, cfg.d_model), generator=g).to(cfg.dtype)
+    xg = x.reshape(8, 1, cfg.d_model)
+    r = moe.route(cfg, p["router"], xg)
+    whole = moe.combine(cfg, r, moe.experts(cfg, p, xg, r), cfg.dtype)
+    with ctx.activation_rules(rules, mesh):
+        _, start, stop = ctx.extent(256)
+        emb = layers.embed({"tokens": sharding.shard(
+            table, ("model", None), mesh)}, tokens)
+        e0, ne = moe._local(cfg)
+        pb = {k: sharding.shard(v, ("model", None, None), mesh)
+              for k, v in p.items() if k != "router"}
+        pb["router"] = p["router"]
+        ye = moe.experts(cfg, pb, xg, r)
+        split = moe.combine(cfg, r, ye, cfg.dtype)
+    return {"embed": bool(torch.equal(emb, table[tokens])),
+            "embed_bits": bool(torch.equal(emb.view(torch.int16),
+                                           table[tokens].view(torch.int16))),
+            "experts": (e0, ne), "combine": bool(torch.equal(split, whole))}
+
+
+def tp_block_rows_rank(rank: int, arch: str, dtype: str,
+                       device="cuda") -> list:
+    """One layer of ``arch``'s first kind, binarized and packed at full
+    width, this rank's head-aligned blocks of it on a (data, model) =
+    (1, 2) mesh, in the dense decode the sharded serving step runs, at 1
+    to 8 slots -> for each slot count, the elements of its rows that
+    differ from each slot run alone (hazard H2 at the model axis's
+    sums)."""
+    import dataclasses
+
+    from repro_torch.distributed import ctx
+    from repro_torch.models import blocks, registry
+    mesh = mesh_mod.make_mesh((1, 2), ("data", "model"), device)
+    cfg = dataclasses.replace(configs.get(arch), dtype=getattr(torch, dtype))
+    block = registry.get(cfg.segments()[0][0])
+    defs = block.defs(cfg, 1)
+    g = torch.Generator(device=device)
+    g.manual_seed(cfg.d_model + 1)
+    rules = dict(sharding.DEFAULT_RULES, fsdp=None)
+    whole = pdefs.pack(defs, pdefs.init(defs, g, device))
+    specs = pdefs.pack_pspecs(defs, rules, head_aligned=True)
+
+    def cut(w, s):
+        if hasattr(w, "pb"):
+            return type(w)(sharding.shard(w.pb, s.pb, mesh),
+                           sharding.shard(w.beta, s.beta, mesh), w.k)
+        return sharding.shard(w, s, mesh)
+    p = blocks.layer_params({k: cut(w, specs[k]) for k, w in whole.items()},
+                            0)
+    del whole
+    slots, s_max = 8, 32
+    cache = block.state_spec(cfg, 1, slots, s_max, device)
+    spec = block.tp_state_pspec(cfg, None)
+    state = type(cache)(*(sharding.shard(torch.randn(
+        leaf.shape, generator=g, device=device).to(leaf.dtype),
+        (None, *s), mesh) for leaf, s in zip(cache, spec)))
+    start = [t.clone() for t in state]
+    pos = torch.tensor([5, 17, 30, 0, 9, 22, 13, 31], device=device)
+    x = torch.randn((slots, 1, cfg.d_model), generator=g,
+                    device=device).to(cfg.dtype)
+
+    def step(lo, hi):
+        for leaf, t in zip(state, start):
+            leaf.copy_(t)
+        st = type(state)(*(leaf[0, lo:hi] for leaf in state))
+        return block.decode(cfg, p, x[lo:hi], st, pos[lo:hi], None)
+    rules = {"batch": None, "tp": "model", "ep": "model"}
+    with torch.inference_mode(), ctx.activation_rules(rules, mesh), \
+            ctx.layers_of(block.tensor_parallel):
+        alone = torch.cat([step(j, j + 1) for j in range(slots)])
+        return [int((step(0, n) != alone[:n]).sum())
+                for n in range(1, slots + 1)]

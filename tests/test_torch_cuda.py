@@ -1135,3 +1135,61 @@ def test_cuda_sharded_engine_matches_single_device(gpu):
             np.testing.assert_array_equal(
                 r["cases"][i]["chunks"], bitpack.to_numpy_u32(
                     ref.digest_chunks(a, c["chunk"], c["width"])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads, tp", [(28, 4), (28, 16), (40, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_row_parallel_xnor_chain_matches_its_plain_version(gpu, heads,
+                                                                tp, dtype):
+    """The row-parallel packed linear's share on each rank
+    (``layers.row_partial``: the pack kernel on the rank's valid heads,
+    its words padded with 1 bits to the block's, the ``xnor_gemm``
+    kernel at its true K) against its plain version on the same inputs:
+    dots and |x| sums bitwise; the ranks' dots summed equal the whole-K
+    ``xnor_matmul`` of the kernel bitwise.  qwen2-7b's ``wo`` over 4
+    ranks (7 heads a rank) and 16 (2; ranks 14-15 none), llama4-scout's
+    over 16 (3; rank 13 one head, 14-15 none), M = 4."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import layers
+    g = torch.Generator(device=gpu)
+    g.manual_seed(heads + tp)
+    k, n, m = heads * 128, 1024, 4
+    x = torch.randn((m, k), generator=g, device=gpu).to(dtype)
+    w = torch.randn((k, n), generator=g, device=gpu).to(dtype)
+    packed = xnor_layers.pack_linear(w)
+    pa, _ = kpack.pack(x)
+    whole = kxnor.xnor_gemm(pa, packed.pb, k)
+    entry = sharding.Heads("model", heads, 128, 1)
+    total = torch.zeros_like(whole)
+    launches = kxnor.xnor_gemm.launches
+    for i in range(tp):
+        bs, start, stop = sharding.extent(k, entry, tp, i)
+        wb = xnor_layers.PackedLinear(
+            sharding.shard_bits(packed.pb, k, bs, start, stop), packed.beta,
+            k)
+        got, want = _kernel_and_plain(layers.row_partial, x[:, start:stop],
+                                      wb)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        total += got[0]
+    assert kxnor.xnor_gemm.launches - launches == sum(
+        1 for i in range(tp) if sharding.extent(k, entry, tp, i)[2]
+        > sharding.extent(k, entry, tp, i)[1])
+    assert torch.equal(total, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b+xnor",
+                                  "moonshot-v1-16b-a3b+xnor"])
+def test_cuda_tp_block_decode_rows_do_not_depend_on_the_batch(gpu, arch):
+    """One bf16 layer at full width (attn; moe, its experts split over
+    the ranks), tensor parallel over 2 gloo ranks on the card, at 1 to 8
+    slots: each slot's output row has the same bits whatever the batch
+    (hazard H2 at the model axis's sums: the row-parallel ``wo`` and
+    ``w2``, the experts' rows)."""
+    from mesh_ranks import tp_block_rows_rank
+    from repro_torch.launch import mesh as mesh_mod
+    ranks = mesh_mod.run_ranks(tp_block_rows_rank, 2, arch, "bfloat16",
+                               timeout_s=600)
+    for r in ranks:
+        assert r == [0] * 8, r

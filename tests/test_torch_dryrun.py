@@ -69,7 +69,7 @@ def test_driver_decode_cell_on_two_pods(tmp_path):
     assert res["n_devices"] == 512
     assert res["memory_analysis"]["peak_bytes"] < analysis.CARD_BYTES
     assert res["fits_card"] is True
-    # one rank's program: every leaf gathered whole, once, at the start
+    # one rank's program: each layer's blocks gathered before it runs
     assert res["collectives"]["all-gather"]["count"] > 0
     assert res["dispatches"] > 0 and res["bottleneck"] in (
         "compute", "memory", "collective")

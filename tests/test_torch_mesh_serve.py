@@ -4,9 +4,11 @@
 
 Each rank keeps its blocks of the parameters (float, or the packed serve
 form of a ``+xnor`` arch; the default ZeRO-3 placement and the
-reference's serving placement ``fsdp="off"``), gathers them whole at each
-step, and computes its block of the batch (8 rows over (pod, data): two
-a rank) with its block of the dense decode state.  A prefill of 12
+reference's serving placement ``fsdp="off"``), gathers each layer's FSDP
+blocks just before the layer (the ``attn`` layers compute tensor
+parallel over ``model``; the vlm's ``cross`` layers are gathered whole),
+and computes its block of the batch (8 rows over (pod, data): two a
+rank) with its block of the dense decode state.  A prefill of 12
 tokens, then two decode steps of teacher-forced tokens; every rank's
 logits rows of each step are held against the same rows of the
 single-process steps, in f32 at ``rtol = atol = 1e-5`` (the same
@@ -94,9 +96,10 @@ def test_sharded_serving_steps_match_single_process(name, runs):
 
 
 def test_decode_state_is_split_over_the_batch_axes_only():
-    """The state a rank holds after the sharded prefill is its rows of
-    the batch, whole in the dims ``decode_state_pspecs`` places on the
-    model axis (the port splits activations over the batch axes only)."""
+    """The reference's placement of the dense state (its KV heads over
+    ``model``) and the shape of a rank's rows of it; the port's own
+    placement, its query heads' KV heads a rank, is held in
+    ``test_torch_mesh_tp.py``."""
     cfg = configs.get("qwen2-7b").smoke()
     spec = lm.decode_state_pspecs(cfg, ("pod", "data"), "heads", 2)
     cache = spec.seg_states[0]
