@@ -98,11 +98,11 @@ Phases (any failure raises and the script exits non-zero):
    chunk and one decode step run on the kernel path with every kernel
    launch held against its plain version on the same inputs, and the
    kernel path is held end to end against the plain path run apart (see
-   ``check_paths``), in bf16 and in f32 (two seeds) at the same width and
-   depth; a control, paged decode giving its plain version's output one
+   ``check_paths``), in bf16 at the same width and depth and in f32 (two
+   seeds) at 8 of the 28 layers; a control, paged decode giving its plain version's output one
    ulp up at every element, must fail the bf16 check.
-3b. The rest of the serving tier on phase 3's model and
-   trace (``serving_tier``): a 2-replica Router with the kill drill
+3b. The rest of the serving tier on phase 3's model, cut to 8 of its 28
+   layers, and trace (``serving_tier``): a 2-replica Router with the kill drill
    against one engine at temperature 0.8, encrypted migration wires and
    the integrity scrubber with a flipped-word control; cross-slot
    migration; the slot-dense layout and ``generate_static`` against the
@@ -111,31 +111,33 @@ Phases (any failure raises and the script exits non-zero):
    paged decode launch, the first 28 of each shape of the others), but
    for one timed run each of the engine and the Router, which must repeat
    the held runs' tokens at shapes that were held.
-3c. RecurrentGemma (``recurrent_serving``): full-width, full-depth
+3c. RecurrentGemma (``recurrent_serving``): full-width
    recurrentgemma-2b+xnor (18 rglru + 8 local layers) in bf16, packed at
-   load, a 4-slot paged ServeEngine (block 16, chunk 32, prefix caching
+   load, at 9 of its 26 layers, a 4-slot paged ServeEngine (block 16, chunk 32, prefix caching
    off) over phase 3's 8 requests and one of 2,100 prompt tokens, which
    wraps the 2,048-token window ring.  Every launch of pack, the fused
    linear and paged decode in one run held against its plain version at
    every shape (``LaunchHolds``), an unheld timed run repeating its
-   tokens (tok/s, TTFT, peak memory, 200 + 8 launches per decode step);
+   tokens (tok/s, TTFT, peak memory, 69 + 3 launches per decode step);
    the long session migrated mid-decode 4 -> 2 slots through an encrypted
    wire (ring blocks, f32 ``h``, bf16 conv buffer) keeping its tokens;
-   ``check_paths`` in bf16 at this arch's limits and f32, with the
-   one-ulp-up control failing; f32 dense = paged on the short requests.
-3d. Mixture of experts (``moe_serving``, ``llama4_serving``): full-width,
-   full-depth moonshot-v1-16b-a3b+xnor (48 moe layers, 64 experts of
-   d_ff 1408, top-6; 56 GB of bf16 weights, the attention packed at
-   load), a 4-slot paged ServeEngine (block 16, chunk 32, s_max 128,
-   prefix caching on) over phase 3's 8 requests with every launch held
-   (``LaunchHolds``), an unheld timed run repeating its tokens (tok/s,
-   TTFT, peak memory, 192 + 48 launches per decode step); with the prefix
+   ``check_paths`` at full depth in bf16 at this arch's limits and f32 (9
+   layers), with the one-ulp-up control failing; f32 dense = paged on the short
+   requests.
+3d. Mixture of experts (``moe_serving``, ``llama4_serving``): full-width
+   moonshot-v1-16b-a3b+xnor (64 experts of d_ff 1408, top-6, the
+   attention packed at load) at 12 of its 48 moe layers, a 4-slot paged
+   ServeEngine (block 16, chunk 32, s_max 128, prefix caching on) over
+   phase 3's 8 requests with every launch held (``LaunchHolds``), an
+   unheld timed run repeating its tokens (tok/s, TTFT, peak memory, 48 +
+   12 launches per decode step); with the prefix
    cache off (a hit changes the dispatch groups), a 2-slot engine
    repeating a 4-slot one's tokens and a session migrated 4 -> 2 slots
    through an encrypted wire,
-   ``check_paths`` in bf16 at this arch's limits (a differing expert
-   choice ends the walk as a differing sign bit does) with the control
-   failing and in f32 at 8 of the 48 layers (the f32 tree does not fit);
+   ``check_paths`` in bf16 at all 48 layers (56 GB of weights) and this
+   arch's limits (a differing expert choice ends the walk as a differing
+   sign bit does) with the control failing and in f32 at 8 of the 48
+   layers (the f32 tree does not fit);
    then llama4-scout-17b-a16e+xnor at full width and 4 of 48 layers, a
    2-slot and a 1-slot engine over 4 requests, every launch held, the
    same tokens.
@@ -143,20 +145,20 @@ Phases (any failure raises and the script exits non-zero):
    engine gates of ``ctx_serving``): full-width, full-depth
    whisper-tiny+xnor (a 4-layer encoder over 1,500 frames, 4 dec layers,
    each request's frames encoded once at admission) and
-   llama-3.2-vision-11b+xnor (40 layers, 8 of them cross, over 1,600 x
-   4,096 patch embeddings a request; 18.6 GiB of bf16 weights), packed at
+   llama-3.2-vision-11b+xnor (10 of its 40 layers, 2 of them cross, over
+   1,600 x 4,096 patch embeddings a request), packed at
    load, each served by a 4-slot paged ServeEngine (block 16, chunk 32,
    s_max 128, prefix caching on) over phase 3's 8 requests with a seeded
    context each, the shared-prefix half sharing one (``ctx_trace``):
    every launch of pack, the fused linear and paged decode held
    (``LaunchHolds``), a 2-slot engine with the same tokens, an unheld
-   timed run repeating them (tok/s, TTFT, peak memory; 36 + 4 and 264 +
-   32 launches every decode step), a session migrated mid-decode 4 -> 2
+   timed run repeating them (tok/s, TTFT, peak memory; 36 + 4 and 66 + 8
+   launches every decode step), a session migrated mid-decode 4 -> 2
    slots through an encrypted wire carrying its context and per-slot
-   ``ctx_kv``, held then unheld; whisper in f32 dense = paged (4 and 2
-   slots) = ``generate_static``; llama-vision's ``check_paths`` in bf16 at its
-   limits with the control failing, and in f32 at full depth (a 39 GB
-   tree).
+   ``ctx_kv``, held; whisper in f32 dense = paged (4 and 2 slots) =
+   ``generate_static``; llama-vision's ``check_paths`` at all 40 layers
+   (18.6 GiB of bf16 weights) in bf16 at its limits with the control
+   failing, and in f32 at 10 of the 40 layers.
 3f. xLSTM and the paper's classifier (``xlstm_serving``,
    ``xnor_cnn_serving``): full-width, full-depth xlstm-350m+xnor (21
    ``mlstm`` + 3 ``slstm`` layers, d 1024, the mLSTM's 4 x 512 x 512 f32
@@ -166,7 +168,7 @@ Phases (any failure raises and the script exits non-zero):
    tokens, two unheld timed runs repeating them (tok/s, TTFT, peak
    memory, 135 fused linears every decode step), a session migrated
    mid-decode 4 -> 2 slots through an encrypted wire of its per-slot
-   state (84 MiB of f32 memory), held then unheld; in f32 dense = paged
+   state (84 MiB of f32 memory), held; in f32 dense = paged
    on 8 prompts of one prefill chunk (the agreement on phase 3's trace,
    whose prompts the two layouts chunk differently, printed).  Then
    xnor-cnn (2 ``bindense`` layers, f32): 12 stripe images drawn on the
@@ -196,8 +198,8 @@ Phases (any failure raises and the script exits non-zero):
    does not call it, as in the reference); held against the one-shot
    plain version on 2 heads within one bf16 ulp, timed against SDPA.
 7. The checkpoint layer on the card through one CimEngine, over the bf16
-   qwen2-7b tree at full width, cut to 4 of its 28 layers (4.1 GB, to
-   keep the script near 600 s): an encrypted, write-verified
+   qwen2-7b tree at full width, cut to 1 of its 28 layers (2.65 GB, to
+   keep the script in its time): an encrypted, write-verified
    save; one leaf changed in place and a delta saved with a primed
    DigestCache (exactly that leaf stored); ``check`` of both steps; one
    byte of a member flipped inside a valid container (``check`` names
@@ -243,20 +245,35 @@ Phases (any failure raises and the script exits non-zero):
    ``parity_digest`` and ``xor_cipher`` held bitwise against its plain
    version; GB/s a rank per pass (unheld, the 4 ranks at once) and the
    bytes that crossed ranks (the digests).  10b the sharded train step:
-   qwen2-7b+xnor, bf16, full width, ``MESH_LAYERS`` of 28 layers (the
-   deepest two ranks fit on the card after phases 1-9), batch
+   qwen2-7b+xnor, bf16, full width, ``MESH_LAYERS`` of 28 layers, batch
    4 x 256, 2 ranks on ``data`` with ZeRO-3 blocks of the parameters and
-   both moments; two steps, each held against the single-process step
-   from the same state on the card (rank 0 alone, then freed: step 0
-   from the seed, step 1 from the sharded state after step 0 made whole)
-   at the CPU tests' bf16 tolerances: loss and ce, gnorm, every rank's
-   gradient blocks, and its parameter blocks where AdamW's move is
-   settled; each rank's state bytes, peak memory and host seconds inside
-   the collectives.  10c ``grad_compress="onebit_pod"`` at 2 ranks on ``pod``
+   both moments, each layer's blocks gathered inside its checkpoint
+   (``--mesh-depth N``: one sharded step at N layers alone, for the
+   deepest depth two ranks fit); two steps, each held against the
+   single-process step from the same state on the card (rank 0 alone,
+   then freed: step 0 from the seed, step 1 from the sharded state after
+   step 0 made whole) at the CPU tests' bf16 tolerances: loss and ce,
+   gnorm, every rank's gradient blocks, and its parameter blocks where
+   AdamW's move is settled; each rank's state bytes, peak memory (beside
+   the whole-tree gather's), bytes gathered and reduced, host seconds
+   inside the collectives and step seconds.  10c
+   ``grad_compress="onebit_pod"`` at 2 ranks on ``pod``
    (``MESH_ONEBIT_LAYERS`` layers): one step bit for bit against the
    plain composition (each pod's unsharded gradients, the majority vote
    written out, AdamW), and the bytes of sign planes that crossed.  A
-   rank that fails fails the script.
+   rank that fails fails the script.  10d (``tp_training``, after phase
+   12; ``--tp-train`` adds moonshot) the sharded train step tensor and
+   expert parallel over ``TPT_RANKS`` gloo ranks on ``model``, bf16, full
+   width, batch 4 x 256: qwen2-7b+xnor at 4 layers (two steps, the
+   second at ``microbatch=2``) and moonshot-v1-16b-a3b+xnor at 2 layers
+   (64 experts, 16 a rank, top-6; two steps), each step from the seeded
+   state, each rank drawing it a leaf at a time and keeping its
+   head-aligned blocks; each step held against the single-process step
+   from the seeded state on the card (rank 0, beside its blocks) as 10b
+   holds its first step, aux too, and every leaf replicated over
+   ``model`` the same
+   bits on every rank; each rank's peak beside the dry-run's trace of the
+   same cell, its collective bytes.
 
 11. The roofline and the dry-run against the card (``roofline_phase``,
    run after 3b on phase 3's drained engine): the datasheet constants of
@@ -1370,7 +1387,8 @@ def serve_slice(gpu: str) -> tuple:
     assert "inputs drifted" in failed and "rounds one way" in failed, \
         "check_paths' bf16 holds must each fail a kernel that rounds one way"
     torch.cuda.empty_cache()
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                n_layers=F32_CHECK_LAYERS)
     for seed in (SEED, SEED + 1):
         params32 = lm.pack_params(cfg32, lm.init_params(cfg32, seed,
                                                         device="cuda"))
@@ -1380,12 +1398,19 @@ def serve_slice(gpu: str) -> tuple:
     return launches, eng
 
 
-# Readings the dry-run of phase 11 is held to (my chip runs, PRs 22-23;
-# NVIDIA H100 80GB HBM3, 700 W): 9a's peak device memory, 10b's train
-# state and peak a rank
-READ_9A_PEAK_GIB = 37.25
+# the depth of phase 3's f32 check_paths (of 28 layers); the bf16 check
+# and its control run the full depth
+F32_CHECK_LAYERS = 8
+
+# Readings the dry-run of phase 11 is held to (phases 9a and 10b on an
+# NVIDIA H100 80GB HBM3 at 700 W): 9a's peak device memory, 10b's train
+# state and peak a rank (AdamW in pieces, 10b's layers gathered one at a
+# time); and 10b's peak when the sharded step gathered the whole tree at
+# its start and AdamW updated a leaf at once
+READ_9A_PEAK_GIB = 26.73
 READ_10B_STATE_BYTES = 17_497_901_060
-READ_10B_PEAK_GIB = 33.04
+READ_10B_PEAK_GIB = 23.68
+WHOLE_TREE_10B_PEAK_GIB = 33.04
 
 
 def phase3_engine():
@@ -1642,9 +1667,15 @@ class LaunchHolds:
         assert not missing, f"shapes launched but never held: {missing}"
 
 
+# phase 3b's depth: its dozen engine runs are host-bound a layer at a
+# time, and phase 3 already serves the full depth
+TIER_LAYERS = 8
+
+
 def serving_tier(gpu: str) -> dict:
     """Phase 3b: the rest of the serving tier on phase 3's model (the same
-    seeded full-width, full-depth qwen2-7b+xnor tree, bf16) and trace.
+    seeded full-width qwen2-7b+xnor tree, bf16, at ``TIER_LAYERS`` of its
+    28 layers) and trace.
 
     (a) temperature 0.8, seed 0: one 4-slot ServeEngine against a
         2-replica Router (4 slots each, s_max 128, scrub every 4 router
@@ -1697,7 +1728,8 @@ def tier_runs(gpu: str, holds: LaunchHolds) -> dict:
     kernels = [holds.orig[n] for n in (     # the wrappers themselves
         "xnor_linear_fused", "pack", "paged_decode_attention",
         "parity_digest", "xor_cipher")]
-    cfg = configs.get("qwen2-7b+xnor")
+    cfg = dataclasses.replace(configs.get("qwen2-7b+xnor"),
+                              n_layers=TIER_LAYERS)
     trace = slice_trace(cfg.vocab)
     directory = ROOT / "experiments" / "chip_smoke_router"
     shutil.rmtree(directory, ignore_errors=True)
@@ -2013,18 +2045,25 @@ def migrate(cfg, params, trace, want, geom, directory, gpu, rid=8,
     assert moved == want[rid] and others, "migration changed tokens"
 
 
+# phase 3c's engine runs: 9 of recurrentgemma's 26 layers (three rglru,
+# rglru, local periods; host-bound a layer at a time); its check_paths
+# runs all 26
+RECURRENT_SERVE_LAYERS = 9
+
+
 def recurrent_serving(gpu: str) -> dict:
-    """Phase 3c: full recurrentgemma-2b+xnor (26 layers: 18 rglru, 8 local;
-    d 2560, vocab 256,000, MQA G 10 at dh 256, window 2048), bf16 weights
-    from a seeded generator on the card, packed at load, served by a
-    4-slot paged ServeEngine (block 16, chunk 32, s_max 2176) over
-    :func:`recurrent_trace`.
+    """Phase 3c: recurrentgemma-2b+xnor at full width (26 layers: 18 rglru,
+    8 local; d 2560, vocab 256,000, MQA G 10 at dh 256, window 2048), bf16
+    weights from a seeded generator on the card, packed at load, served
+    at ``RECURRENT_SERVE_LAYERS`` layers by a 4-slot paged ServeEngine
+    (block 16, chunk 32, s_max 2176) over :func:`recurrent_trace`.
 
     Gates: prefix caching off; pack, the fused linear and paged decode
     launched on the main path, every launch of the held run held against
     its plain version at every shape (:class:`LaunchHolds`), and one
-    unheld timed run repeating its tokens; :func:`check_paths` in f32 and
-    bf16 (this arch's limits) and the one-ulp-up control failing them; a
+    unheld timed run repeating its tokens; :func:`check_paths` at full
+    depth in bf16 (this arch's limits) with the one-ulp-up control failing
+    them, and in f32 at 9 layers; a
     session migrated mid-decode (the long one, after its ring wrapped)
     from the 4-slot engine to a 2-slot one through an encrypted wire,
     keeping its tokens; in f32, the dense and paged layouts' tokens equal
@@ -2039,12 +2078,14 @@ def recurrent_serving(gpu: str) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine
 
-    cfg = configs.get("recurrentgemma-2b+xnor")
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-            cfg.d_head, cfg.d_ff, cfg.vocab, cfg.local_window,
-            cfg.dtype) == (26, 2560, 10, 1, 256, 7680, 256000, 2048,
-                           torch.bfloat16)
-    assert [k for k, _ in cfg.segments()].count("local") == 8
+    full = configs.get("recurrentgemma-2b+xnor")
+    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+            full.d_head, full.d_ff, full.vocab, full.local_window,
+            full.dtype) == (26, 2560, 10, 1, 256, 7680, 256000, 2048,
+                            torch.bfloat16)
+    assert [k for k, _ in full.segments()].count("local") == 8
+    cfg = dataclasses.replace(full, n_layers=RECURRENT_SERVE_LAYERS)
+    n_local = cfg.layer_kinds().count("local")
     trace = recurrent_trace(cfg.vocab)
     rids = [r.rid for r in trace]
     geom = dict(slots=4, s_max=2176, block_size=16, prefill_chunk=32)
@@ -2123,21 +2164,25 @@ def recurrent_serving(gpu: str) -> dict:
               f"{statistics.median(p[0] for p in per_step)}, "
               f"{statistics.median(p[1] for p in per_step)} over "
               f"{len(per_step)} steps  [{gpu}]")
-        assert per_step and all(p == (200, 8) for p in per_step), per_step
+        # 8 fused linears a decode step in an rglru layer, 7 in a local
+        # one, and its paged decode
+        want_step = (8 * (cfg.n_layers - n_local) + 7 * n_local, n_local)
+        assert per_step and all(p == want_step for p in per_step), per_step
 
         # migration mid-decode, 4 -> 2 slots, after the long request's ring
         # wrapped: the wire carries the ring blocks, h (f32), conv (bf16);
-        # once held (the gate), once unheld (the timing)
+        # held (its ms with the wire's digest and cipher launches held)
         migrate(cfg, params, trace, want, geom, directory / "held", gpu)
-        with holds.off():
-            migrate(cfg, params, trace, want, geom, directory / "unheld",
-                    gpu)
         free()
     holds.check(gpu, "recurrent")
     shutil.rmtree(directory, ignore_errors=True)
 
-    # the kernel path against the plain path, bf16 (this arch's limits)
-    # and f32; and the control that rounds one way
+    # the kernel path against the plain path at full depth, bf16 (this
+    # arch's limits) and f32; and the control that rounds one way
+    del params
+    free()
+    cfg = full
+    params = lm.init_params(cfg, SEED, device="cuda")
     pparams = lm.pack_params(cfg, params)
     toks = torch.from_numpy(trace[0].prompt[None, :cfg.prefill_chunk]
                             .copy())
@@ -2155,7 +2200,9 @@ def recurrent_serving(gpu: str) -> dict:
         "check_paths' bf16 holds must each fail a kernel that rounds one way"
     del pparams, params
     free()
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    # f32 at 9 of the 26 layers (three rglru, rglru, local periods); the
+    # dense and paged layouts on the same tree
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=9)
     params32 = lm.init_params(cfg32, SEED, device="cuda")
     check_paths(cfg32, lm.pack_params(cfg32, params32), toks, nxt, gpu)
     short = trace[:8]
@@ -2258,7 +2305,7 @@ def paged_readings(gpu: str, label: str, geom: dict, w: int, pos,
                     b, kv, cap, dh), cv[idx].permute(0, 2, 1, 3, 4).reshape(
                     b, kv, cap, dh), mask)
             lib = time_ms(lambda a, b_, c, m: F.scaled_dot_product_attention(
-                a, b_, c, attn_mask=m), [gathered(*x) for x in sets], 200)
+                a, b_, c, attn_mask=m), [gathered(*x) for x in sets], 20)
         name = f"{str(dtype)[6:]}{' int8 pools' if i8 else ''}"
         out[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib, max_abs_err=err)
@@ -2351,26 +2398,32 @@ def moe_arch_kernels(gpu: str) -> dict:
     return w8["bfloat16"]
 
 
+# phase 3d's engine runs: 12 of moonshot's 48 layers (host-bound a layer
+# at a time); its check_paths runs all 48
+MOE_SERVE_LAYERS = 12
+
+
 def moe_serving(gpu: str) -> dict:
-    """Phase 3d: full moonshot-v1-16b-a3b+xnor (48 moe layers: d 2048, MHA
-    with 16 heads of 128, 64 experts of d_ff 1408, top-6, vocab 163,840),
-    bf16 weights from a seeded generator on the card (28.1 B parameters,
-    56 GB), the attention packed at load, served by a 4-slot paged
-    ServeEngine (block 16, chunk 32, s_max 128, prefix caching on) over
-    phase 3's 8 requests.
+    """Phase 3d: moonshot-v1-16b-a3b+xnor at full width (48 moe layers: d
+    2048, MHA with 16 heads of 128, 64 experts of d_ff 1408, top-6, vocab
+    163,840), bf16 weights from a seeded generator on the card (28.1 B
+    parameters, 56 GB at full depth), the attention packed at load,
+    served at ``MOE_SERVE_LAYERS`` layers by a 4-slot paged ServeEngine
+    (block 16, chunk 32, s_max 128, prefix caching on) over phase 3's 8
+    requests.
 
     Gates: pack, the fused linear and paged decode launched on the main
     path, every launch of the held runs held against its plain version at
     every shape (:class:`LaunchHolds`); one unheld timed run repeating the
-    held run's tokens (tok/s, TTFT, peak memory; 192 fused linears and 48
-    paged decodes every decode step); with the prefix cache off (a hit
+    held run's tokens (tok/s, TTFT, peak memory; 4 fused linears and one
+    paged decode a layer every decode step); with the prefix cache off (a hit
     changes a request's dispatch groups, and the slot count decides the
     hits), the same tokens from a 4-slot and a 2-slot engine, and a
     session migrated mid-decode from the one to the other through an
     encrypted wire, keeping its tokens; :func:`check_paths` in bf16 at
-    this arch's limits with the one-ulp-up control failing them, and in
-    f32 at full width and 8 of the 48 layers (the f32 tree at full depth,
-    112 GB, does not fit the card).  -> launch counts of the three
+    full depth and this arch's limits with the one-ulp-up control failing
+    them, and in f32 at full width and 8 of the 48 layers (the f32 tree at
+    full depth, 112 GB, does not fit the card).  -> launch counts of the three
     kernels."""
     import gc
     import shutil
@@ -2382,11 +2435,12 @@ def moe_serving(gpu: str) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine
 
-    cfg = configs.get("moonshot-v1-16b-a3b+xnor")
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-            cfg.d_head, cfg.n_experts, cfg.top_k, cfg.d_ff_expert,
-            cfg.vocab, cfg.dtype) == (48, 2048, 16, 16, 128, 64, 6, 1408,
-                                      163840, torch.bfloat16)
+    full = configs.get("moonshot-v1-16b-a3b+xnor")
+    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+            full.d_head, full.n_experts, full.top_k, full.d_ff_expert,
+            full.vocab, full.dtype) == (48, 2048, 16, 16, 128, 64, 6, 1408,
+                                        163840, torch.bfloat16)
+    cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
     trace = slice_trace(cfg.vocab)
     rids = [r.rid for r in trace]
     geom = dict(slots=4, s_max=128, block_size=16, prefill_chunk=32)
@@ -2482,33 +2536,36 @@ def moe_serving(gpu: str) -> dict:
               f"decode): median {statistics.median(p[0] for p in per_step)}"
               f", {statistics.median(p[1] for p in per_step)} over "
               f"{len(per_step)} steps  [{gpu}]")
-        assert per_step and all(p == (192, 48) for p in per_step), per_step
+        # each layer: wq, wk, wv, wo fused, one paged decode
+        assert per_step and all(p == (4 * cfg.n_layers, cfg.n_layers)
+                                for p in per_step), per_step
 
         # a session migrated mid-decode 4 -> 2 slots through an encrypted
         # wire (pool blocks only: the kind has no per-slot state), the
-        # cache off (the move reschedules the source's queue); held, then
-        # unheld for the ms
+        # cache off (the move reschedules the source's queue); held (its
+        # ms with the wire's digest and cipher launches held)
         mig = dict(rid=0, label="moe", expect=(None, None, 8))
         mgeom = dict(geom, prefix_cache=False)
         migrate(cfg, params, trace, off[4], mgeom, directory / "held", gpu,
                 **mig)
-        with holds.off():
-            migrate(cfg, params, trace, off[4], mgeom, directory / "unheld",
-                    gpu, **mig)
         free()
     holds.check(gpu, "moe")
     shutil.rmtree(directory, ignore_errors=True)
 
-    # the kernel path against the plain path, bf16 at this arch's limits,
-    # with the control that rounds one way; then f32 at 8 of 48 layers
-    pparams = lm.pack_params(cfg, params)
+    # the kernel path against the plain path at full depth, bf16 at this
+    # arch's limits, with the control that rounds one way; then f32 at 8
+    # of 48 layers
+    del params
+    free()
+    params = lm.init_params(full, SEED, device="cuda")
+    pparams = lm.pack_params(full, params)
     toks = torch.from_numpy(trace[0].prompt[None, :cfg.prefill_chunk]
                             .copy())
     nxt = int(trace[0].prompt[cfg.prefill_chunk])
-    check_paths(cfg, pparams, toks, nxt, gpu)
+    check_paths(full, pparams, toks, nxt, gpu)
     try:
         with attention_rounding_up(1):
-            check_paths(cfg, pparams, toks, nxt, gpu)
+            check_paths(full, pparams, toks, nxt, gpu)
         failed = ""
     except AssertionError as e:
         failed = str(e)
@@ -2518,7 +2575,7 @@ def moe_serving(gpu: str) -> dict:
         "check_paths' bf16 holds must each fail a kernel that rounds one way"
     del pparams, params
     free()
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=8)
+    cfg32 = dataclasses.replace(full, dtype=torch.float32, n_layers=8)
     params32 = lm.init_params(cfg32, SEED, device="cuda")
     check_paths(cfg32, lm.pack_params(cfg32, params32), toks, nxt, gpu)
     del params32
@@ -2784,9 +2841,9 @@ def ctx_trace(vocab: int, n_ctx: int, d_model: int) -> list:
 
 
 def ctx_serving(gpu: str, arch: str, per_step: tuple, ctx_kv: tuple,
-                label: str):
-    """Phase 3e's engine gates on a context arch at full width and depth,
-    bf16 weights from a seeded generator on the card, packed at load: a
+                label: str, layers: int | None = None):
+    """Phase 3e's engine gates on a context arch at full width and depth
+    (``layers`` of it where given), bf16 weights from a seeded generator on the card, packed at load: a
     4-slot paged ServeEngine (block 16, chunk 32, s_max 128, prefix
     caching on) over :func:`ctx_trace`, every launch of pack, the fused
     linear and paged decode held against its plain version at every shape
@@ -2795,7 +2852,7 @@ def ctx_serving(gpu: str, arch: str, per_step: tuple, ctx_kv: tuple,
     fused linears and paged decodes every decode step); a session migrated
     mid-decode 4 -> 2 slots through an encrypted wire that carries its
     context and the per-slot ``ctx_kv`` (``ctx_kv``: dtype, (T_ctx, KV,
-    dh)), held and then unheld.  -> (cfg, params, trace, launch counts)."""
+    dh)), held.  -> (cfg, params, trace, launch counts)."""
     import gc
     import shutil
     import statistics
@@ -2807,6 +2864,8 @@ def ctx_serving(gpu: str, arch: str, per_step: tuple, ctx_kv: tuple,
     from repro_torch.serve import ServeEngine
 
     cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     trace = ctx_trace(cfg.vocab, cfg.n_ctx_tokens, cfg.d_model)
     rids = [r.rid for r in trace]
     geom = dict(slots=4, s_max=128, block_size=16, prefill_chunk=32)
@@ -2897,13 +2956,10 @@ def ctx_serving(gpu: str, arch: str, per_step: tuple, ctx_kv: tuple,
 
         # a session migrated mid-decode 4 -> 2 slots through an encrypted
         # wire: attention blocks, the per-slot ctx_kv and the raw context;
-        # held, then unheld for the ms
+        # held (its ms with the wire's digest and cipher launches held)
         mig = dict(rid=0, label=label, expect=(None, None, 8), ctx_kv=ctx_kv)
         migrate(cfg, params, trace, want, geom, directory / "held", gpu,
                 **mig)
-        with holds.off():
-            migrate(cfg, params, trace, want, geom, directory / "unheld",
-                    gpu, **mig)
         free()
     holds.check(gpu, label)
     shutil.rmtree(directory, ignore_errors=True)
@@ -2966,33 +3022,47 @@ def whisper_serving(gpu: str) -> dict:
     return launches
 
 
+# phase 3e's llama-vision engine runs: 10 of its 40 layers (two attn x 4,
+# cross periods); its check_paths runs all 40
+VLM_SERVE_LAYERS = 10
+
+
 def vlm_serving(gpu: str) -> dict:
-    """Phase 3e, llama-3.2-vision-11b+xnor at full width and depth (40
-    layers, every 5th ``cross``: d 4096, 32 heads over 8 KV heads of 128,
-    d_ff 14,336, vocab 128,256), each request with its own 1,600 x 4,096
-    context of patch embeddings: :func:`ctx_serving`'s gates with 264
-    fused linears and 32 paged decodes every decode step; then
-    :func:`check_paths` on the first request's prompt and context in bf16
-    at this arch's limits with the one-ulp-up control failing them, and
-    in f32 at full depth (a 39 GB tree).  -> launch counts of the three
-    kernels."""
+    """Phase 3e, llama-3.2-vision-11b+xnor at full width (40 layers, every
+    5th ``cross``: d 4096, 32 heads over 8 KV heads of 128, d_ff 14,336,
+    vocab 128,256), each request with its own 1,600 x 4,096 context of
+    patch embeddings: :func:`ctx_serving`'s gates at ``VLM_SERVE_LAYERS``
+    layers (host-bound a layer at a time) with 66 fused linears and 8
+    paged decodes every decode step; then :func:`check_paths` at full
+    depth on the first request's prompt and context in bf16 at this
+    arch's limits with the one-ulp-up control failing them, and
+    in f32 at 10 of the 40 layers (two attn x 4, cross periods).  ->
+    launch counts of the three kernels."""
     import gc
 
     import torch
 
+    import repro_torch.configs as configs
     from repro_torch.models import lm
 
-    cfg, params, trace, launches = ctx_serving(
-        gpu, "llama-3.2-vision-11b+xnor", (264, 32),
-        ("torch.bfloat16", (1600, 8, 128)), "vlm")
+    # 8 attn layers of 7 fused linears and a paged decode, 2 cross of 5
+    _, params, trace, launches = ctx_serving(
+        gpu, "llama-3.2-vision-11b+xnor", (66, 8),
+        ("torch.bfloat16", (1600, 8, 128)), "vlm", VLM_SERVE_LAYERS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get("llama-3.2-vision-11b+xnor")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.d_head, cfg.d_ff, cfg.vocab, cfg.n_ctx_tokens,
             cfg.dtype) == (40, 4096, 32, 8, 128, 14336, 128256, 1600,
                            torch.bfloat16)
     assert sum(n for k, n in cfg.segments() if k == "cross") == 8
 
-    # the kernel path against the plain path, bf16 at this arch's limits,
-    # with the control that rounds one way; then f32 at full depth
+    # the kernel path against the plain path at full depth, bf16 at this
+    # arch's limits, with the control that rounds one way; then f32 at 10
+    # layers
+    params = lm.init_params(cfg, SEED, device="cuda")
     pparams = lm.pack_params(cfg, params)
     toks = torch.from_numpy(trace[0].prompt[None, :cfg.prefill_chunk]
                             .copy())
@@ -3012,7 +3082,7 @@ def vlm_serving(gpu: str) -> dict:
     del pparams, params
     gc.collect()
     torch.cuda.empty_cache()
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=10)
     params32 = lm.init_params(cfg32, SEED, device="cuda")
     pparams32 = lm.pack_params(cfg32, params32)
     del params32
@@ -3201,7 +3271,7 @@ def xlstm_serving(gpu: str) -> dict:
     unheld timed run repeating them (tok/s, TTFT, peak memory, 135 fused
     linears every decode step); a session migrated mid-decode 4 -> 2
     slots through an encrypted wire carrying its per-slot state (its
-    bytes printed), held then unheld; in f32, the dense layout's tokens
+    bytes printed), held; in f32, the dense layout's tokens
     equal to the paged one's on 8 prompts of one prefill chunk, where both
     layouts chunk the mLSTM alike (on phase 3's trace, chunked otherwise,
     the agreement is printed).  -> launch counts of the two kernels."""
@@ -3305,7 +3375,8 @@ def xlstm_serving(gpu: str) -> dict:
               f"[{gpu}]")
 
         # a session migrated mid-decode 4 -> 2 slots through an encrypted
-        # wire of its per-slot state alone (no pool); held, then unheld
+        # wire of its per-slot state alone (no pool); held (its ms with the
+        # wire's digest and cipher launches held)
         di, nh = int(cfg.proj_factor * cfg.d_model), cfg.n_heads
         dh = di // nh
         slot_leaves = {("torch.float32", (1, nh, dh, dh)),
@@ -3316,9 +3387,6 @@ def xlstm_serving(gpu: str) -> dict:
         mig = dict(rid=0, label="xlstm", slot_leaves=slot_leaves)
         migrate(cfg, params, trace, want, geom, directory / "held", gpu,
                 **mig)
-        with holds.off():
-            migrate(cfg, params, trace, want, geom, directory / "unheld",
-                    gpu, **mig)
         free()
     holds.check(gpu, "xlstm")
     shutil.rmtree(directory, ignore_errors=True)
@@ -3793,10 +3861,11 @@ def training(gpu: str) -> dict:
 
 # -- phase 10: the mesh ----------------------------------------------------
 
-# 10b's depth, the deepest two ranks fit on the card after phases 1-9: on
-# an H100 80GB HBM3 at 700 W, 9 layers fit with phase 10 alone (34.56 GiB
-# peak a rank) but ran out of memory in AdamW after phases 1-9; 10 never
-# fit
+# 10b's depth.  With the whole tree gathered and AdamW a leaf at once, 8
+# layers fit after phases 1-9 on an H100 80GB HBM3 at 700 W; with each
+# layer gathered inside its checkpoint and AdamW in pieces 18 fit with
+# two ranks alone (``--mesh-depth``, 37.21 GiB a rank), but a deeper
+# 10b would take the default run past its time (gloo)
 MESH_LAYERS = 8
 MESH_ONEBIT_LAYERS = 2  # 10c's depth
 # tests/test_torch_train.py's bf16 tolerances (10b)
@@ -4062,13 +4131,14 @@ def _ref_block(rank: int, whole, spec, shape, dtype):
     return (_block(whole, spec, 0) if rank == 0 else other).cuda()
 
 
-def _single_step(cfg, make, batch, s: int, kw: dict, m_prev=None) -> dict:
+def _single_step(cfg, make, batch, s: int, kw: dict, m_prev=None,
+                 keys=("loss", "ce", "gnorm")) -> dict:
     """Rank 0, alone on the card: the single-process train_step ``s`` from
-    the whole state ``make()`` returns, then freed -> its metrics, ms and
-    peak, the first moment after it on the host (and the parameters, at
-    step 0), and per leaf the largest |m - b1 m_prev| ((1 - b1) times the
-    clipped gradient; ``m_prev``: the first moment before the step on the
-    host, None for zeros)."""
+    the whole state ``make()`` returns, then freed -> its metrics
+    (``keys``), ms and peak, the first moment after it on the host (and
+    the parameters, at step 0), and per leaf the largest |m - b1 m_prev|
+    ((1 - b1) times the clipped gradient; ``m_prev``: the first moment
+    before the step on the host, None for zeros)."""
     import torch
 
     from repro_torch.train import train_step as train_mod
@@ -4077,7 +4147,7 @@ def _single_step(cfg, make, batch, s: int, kw: dict, m_prev=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, m = train_mod.train_step(cfg, state, batch, s, **kw)
-    metrics = [float(m[k]) for k in ("loss", "ce", "gnorm")]
+    metrics = [float(m[k]) for k in keys]
     ms = (time.perf_counter() - t0) * 1e3
     out = {"metrics": metrics, "ms": ms,
            "peak": torch.cuda.max_memory_allocated(),
@@ -4210,6 +4280,28 @@ def _grad_err(m, want, gmax: float, piece: int = 1 << 25) -> float:
                for s0 in range(0, m.numel(), piece)) / max(gmax, 1e-30)
 
 
+def _warm_up(cfg) -> float:
+    """One single-process train_step of ``cfg``'s smoke config on the
+    card -> its seconds.  A process's first step pays its one-time CUDA
+    costs (kernels loaded at their first launch, library handles): run
+    while rank 0 takes the single-process step, it keeps them out of the
+    sharded step's first reading."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.train import train_step as train_mod
+    t0 = time.perf_counter()
+    small = cfg.smoke()
+    state = train_mod.init_state(small, SEED, device="cuda")
+    b = synthetic.to_device(synthetic.Pipeline(small, 4, 256,
+                                               seed=SEED).get(0), "cuda")
+    state, m = train_mod.train_step(small, state, b, 0)
+    float(m["loss"])
+    del state, m
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
 def mesh_train_rank(rank: int, gpu: str) -> dict:
     """10b on one of 2 gloo ranks (mesh data 2 x model 1): two sharded
     train_steps of qwen2-7b+xnor (bf16, full width, ``MESH_LAYERS``
@@ -4248,10 +4340,12 @@ def mesh_train_rank(rank: int, gpu: str) -> dict:
     like = [(verify.leaf_key(p), t) for p, t in verify.tree_flatten_with_path(
         lm.abstract_params(cfg))]
     specs = pdefs.leaves(lm.param_pspecs(cfg, sharding.DEFAULT_RULES))
-    ref = {}
+    ref, warm = {}, 0.0
     if rank == 0:
         ref = _single_step(cfg, lambda: train_mod.init_state(
             cfg, SEED, device="cuda"), batches[0], 0, kw)
+    else:
+        warm = _warm_up(cfg)
     dist.barrier()
 
     state = train_mod.init_state(cfg, SEED, device="cuda", mesh=mesh)
@@ -4259,7 +4353,8 @@ def mesh_train_rank(rank: int, gpu: str) -> dict:
                       for _, t in verify.tree_flatten_with_path(state))
     out = {"state_bytes": state_bytes, "ms": [], "ref_ms": [], "peak": [],
            "ref_peak": [], "traffic": [], "collective_s": [], "metrics": [],
-           "ref_metrics": [], "settled": {}, "worst": {}, "fails": []}
+           "ref_metrics": [], "settled": {}, "worst": {}, "fails": [],
+           "warm_s": warm}
     worst, fails = out["worst"], out["fails"]
     for s, b in enumerate(batches):
         if s > 0:
@@ -4355,14 +4450,66 @@ def mesh_train(gpu: str) -> None:
     for i, r in enumerate(ranks):
         print(f"[mesh] 10b rank {i}: state bytes {r['state_bytes']} "
               f"({r['state_bytes'] / 2**30} GiB), peak memory "
-              f"{[p / 2**30 for p in r['peak']]} GiB, step ms {r['ms']}, "
+              f"{[p / 2**30 for p in r['peak']]} GiB (the whole tree "
+              f"gathered at the step's start: {WHOLE_TREE_10B_PEAK_GIB}), "
+              f"step ms "
+              f"{r['ms']}, "
               f"host s inside the collectives {r['collective_s']}, "
-              f"collective bytes in {r['traffic']}  [{gpu}]")
+              f"collective bytes in {r['traffic']}; warmed up in "
+              f"{r['warm_s']} s  [{gpu}]")
     print(f"[mesh] 10b the single-process step (rank 0, alone on the card): "
           f"{r0['ref_ms']} ms, peak {[p / 2**30 for p in r0['ref_peak']]} "
           f"GiB  [{gpu}]")
     assert all(r["n_fails"] == 0 for r in ranks), \
         [r["fails"] for r in ranks]
+
+
+def mesh_depth_rank(rank: int, layers: int) -> dict:
+    """One sharded step of 10b's cell at ``layers`` layers on one of 2
+    gloo ranks on ``data`` (no single-process step beside it) -> this
+    rank's peak, state bytes and step ms."""
+    import torch
+
+    from repro_torch.core import verify
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train import train_step as train_mod
+    cfg = _mesh_cfg(layers)
+    mesh = mesh_mod.make_mesh((2, 1), ("data", "model"))
+    state = train_blocks(cfg, mesh)
+    batch = synthetic.to_device(synthetic.Pipeline(
+        cfg, 4, 256, seed=SEED).get(0), "cuda")
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in verify.tree_flatten_with_path(state))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = train_mod.train_step(cfg, state, batch, 0, peak_lr=1e-3,
+                                    warmup=0, total=10, mesh=mesh)
+    loss = float(m["loss"])
+    return {"peak": torch.cuda.max_memory_allocated(), "state_bytes": nbytes,
+            "ms": (time.perf_counter() - t0) * 1e3, "loss": loss}
+
+
+def mesh_depth(gpu: str, layers: int) -> None:
+    """``--mesh-depth N``: 10b's cell at N layers, one sharded step on 2
+    ranks, each rank's peak beside the dry-run's; a depth that does not
+    fit fails the run (out of memory)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    ranks = mesh_mod.run_ranks(mesh_depth_rank, 2, layers, timeout_s=900)
+    with dryrun.fake_group(2):
+        mesh = mesh_mod.make_mesh((2, 1), ("data", "model"), device="cpu")
+        dry = dryrun.trace_cell(_mesh_cfg(layers),
+                                ShapeConfig("10b", "train", 256, 4), mesh)
+    dpeak = dry["memory_analysis"]["peak_bytes"]
+    for i, r in enumerate(ranks):
+        print(f"[mesh] 10b at {layers} of 28 layers, rank {i}: one sharded "
+              f"step, loss {r['loss']}, peak {r['peak'] / 2**30} GiB "
+              f"against the dry-run's {dpeak / 2**30} GiB "
+              f"({r['peak'] / dpeak} x), state {r['state_bytes']} bytes "
+              f"(dry-run {dry['state_bytes']}), {r['ms']} ms  [{gpu}]")
 
 
 def mesh_onebit_rank(rank: int, gpu: str) -> dict:
@@ -4483,6 +4630,309 @@ def mesh_phase(gpu: str) -> dict:
         sub(gpu)
         print(f"[time] {sub.__name__}: {time.perf_counter() - t} s")
     return launches
+
+
+# -- phase 10d: tensor- and expert-parallel training ------------------------
+
+TPT_RANKS = 4                # (data, model) = (1, 4)
+# (arch, layers, each step's microbatch): qwen2-7b 4 of 28 (9a's depth),
+# its second step at microbatch 2; moonshot 2 of 48 (64 experts, 16 a
+# rank, top-6).  Each step starts from the seeded state, as the
+# single-process step it is held against does: a state after a sharded
+# step would have to cross gloo whole to rank 0 (20 GB for qwen2-7b, 38 s
+# on an H100 80GB HBM3 at 700 W), and 10b holds a second step from such
+# a state
+TPT_ARCHS = (("qwen2-7b+xnor", 4, (1, 2)),
+             ("moonshot-v1-16b-a3b+xnor", 2, (1, 1)))
+TPT_BATCH, TPT_SEQ = 4, 256
+
+
+def _tpt_cfg(arch: str, layers: int):
+    import repro_torch.configs as configs
+    return dataclasses.replace(configs.get(arch), n_layers=layers)
+
+
+def train_blocks(cfg, mesh, rules=None):
+    """This rank's blocks of ``train_step.init_state(cfg, SEED)``'s state
+    (the same values) under ``state_pspecs``: each leaf drawn on the card
+    in ``params.init``'s order and cut, the whole leaf freed; zero
+    moments."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import lm
+    from repro_torch.models import params as pdefs
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as train_mod
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    specs = train_mod.state_pspecs(cfg, rules or TP_RULES).params
+    out: dict = {}
+    for path, d in _tp_leaves(lm.param_defs(cfg)):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        w = sharding.shard(pdefs.init(d, gen, "cuda"), spec, mesh)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = w
+    return train_mod.TrainState(out, adamw.init(out))
+
+
+def _model_block(t, spec, k: int, i: int):
+    """Rank ``i``'s block of a whole leaf on the (data 1, model ``k``)
+    mesh, zero-padded (``sharding.extent`` on each dim split over
+    ``model``)."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    for dim, entry in enumerate(spec):
+        if "model" not in sharding._names(entry):
+            continue
+        bs, lo, hi = sharding.extent(t.shape[dim], entry, k, i)
+        t = t.narrow(dim, lo, hi - lo)
+        if hi - lo < bs:
+            pad = list(t.shape)
+            pad[dim] = bs - (hi - lo)
+            t = torch.cat([t, t.new_zeros(pad)], dim)
+    return t.contiguous()
+
+
+def _u8(t):
+    import torch
+    return t.contiguous().view(torch.uint8)
+
+
+def _scatter_blocks(rank: int, mesh, whole, spec, shape, dtype):
+    """Rank 0's whole host leaf cut into every rank's block and sent to
+    it -> this rank's block on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    k = mesh.size(1)
+    mine = torch.empty(sharding.block_shape(shape, spec, mesh), dtype=dtype)
+    parts = [_u8(_model_block(whole, spec, k, i)) for i in range(k)] \
+        if rank == 0 else None
+    dist.scatter(_u8(mine), parts, src=0)
+    return mine.cuda()
+
+
+def tpt_rank(rank: int, arch: str, layers: int, microbatches: tuple,
+             gpu: str) -> dict:
+    """10d on one of ``TPT_RANKS`` gloo ranks (mesh data 1 x model 4):
+    this rank's blocks of the seeded state (:func:`train_blocks`), then
+    a sharded train_step a microbatch count of ``microbatches`` (bf16,
+    batch 4 x 256, lr 1e-3 from step 0), each from the seeded state and
+    held against the single-process step from it on the card
+    (:func:`_tpt_steps`) -> the readings."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as mesh_mod
+
+    cfg = _tpt_cfg(arch, layers)
+    pipe = synthetic.Pipeline(cfg, TPT_BATCH, TPT_SEQ, seed=SEED)
+    batches = [synthetic.to_device(pipe.get(s), "cuda")
+               for s in range(len(microbatches))]
+    mesh = mesh_mod.make_mesh((1, TPT_RANKS), ("data", "model"))
+    return _tpt_steps(rank, cfg, mesh, batches, microbatches)
+
+
+def _tpt_steps(rank: int, cfg, mesh, batches: list,
+               microbatches: tuple) -> dict:
+    """A sharded step of each of ``batches`` (step i at
+    ``microbatches[i]``) from the seeded state, each held against the
+    single-process step from the seeded state drawn whole, which rank 0
+    runs after the sharded step (so that the four ranks' first, cold step
+    runs at once) and frees.  Held as 10b holds its first step (the CPU
+    tests' bf16 tolerances): loss, ce and aux at ``TRAIN_METRIC_TOL``,
+    gnorm and every rank's gradient blocks (through AdamW's first moment)
+    within ``TRAIN_BF16_GRAD_REL``, the parameter blocks where settled;
+    and every leaf replicated over ``model`` (its parameters and moment)
+    the same bits on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import verify
+    from repro_torch.distributed import sharding
+    from repro_torch.models import lm
+    from repro_torch.models import params as pdefs
+    from repro_torch.train import train_step as train_mod
+
+    k = TPT_RANKS
+    keys = ("loss", "ce", "aux", "gnorm")
+    like = [(verify.leaf_key(p), t) for p, t in verify.tree_flatten_with_path(
+        lm.abstract_params(cfg))]
+    specs = pdefs.leaves(train_mod.state_pspecs(cfg, TP_RULES).params)
+    replicated = [i for i, s in enumerate(specs)
+                  if "model" not in {a for e in s
+                                     for a in sharding._names(e)}]
+    out = {"built_s": [], "ms": [], "ref_ms": [], "peak": [], "ref_peak": [],
+           "traffic": [], "collective_s": [], "metrics": [],
+           "ref_metrics": [], "worst": {}, "fails": [], "settled": 0,
+           "ref_s": [], "compare_s": []}
+    worst, fails = out["worst"], out["fails"]
+    kw = dict(peak_lr=1e-3, warmup=0, total=10)
+    for s, (b, mb) in enumerate(zip(batches, microbatches)):
+        t0 = time.perf_counter()
+        state = train_blocks(cfg, mesh)
+        out["built_s"].append(time.perf_counter() - t0)
+        out["state_bytes"] = sum(t.numel() * t.element_size() for _, t in
+                                 verify.tree_flatten_with_path(state))
+        sharding.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_collectives() as took:
+            t0 = time.perf_counter()
+            state, m = train_mod.train_step(cfg, state, b, 0, **kw,
+                                            microbatch=mb, mesh=mesh)
+            mets = [float(m[x]) for x in keys]
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["collective_s"].append(took)
+        out["traffic"].append({f.__name__: f.bytes for f in (
+            sharding.all_gather, sharding.all_reduce)})
+        out["peak"].append(torch.cuda.max_memory_allocated())
+        del m
+        # every rank hands its cached blocks back before rank 0 draws the
+        # whole state: the four ranks' caches and the reference at
+        # microbatch 2 (44.5 GiB) together pass an 80 GB card
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        t0 = time.perf_counter()
+        ref = _single_step(cfg, lambda: train_mod.init_state(
+            cfg, SEED, device="cuda"), b, 0, dict(kw, microbatch=mb), None,
+            keys) if rank == 0 else {}
+        dist.barrier()
+        out["ref_s"].append(time.perf_counter() - t0)
+        head = torch.zeros(len(keys) + len(like), dtype=torch.float64)
+        if rank == 0:
+            head[:len(keys)] = torch.tensor(ref["metrics"])
+            head[len(keys):] = torch.tensor(ref["gmax"])
+            out["ref_ms"].append(ref["ms"])
+            out["ref_peak"].append(ref["peak"])
+        dist.broadcast(head, 0)
+        out["metrics"].append(mets)
+        out["ref_metrics"].append(head[:len(keys)].tolist())
+        t0 = time.perf_counter()
+        mine, moms = (train_mod._leaves(t) for t in (state.params,
+                                                      state.opt.m))
+        # leaves replicated over model: the same bits on every rank
+        for i in replicated:
+            for what, t in (("param", mine[i]), ("m", moms[i])):
+                got = [torch.empty_like(_u8(t.cpu())) for _ in range(k)]
+                dist.all_gather(got, _u8(t.cpu()))
+                if not all(torch.equal(got[0], g) for g in got[1:]):
+                    fails.append((s, f"replicated {what} differs",
+                                  like[i][0]))
+        tops = torch.tensor([float(t.abs().max()) for t in moms],
+                            dtype=torch.float64)
+        dist.all_reduce(tops, op=dist.ReduceOp.MAX)   # the leaves' largest
+        for i, (key, a) in enumerate(like):
+            want = _scatter_blocks(rank, mesh, ref["params"][i]
+                                   if rank == 0 else None, specs[i],
+                                   a.shape, a.dtype)
+            ok, n = _hold_leaf(mine[i], want, moms[i], float(tops[i]),
+                               kw["peak_lr"], worst)
+            out["settled"] += n
+            if not ok:
+                fails.append((s, key))
+            del want
+            want = _scatter_blocks(rank, mesh, ref["m"][i] if rank == 0
+                                   else None, specs[i], a.shape,
+                                   torch.float32)
+            err = _grad_err(moms[i], want, float(head[len(keys) + i]))
+            worst[f"step {s} grad / leaf max"] = max(
+                worst.get(f"step {s} grad / leaf max", 0.0), err)
+            if err > TRAIN_BF16_GRAD_REL:
+                fails.append((s, "grad " + key, err))
+            del want
+            if rank == 0:
+                ref["m"][i] = ref["params"][i] = None
+        del mine, moms, tops, state
+        ref = {}
+        out["compare_s"].append(time.perf_counter() - t0)
+        for j, name in enumerate(keys):
+            a, w = mets[j], float(head[j])
+            worst[f"step {s} {name} rel"] = abs(a - w) / max(abs(w), 1e-30)
+            ok = abs(a - w) <= abs(w) * TRAIN_BF16_GRAD_REL \
+                if name == "gnorm" else abs(a - w) <= \
+                TRAIN_METRIC_TOL["atol"] + TRAIN_METRIC_TOL["rtol"] * abs(w)
+            if not ok:
+                fails.append((s, name, a, w))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["microbatches"] = list(microbatches)
+    out["n_fails"] = len(fails)
+    out["fails"] = fails[:20]
+    return out
+
+
+def tpt_dry(cfg, microbatch: int) -> dict:
+    """The dry-run's trace of a 10d cell (rank 0 of a ``fake`` group of
+    ``TPT_RANKS``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    with dryrun.fake_group(TPT_RANKS):
+        mesh = mesh_mod.make_mesh((1, TPT_RANKS), ("data", "model"),
+                                  device="cpu")
+        return dryrun.trace_cell(cfg, ShapeConfig(
+            "10d", "train", TPT_SEQ, TPT_BATCH), mesh, microbatch=microbatch)
+
+
+def tp_training(gpu: str, archs=TPT_ARCHS[:1]) -> None:
+    """Phase 10d: tensor- and expert-parallel training over ``TPT_RANKS``
+    gloo ranks on ``model``: each of ``archs``' steps against the
+    single-process step from the seeded state (qwen2-7b's second at
+    ``microbatch=2``)."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, layers, mbs in archs:
+        cfg = _tpt_cfg(arch, layers)
+        t0 = time.perf_counter()
+        ranks = mesh_mod.run_ranks(tpt_rank, TPT_RANKS, arch, layers, mbs,
+                                   gpu, timeout_s=900)
+        took = time.perf_counter() - t0
+        r0 = ranks[0]
+        dry = {mb: tpt_dry(cfg, mb) for mb in sorted(set(mbs))}
+        dpeak = [dry[mb]["memory_analysis"]["peak_bytes"] for mb in mbs]
+        print(f"[tp-train] 10d {cfg.name} bf16, full width, {layers} of "
+              f"{configs.get(arch).n_layers} layers ({lm.param_count(cfg)} "
+              f"params), batch {TPT_BATCH} x {TPT_SEQ}, {TPT_RANKS} gloo "
+              f"ranks on model (heads, d_ff, experts and vocab; the CE on "
+              f"the rank's vocab block), {len(mbs)} steps at microbatch "
+              f"{list(mbs)}, each from the seeded state against the "
+              f"single-process step from it: metrics (loss, ce, aux, "
+              f"gnorm) {r0['metrics']} against {r0['ref_metrics']}; "
+              f"settled parameter elements {sum(r['settled'] for r in ranks)}"
+              f"; worst "
+              f"{[r['worst'] for r in ranks]}; failures "
+              f"{[r['fails'] for r in ranks]}  [{gpu}]")
+        for i, r in enumerate(ranks):
+            print(f"[tp-train] 10d rank {i}: state {r['state_bytes']} bytes "
+                  f"(dry-run {dry[1]['state_bytes']}), built in "
+                  f"{r['built_s']} s; peak {[p / 2**30 for p in r['peak']]}"
+                  f" GiB against the dry-run's "
+                  f"{[p / 2**30 for p in dpeak]} GiB "
+                  f"({[p / d for p, d in zip(r['peak'], dpeak)]} x); step "
+                  f"ms {r['ms']} (host clock, gloo through the host: not a "
+                  f"TP speed), host s inside the collectives "
+                  f"{r['collective_s']}, collective bytes in "
+                  f"{r['traffic']}; checks {r['compare_s']} s  [{gpu}]")
+        print(f"[tp-train] 10d {cfg.name} single-process (rank 0 beside the "
+              f"blocks): {r0['ref_ms']} ms, peak "
+              f"{[p / 2**30 for p in r0['ref_peak']]} GiB, drawn and run in "
+              f"{r0['ref_s']} s; the dry-run's collectives "
+              f"{[dry[mb]['collectives'] for mb in sorted(dry)]}; {took} s "
+              f" [{gpu}]")
+        assert all(r["n_fails"] == 0 for r in ranks), \
+            [r["fails"] for r in ranks]
+        assert r0["state_bytes"] == dry[1]["state_bytes"]
 
 
 # -- phase 12: tensor- and expert-parallel serving ----------------------------
@@ -5232,7 +5682,7 @@ def flip_member_byte(npz: Path, member: str, index: int) -> None:
 
 def checkpoint_layer(gpu: str) -> dict:
     """Phase 7: save, delta, check, tamper, restore and restore_packed of
-    the bf16 qwen2-7b tree (full width, 4 of its 28 layers) through one
+    the bf16 qwen2-7b tree (full width, 1 of its 28 layers) through one
     CimEngine on the card."""
     import shutil
 
@@ -5249,10 +5699,9 @@ def checkpoint_layer(gpu: str) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine, synthetic_trace
 
-    # the tree at full width, its depth cut from 28 layers to 4 (4.1 GB;
-    # 8 and 5.9 GB until phase 3f joined) to keep the script near 600 s;
-    # phase 4 still streams the full 15.2 GB tree
-    cfg = dataclasses.replace(configs.get("qwen2-7b+xnor"), n_layers=4)
+    # the tree at full width, its depth cut to 1 of 28 layers (2.65 GB) to
+    # keep the script in its time; phase 4 streams the full 15.2 GB tree
+    cfg = dataclasses.replace(configs.get("qwen2-7b+xnor"), n_layers=1)
     directory = ROOT / "experiments" / "chip_smoke_ckpt"
     shutil.rmtree(directory, ignore_errors=True)
     params = lm.init_params(cfg, SEED, device="cuda")
@@ -5919,6 +6368,17 @@ def main() -> int:
         print(f"[mesh] phase 10 launches {mesh_phase(gpu)} "
               f"({time.perf_counter() - t} s)")
         return 0
+    if sys.argv[1:] == ["--tp-train"]:
+        t = time.perf_counter()
+        tp_training(gpu, TPT_ARCHS)
+        print(f"[tp-train] phase 10d {time.perf_counter() - t} s")
+        return 0
+    if sys.argv[1:2] == ["--mesh-depth"]:
+        for n in sys.argv[2:]:
+            t = time.perf_counter()
+            mesh_depth(gpu, int(n))
+            print(f"[mesh] 10b at {n} layers {time.perf_counter() - t} s")
+        return 0
     if sys.argv[1:] == ["--tp"]:
         t = time.perf_counter()
         print(f"[tp] phase 12 launches {tp_serving(gpu)} "
@@ -5978,6 +6438,7 @@ def main() -> int:
         launches[name] = max(launches[name], n)
     for name, n in timed(tp_serving, gpu).items():   # phase 12
         launches[name] = max(launches[name], n)
+    timed(tp_training, gpu)                          # phase 10d
     kernels = []
     for key in ("pack", "xnor_linear_fused", "paged_decode_attention",
                 "xnor_gemm", "bulk_xor", "parity_digest", "xor_cipher",

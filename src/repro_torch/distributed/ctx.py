@@ -1,5 +1,6 @@
 """Ambient activation rules: the tensor- and expert-parallel context of
-the sharded serving steps (the reference's ``distributed/ctx.py``).
+the sharded serving steps and the sharded train step (the reference's
+``distributed/ctx.py``).
 
 The reference pins activations at block boundaries with ``constrain``
 under an ambient rule set ``{"batch": axes, "tp": "model", "ep":
@@ -26,6 +27,13 @@ an all-gather and a fold; past it (a prefill's activations) the ring
 all-reduce.  A sum whose every element has one non-zero term (the
 vocab-parallel lookup, the experts' rows) is exact in any order
 (:func:`sum_exact`).
+
+Under autograd (the train step) the sums carry a gradient: a sum's
+backward hands each rank the whole gradient, a replicated activation
+enters a rank's share through :func:`enter` (whose backward sums over
+``model`` in rank order, so replicated leaves keep the same bits on
+every rank), and each gather's backward sums a leaf's gradient over the
+batch axes alone and hands the rank its block.
 """
 
 from __future__ import annotations
@@ -91,6 +99,24 @@ def layers_of(tensor_parallel: bool):
         _STATE.whole = prev
 
 
+def snapshot() -> tuple:
+    """This thread's context (the rules and :func:`layers_of`'s state),
+    for :func:`restored`."""
+    return _ctx(), getattr(_STATE, "whole", False)
+
+
+@contextlib.contextmanager
+def restored(snap: tuple):
+    """Run under a :func:`snapshot`: a layer's recompute in the backward
+    pass runs on autograd's thread, which has no context of its own."""
+    prev = snapshot()
+    _STATE.ctx, _STATE.whole = snap
+    try:
+        yield
+    finally:
+        _STATE.ctx, _STATE.whole = prev
+
+
 def rules() -> dict | None:
     c = _ctx()
     return None if c is None else c.rules
@@ -149,30 +175,124 @@ def heads(cfg) -> HeadBlock | None:
 
 
 # -- the model axis's sums ---------------------------------------------------
+#
+# Each is an autograd Function, so the tensor-parallel layers train (the
+# sharded train step): a rank's graph holds the same nodes in the same
+# order as every other rank's, so the collectives of the backward pass
+# meet in one order everywhere (autograd runs a graph's nodes in the
+# reverse of their creation order).  A backward may run on autograd's
+# device thread, where this module's thread-local context is unset: each
+# Function keeps the group it was made under.
 
-def reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum ``x`` over the model axis: within ``GATHER_BYTES`` gathered and
-    folded in rank order (the same order at every row count), past it by
-    the ring all-reduce."""
-    if tp_size() == 1:
-        return x
-    if x.numel() * x.element_size() * tp_size() > GATHER_BYTES:
-        return sharding.all_reduce(x.contiguous(), tp_group())
-    parts = sharding.all_gather(x, tp_group())
+def _fold(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Sum ``x`` over ``group`` (the model axis, ``size`` ranks): within
+    ``GATHER_BYTES`` gathered and folded in rank order, past it by the
+    ring all-reduce; ``x`` is not written."""
+    if x.numel() * x.element_size() * size > GATHER_BYTES:
+        return sharding.all_reduce(
+            x.clone(memory_format=torch.contiguous_format), group)
+    parts = sharding.all_gather(x, group)
     out = parts[0]
     for p in parts[1:]:
         out = out + p
     return out
 
 
-def sum_exact(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the model axis, exact in any order, of a fresh integer
-    tensor, or of a float tensor each of whose rows (the last dim) comes
-    from one rank, the others' rows zero: an integer sum of its bits (a
-    float sum would turn a -0.0 term into 0.0).  ``x`` is summed in
-    place."""
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size):
+        return _fold(x, group, size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's partial gets the whole gradient of the sum
+        return grad, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # each rank's gradient holds only its own share
+        return _fold(grad, ctx.group, ctx.size), None, None
+
+
+class _SumExact(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        flat = x.reshape(-1)
+        pad = (-flat.numel() * flat.element_size()) % 4 \
+            // flat.element_size()
+        flat = torch.nn.functional.pad(flat, (0, pad)) if pad \
+            else flat.clone()
+        words = sharding.all_reduce(flat.view(torch.int32), group)
+        return words.view(x.dtype)[:x.numel()].reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # a rank's terms are its own rows; its forward zeroed the others
+        return grad, None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        ctx.block = rank * x.shape[-1], x.shape[-1]
+        return torch.cat(sharding.all_gather(x, group), dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        i, n = ctx.block
+        return grad[..., i:i + n].contiguous(), None, None
+
+
+def _graph(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x``: the Functions run only
+    then; without a graph the sums run as plain ops (in place where they
+    can), so the serving steps dispatch what they did."""
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+def reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum ``x`` over the model axis: within ``GATHER_BYTES`` gathered and
+    folded in rank order (the same order at every row count), past it by
+    the ring all-reduce (in place on ``x`` without a graph).  The
+    backward hands each rank the whole gradient."""
     if tp_size() == 1:
         return x
+    if _graph(x):
+        return _ReduceSum.apply(x, tp_group(), tp_size())
+    if x.numel() * x.element_size() * tp_size() > GATHER_BYTES:
+        return sharding.all_reduce(x.contiguous(), tp_group())
+    return _fold(x, tp_group(), tp_size())
+
+
+def enter(x: torch.Tensor) -> torch.Tensor:
+    """A tensor replicated over the model axis as it enters the rank's
+    share of a tensor-parallel computation (its heads, ``d_ff`` block,
+    experts or vocab block): the identity, whose backward sums the
+    gradient over the model axis in rank order (each rank's holds only
+    its share), so that every rank gets the same bits."""
+    if tp_size() == 1 or not _graph(x):
+        return x
+    return _Enter.apply(x, tp_group(), tp_size())
+
+
+def sum_exact(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the model axis, exact in any order, of an integer tensor,
+    or of a float tensor each of whose rows (the last dim) comes from one
+    rank, the others' rows +0.0: an integer sum of its bits (a float sum
+    would turn a -0.0 term into 0.0).  Out of place under autograd,
+    whose backward hands each rank the whole gradient; without a graph
+    ``x`` is summed in place."""
+    if tp_size() == 1:
+        return x
+    if _graph(x):
+        return _SumExact.apply(x, tp_group())
     flat = x.reshape(-1)
     pad = (-flat.numel() * flat.element_size()) % 4 // flat.element_size()
     if pad:
@@ -181,10 +301,22 @@ def sum_exact(x: torch.Tensor) -> torch.Tensor:
     return words.view(x.dtype)[:x.numel()].reshape(x.shape)
 
 
-def gather_last(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's block of the last dim, concatenated in rank order."""
+def max_over(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the model axis (exact), with no
+    gradient."""
+    x = x.detach()
     if tp_size() == 1:
         return x
+    return torch.stack(sharding.all_gather(x, tp_group())).amax(0)
+
+
+def gather_last(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's block of the last dim, concatenated in rank order;
+    the backward takes this rank's block."""
+    if tp_size() == 1:
+        return x
+    if _graph(x):
+        return _GatherLast.apply(x, tp_group(), tp_rank())
     return torch.cat(sharding.all_gather(x, tp_group()), dim=-1)
 
 
@@ -198,20 +330,27 @@ def _split(spec, keep: tuple) -> tuple[tuple, tuple]:
             kept)
 
 
-def gather_leaf(block, spec, shape, mesh, keep: tuple = ()):
+def gather_leaf(block, spec, shape, mesh, keep: tuple = (), sum_axes=None):
     """A leaf (a tensor or a ``PackedLinear``) gathered over every axis
     of its placement but ``keep``: whole (its ``shape``) in those dims,
-    this rank's block in the kept ones."""
+    this rank's block in the kept ones.  Under autograd with
+    ``sum_axes`` (the axes holding the batch's other blocks) the
+    backward sums the gradient over them alone and hands this rank its
+    block of the gathered dims (``sharding.gather``), also where nothing
+    is gathered."""
     if isinstance(block, PackedLinear):
         return PackedLinear(
             gather_leaf(block.pb, spec.pb, shape.pb, mesh, keep),
             gather_leaf(block.beta, spec.beta, shape.beta, mesh, keep),
             block.k)
     gather, kept = _split(spec, keep)
-    if all(sharding.axis_size(mesh, a) == 1 for a in gather):
+    summed = sum_axes is not None and block.requires_grad \
+        and torch.is_grad_enabled() \
+        and sharding.axis_size(mesh, sum_axes) > 1
+    if not summed and all(sharding.axis_size(mesh, a) == 1 for a in gather):
         return block
     return sharding.gather(block, gather, mesh,
-                           sharding.block_shape(shape, kept, mesh))
+                           sharding.block_shape(shape, kept, mesh), sum_axes)
 
 
 def _inner(spec):
@@ -225,16 +364,18 @@ def _inner(spec):
 class Leaves:
     """A dict of this rank's blocks whose leaves are gathered at their
     use (``[key]``) over every axis but ``keep``; ``specs`` and
-    ``shapes`` are the leaves' placements and whole shapes."""
+    ``shapes`` are the leaves' placements and whole shapes,
+    ``sum_axes`` as in :func:`gather_leaf`."""
 
     def __init__(self, blocks: dict, specs: dict, shapes: dict, mesh,
-                 keep: tuple = ()):
+                 keep: tuple = (), sum_axes=None):
         self.blocks, self.specs, self.shapes = blocks, specs, shapes
-        self.mesh, self.keep = mesh, keep
+        self.mesh, self.keep, self.sum_axes = mesh, keep, sum_axes
 
     def __getitem__(self, key):
         return gather_leaf(self.blocks[key], self.specs[key],
-                           self.shapes[key], self.mesh, self.keep)
+                           self.shapes[key], self.mesh, self.keep,
+                           self.sum_axes)
 
 
 class Segment(Leaves):
@@ -244,5 +385,5 @@ class Segment(Leaves):
     def layer(self, i: int) -> dict:
         return {key: gather_leaf(b[i], _inner(self.specs[key]),
                                  _inner(self.shapes[key]), self.mesh,
-                                 self.keep)
+                                 self.keep, self.sum_axes)
                 for key, b in self.blocks.items()}

@@ -258,8 +258,9 @@ def main() -> int:
                          "holds other kinds' state whole over model")
     ap.add_argument("--q-chunk", type=int, default=None)
     ap.add_argument("--microbatch", type=int, default=1,
-                    help="> 1 is not ported to the sharded step: such a "
-                         "train cell reports status error with the reason")
+                    help="train cells: the global batch split into this "
+                         "many parts run one after another, each over "
+                         "the mesh")
     ap.add_argument("--grad-compress", default="none",
                     choices=["none", "onebit_pod"])
     ap.add_argument("--kv-dtype", default=None, choices=[None, "bf16", "i8"])

@@ -20,7 +20,11 @@ full-sequence :func:`attention` and the dense :func:`decode_attention`
 of the sharded serving steps) a rank computes its whole query heads
 (``ctx.heads``) end to end against the KV heads they read, its block of
 ``wk`` / ``wv`` / the cache holding those, and ``wo`` is row-parallel
-over the heads' K (``layers.row_linear``).
+over the heads' K (``layers.row_linear``).  Under autograd (the
+sharded train step) the input enters the rank's heads through
+``ctx.enter`` and the replicated ``q_norm`` / ``k_norm`` scales too; a
+rank that holds no query heads runs the same ops on empty tensors, so
+its graph issues every collective the others' do.
 """
 
 from __future__ import annotations
@@ -88,7 +92,8 @@ def _project_q(cfg, p, x, positions):
     else:
         q = q.reshape(b, s, hb.qb, cfg.d_head)[:, :, :hb.nq]
     if cfg.qk_norm:
-        q = layers.rms_norm(q, p["q_norm"])
+        # a replicated scale over this rank's heads alone
+        q = layers.rms_norm(q, ctx.enter(p["q_norm"]))
     if positions is None:
         return q
     return layers.apply_rope(q, positions, cfg.rope_theta)
@@ -106,7 +111,7 @@ def _project_kv(cfg, p, x, positions):
     k = k.reshape(b, s, kv, cfg.d_head)
     v = v.reshape(b, s, kv, cfg.d_head)
     if cfg.qk_norm:
-        k = layers.rms_norm(k, p["k_norm"])
+        k = layers.rms_norm(k, ctx.enter(p["k_norm"]))
     if positions is None:
         return k, v
     return layers.apply_rope(k, positions, cfg.rope_theta), v
@@ -166,6 +171,7 @@ def attention(cfg, p: dict, x: torch.Tensor, *, causal: bool = True,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    x = ctx.enter(x)            # one entry for the rank's q, k and v
     q = _project_q(cfg, p, x, positions)
     k, v = _expand_kv(cfg, *_project_kv(cfg, p, x, positions))
     if not q_chunk or s <= q_chunk:

@@ -886,15 +886,16 @@ def segment_fwd(cfg, seg_params: list, x, opts: FwdOpts = FwdOpts(),
     one), per-segment layer-stacked states, or Nones without
     ``opts.want_state``).  ``remat`` checkpoints each layer: under
     autograd its activations are recomputed in the backward pass instead
-    of kept, which changes no value."""
+    of kept, which changes no value; a sharded step's layer is gathered
+    inside the checkpoint, so the recompute gathers it again and no
+    gathered leaf is kept between the passes."""
     aux, states = None, []
     for (kind, n), p in seg_params:
         block = registry.get(kind)
         sts = []
         with dctx.layers_of(block.tensor_parallel):
             for i in range(n):
-                x, a, st = _layer_fwd(cfg, block, layer_params(p, i), x,
-                                      opts, ctx, remat)
+                x, a, st = _layer_fwd(cfg, block, p, i, x, opts, ctx, remat)
                 if a is not None:
                     aux = a if aux is None else aux + a
                 sts.append(st)
@@ -904,15 +905,26 @@ def segment_fwd(cfg, seg_params: list, x, opts: FwdOpts = FwdOpts(),
     return x, aux, states
 
 
-def _layer_fwd(cfg, block, p: dict, x, opts: FwdOpts, ctx, remat: bool):
-    """One layer's ``fwd`` -> (x, its aux loss or None, state)."""
+def _layer_fwd(cfg, block, p, i: int, x, opts: FwdOpts, ctx, remat: bool):
+    """Layer ``i`` of a segment's parameters ``p``: its ``fwd`` -> (x, its
+    aux loss or None, state)."""
+    snap = dctx.snapshot()
+
     def run(x):
-        sink = []
-        y, st = block.fwd(cfg, p, x, opts._replace(aux=sink), ctx)
-        return y, (sink[0] if sink else None), st
-    if remat and torch.is_grad_enabled():
+        # the recompute runs on autograd's thread: the context goes along
+        with dctx.restored(snap):
+            sink = []
+            y, st = block.fwd(cfg, layer_params(p, i), x,
+                              opts._replace(aux=sink), ctx)
+            return y, (sink[0] if sink else None), st
+    if not (remat and torch.is_grad_enabled()):
+        return run(x)
+    if dctx.rules() is None:
         return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
-    return run(x)
+    # the whole recompute on every rank: stopping at the last saved
+    # tensor could stop ranks at different collectives
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
 
 
 def _block_table(block, tables):

@@ -7,7 +7,10 @@ a column-parallel linear is :func:`linear` on the rank's block of
 output columns; :func:`row_linear` is the row-parallel one (the rank's
 block of K, then a sum over the model axis); the embedding is looked up
 in the rank's block of the vocab and :func:`logits` gathers the vocab
-blocks.  Outside a context every function runs as on one device."""
+blocks (or, for the training loss, keeps the rank's).  A replicated
+activation enters a rank's share through ``ctx.enter``, whose backward
+sums its gradient over the model axis, so the layers train.  Outside a
+context every function runs as on one device."""
 
 from __future__ import annotations
 
@@ -120,11 +123,14 @@ def row_linear(x: torch.Tensor, w, quant: str, k: int) -> torch.Tensor:
         return y.reshape(*lead, w.pb.shape[0]).to(x.dtype)
     wv = w[:kv]
     if quant == "xnor":
+        # |x| through xnor_layers._Abs: +1 at 0, as the single-process STE
+        # (fault F6); the partials stay f32 until after the sum
         part = torch.matmul(xnor_layers.binarize_ste(x2).float(),
                             xnor_layers.binarize_ste(wv).float())
-        alpha = (ctx.reduce_sum(row_sum(x2.abs().float())[:, 0])
-                 * (1.0 / k)).to(x.dtype)
-        beta = (ctx.reduce_sum(wv.abs().float().sum(0))
+        alpha = (ctx.reduce_sum(row_sum(
+            xnor_layers._Abs.apply(x2).float())[:, 0])
+            * (1.0 / k)).to(x.dtype)
+        beta = (ctx.reduce_sum(xnor_layers._Abs.apply(wv).float().sum(0))
                 * (1.0 / k)).to(w.dtype)
         y = ctx.reduce_sum(part) * alpha[:, None] * beta
     else:
@@ -220,7 +226,9 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def ffn(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     """The SwiGLU FFN; under tensor parallelism w1 / w3 are the rank's
-    ceil-div block of d_ff columns and w2 its rows (:func:`row_linear`)."""
+    ceil-div block of d_ff columns (``x`` enters through ``ctx.enter``)
+    and w2 its rows (:func:`row_linear`)."""
+    x = ctx.enter(x)
     g = linear(x, p["w1"], cfg.quant)
     h = silu_mul(g, linear(x, p["w3"], cfg.quant))
     if ctx.tp_size() == 1:
@@ -258,10 +266,14 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return ctx.sum_exact(out.to(table.dtype))
 
 
-def logits(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+def logits(cfg, p: dict, x: torch.Tensor, gather: bool = True
+           ) -> torch.Tensor:
     """The full-precision lm head (even under quant="xnor"); under tensor
-    parallelism over the rank's vocab block, the blocks then gathered."""
-    y = torch.matmul(rms_norm(x, p["final_norm"]), p["lm_head"])
+    parallelism over the rank's vocab block, the blocks then gathered, or
+    (``gather`` False: the training loss's vocab-parallel CE) this
+    rank's block, its padding columns included."""
+    h = rms_norm(x, p["final_norm"])
     if ctx.tp_size() == 1:
-        return y
-    return ctx.gather_last(y)[..., :cfg.padded_vocab]
+        return torch.matmul(h, p["lm_head"])
+    y = torch.matmul(ctx.enter(h), p["lm_head"])
+    return ctx.gather_last(y)[..., :cfg.padded_vocab] if gather else y

@@ -31,6 +31,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models import blocks, layers
 from repro_torch.models import params as pdefs
 from repro_torch.models import registry
@@ -152,11 +153,13 @@ def encode(cfg, params, frames: torch.Tensor,
 
 def forward(cfg, params, tokens: torch.Tensor,
             ctx: torch.Tensor | None = None, q_chunk: int = 0,
-            remat: bool = False, batch_sum=None):
+            remat: bool = False, batch_sum=None, gather: bool = True):
     """tokens (B, S) -> (logits (B, S, V), the summed aux loss, f32).
     ``ctx`` (B, T_ctx, d): an enc-dec arch's frames (encoded first) or a
     vlm's patch rows.  ``remat`` checkpoints each decoder layer
-    (:func:`blocks.segment_fwd`); ``batch_sum`` as in :func:`loss_fn`."""
+    (:func:`blocks.segment_fwd`); ``batch_sum`` as in :func:`loss_fn`;
+    ``gather`` False leaves a tensor-parallel rank its vocab block of the
+    logits (``layers.logits``)."""
     x = layers.embed(params["embed"], tokens).to(cfg.dtype)
     if cfg.is_encdec():
         if ctx is None:
@@ -168,7 +171,31 @@ def forward(cfg, params, tokens: torch.Tensor,
                                    blocks.FwdOpts(q_chunk=q_chunk,
                                                   batch_sum=batch_sum),
                                    ctx, remat=remat)
-    return layers.logits(cfg, params["embed"], x), aux
+    return layers.logits(cfg, params["embed"], x, gather), aux
+
+
+def _picked_lse(cfg, logits: torch.Tensor, labels: torch.Tensor):
+    """-> (the label's logit, logsumexp over the vocab), f32 (B, S), of
+    f32 ``logits``: the picked logit a one-hot contraction over the
+    vocab, as the reference takes it.  Under tensor parallelism
+    ``logits`` is this rank's vocab block (no rank holds a (tokens,
+    vocab) tensor): the max over the model axis is exact, the sum of
+    exp(logit - max) is folded in rank order and the picked logit summed
+    exactly (one rank holds the label)."""
+    if dctx.tp_size() == 1:
+        onehot = labels[..., None] == torch.arange(logits.shape[-1],
+                                                   device=logits.device)
+        return (logits * onehot).sum(-1), torch.logsumexp(logits, dim=-1)
+    _, start, stop = dctx.extent(cfg.padded_vocab)
+    logits = logits[..., :stop - start]
+    m = dctx.max_over(logits.amax(-1))
+    lse = m + torch.log(dctx.reduce_sum(
+        torch.exp(logits - m[..., None]).sum(-1)))
+    local = labels.long() - start
+    hit = (local >= 0) & (local < stop - start)
+    picked = logits.gather(-1, local.clamp(0, stop - start - 1)[..., None])
+    picked = torch.where(hit[..., None], picked, 0.0)
+    return dctx.sum_exact(picked)[..., 0], lse
 
 
 def loss_fn(cfg, params, batch: dict, q_chunk: int = 0, remat: bool = True,
@@ -185,17 +212,14 @@ def loss_fn(cfg, params, batch: dict, q_chunk: int = 0, remat: bool = True,
     ranks holding the others, with each rank's gradient left its own
     share.  The CE's denominator is then the global count of valid
     tokens, the routed FFNs' load balance the whole batch's, and the loss
-    the global batch's on every rank."""
+    the global batch's on every rank.  Under tensor parallelism the CE is
+    vocab-parallel (:func:`_picked_lse`)."""
     logits, aux = forward(cfg, params, batch["tokens"], batch.get("ctx"),
-                          q_chunk=q_chunk, remat=remat, batch_sum=batch_sum)
+                          q_chunk=q_chunk, remat=remat, batch_sum=batch_sum,
+                          gather=False)
     labels = batch["labels"]
     valid = labels >= 0
-    labels = labels.clamp_min(0)
-    logits32 = logits.float()
-    lse = torch.logsumexp(logits32, dim=-1)
-    onehot = labels[..., None] == torch.arange(logits.shape[-1],
-                                               device=logits.device)
-    picked = (logits32 * onehot).sum(-1)
+    picked, lse = _picked_lse(cfg, logits.float(), labels.clamp_min(0))
     ll = picked - lse
     n_valid, nll = valid.sum(), -(ll * valid).sum()
     if batch_sum is not None:

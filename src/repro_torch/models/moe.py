@@ -31,7 +31,9 @@ and every decode step) the rows themselves are summed over the ranks,
 exactly (each comes from one rank), and combined as on one device;
 past it (a top-k > 1 prefill) each rank's f32 partial sum of its own
 rows is summed over the ranks, which reorders the f32 sum of a token's
-choices.
+choices.  Under autograd the dispatch input enters the rank's experts
+through ``ctx.enter`` (as do the combine weights on the partial-sum
+path), so the replicated router and the tokens get whole gradients.
 """
 
 from __future__ import annotations
@@ -158,7 +160,7 @@ def experts(cfg, p: dict, xg: torch.Tensor, r: Routing) -> torch.Tensor:
         p = {k: p[k][:ne] for k in ("w1", "w3", "w2")}
     dispatch = (combine > 0).to(xg.dtype)                     # (G, T, E, C)
     # one token a (expert, group, place): the dispatch product is exact
-    xe = torch.einsum("gtec,gtd->egcd", dispatch, xg).reshape(
+    xe = torch.einsum("gtec,gtd->egcd", dispatch, ctx.enter(xg)).reshape(
         ne, g * c, d)
     with _f32_reductions():
         h = layers.silu_mul(torch.bmm(xe, p["w1"]), torch.bmm(xe, p["w3"]))
@@ -192,6 +194,9 @@ def combine(cfg, r: Routing, ye: torch.Tensor, dtype) -> torch.Tensor:
         if exact:
             rows = ctx.sum_exact(rows)
     rows = rows.to(F32)
+    if ctx.tp_size() > 1 and not exact:
+        # the weights meet this rank's rows alone
+        w = ctx.enter(w)
     y = w[..., 0, None] * rows[:, :, 0]
     for j in range(1, k):
         y = y + w[..., j, None] * rows[:, :, j]

@@ -52,13 +52,18 @@ def global_norm(grads, copies=None, psum=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, in leaf order.
 
     Over a mesh each rank holds blocks of the leaves (zero-padded):
-    ``copies`` (an int a leaf, in leaf order) says how many ranks hold
-    each block and ``psum`` sums a scalar over every rank, so that each
-    element counts once, not once a replica."""
-    sq = [g.float().square().sum() for g in _leaves(grads)]
+    ``copies`` (an int a leaf, in leaf order, or a tensor that
+    broadcasts against the block where its elements are held by
+    different numbers of ranks) says how many ranks hold each block and
+    ``psum`` sums a scalar over every rank, so that each element counts
+    once, not once a replica."""
     if copies is None:
-        return torch.sqrt(sum(sq))
-    return torch.sqrt(psum(sum(s / c for s, c in zip(sq, copies))))
+        return torch.sqrt(sum(g.float().square().sum()
+                              for g in _leaves(grads)))
+    return torch.sqrt(psum(sum(
+        g.float().square().sum() / c if isinstance(c, int)
+        else (g.float().square() / c).sum()
+        for g, c in zip(_leaves(grads), copies))))
 
 
 def clip_by_global_norm(grads, max_norm: float, copies=None, psum=None):
@@ -70,6 +75,12 @@ def clip_by_global_norm(grads, max_norm: float, copies=None, psum=None):
                            grads), gn
 
 
+# elements of a leaf updated at a time: the update is elementwise, so a
+# piece's bits are the whole leaf's, and its f32 temporaries stay small
+# beside a (vocab, d) leaf's
+CHUNK = 1 << 24
+
+
 @torch.no_grad()
 def update(params, grads, state: AdamWState, lr, *, b1=0.9, b2=0.95,
            eps=1e-8, weight_decay=0.1, max_norm=1.0, copies=None,
@@ -77,21 +88,34 @@ def update(params, grads, state: AdamWState, lr, *, b1=0.9, b2=0.95,
     """One AdamW step after clipping -> (params, state, global norm).
     Matrices (``ndim >= 2``, layer-stacked norm scales among them) are
     decayed; vectors are not.  ``params``, ``state.m`` and ``state.v`` are
-    written in place.  On a mesh they are this rank's blocks, and
-    ``copies`` and ``psum`` make the norm global (:func:`global_norm`)."""
-    grads, gnorm = clip_by_global_norm(grads, max_norm, copies, psum)
+    written in place, ``CHUNK`` elements at a time, each gradient piece
+    clipped as it is read (no clipped copy of the tree is made).  On a
+    mesh they are this rank's blocks, and ``copies`` and ``psum`` make
+    the norm global (:func:`global_norm`)."""
+    gnorm = global_norm(grads, copies, psum)
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=F32, device=step.device),
                           step.to(F32))
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=F32, device=step.device),
                           step.to(F32))
-    for p, g, m, v in zip(_leaves(params), _leaves(grads),
-                          _leaves(state.m), _leaves(state.v)):
-        g32 = g.float()
+
+    def piece(p, g, m, v, decay: bool):
+        g32 = (g.float() * scale).to(g.dtype).float()
         m.mul_(b1).add_(g32 * (1 - b1))
         v.mul_(b2).add_(g32 * (1 - b2) * g32)
         u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        if p.ndim >= 2:  # decay matrices only (vectors exempt)
+        if decay:
             u = u + weight_decay * p.float()
         p.copy_((p.float() - lr * u).to(p.dtype))
+    for p, g, m, v in zip(_leaves(params), _leaves(grads),
+                          _leaves(state.m), _leaves(state.v)):
+        decay = p.ndim >= 2       # decay matrices only (vectors exempt)
+        if not all(t.is_contiguous() for t in (p, m, v)) \
+                or p.numel() <= CHUNK:
+            piece(p, g, m, v, decay)
+            continue
+        flat = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
+        for s in range(0, p.numel(), CHUNK):
+            piece(*(t[s:s + CHUNK] for t in flat), decay)
     return params, AdamWState(step, state.m, state.v), gnorm

@@ -75,10 +75,12 @@ def shard_params(cfg, params: dict, mesh, rules=None) -> dict:
     return tree_map(one, params, *_specs(cfg, params, rules))
 
 
-def _view(cfg, params: dict, mesh, rules) -> dict:
+def _view(cfg, params: dict, mesh, rules, sum_axes=None) -> dict:
     """The tree the layers read: a segment's blocks gathered a layer at a
     time (over ``model`` too for a kind without a tensor-parallel form),
-    the embedding's at their use, the rest gathered now."""
+    the embedding's at their use, the rest gathered now.  ``sum_axes``:
+    the sharded train step's batch axes, over which each gather's
+    backward sums the gradient (``ctx.gather_leaf``)."""
     specs, shapes = _specs(cfg, params, rules)
     out = {}
     for key, blocks in params.items():
@@ -86,12 +88,13 @@ def _view(cfg, params: dict, mesh, rules) -> dict:
             # a segment's layer-stacked leaves
             keep = ("model",) if lm._tensor_parallel(key) else ()
             out[key] = ctx.Segment(blocks, specs[key], shapes[key], mesh,
-                                   keep)
+                                   keep, sum_axes)
         elif isinstance(blocks, dict):
             out[key] = ctx.Leaves(blocks, specs[key], shapes[key], mesh,
-                                  ("model",))
+                                  ("model",), sum_axes)
         else:
-            out[key] = ctx.gather_leaf(blocks, specs[key], shapes[key], mesh)
+            out[key] = ctx.gather_leaf(blocks, specs[key], shapes[key], mesh,
+                                       (), sum_axes)
     return out
 
 

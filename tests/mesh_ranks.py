@@ -6,6 +6,8 @@ numpy arrays to the test, which holds them against the reference."""
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -367,3 +369,215 @@ def tp_block_rows_rank(rank: int, arch: str, dtype: str,
         alone = torch.cat([step(j, j + 1) for j in range(slots)])
         return [int((step(0, n) != alone[:n]).sum())
                 for n in range(1, slots + 1)]
+
+
+# -- tensor- and expert-parallel training ----------------------------------
+
+def tp_train_rank(rank: int, shape: tuple, axes: tuple, cases: dict,
+                  step: int, schedule: dict) -> dict:
+    """One sharded step of each case {name: dict(arch, over, params (the
+    reference's numpy tree), batch, microbatch, count)} (smoke, f32) on a
+    ``shape`` mesh named ``axes`` -> {"coord", "cases": {name: this rank's
+    gradient and updated parameter blocks (zero-padded), the metrics and,
+    with ``count``, what the gradient pass gathered and allocated
+    (:class:`_step_probe`)}}."""
+    mesh = mesh_mod.make_mesh(shape, axes, "cpu")
+    out = {"coord": mesh.get_coordinate(), "cases": {}}
+    for name, case in cases.items():
+        out["cases"][name] = _tp_train_case(mesh, step, schedule, **case)
+    return out
+
+
+def _tp_train_case(mesh, step, schedule, arch, over, params, batch,
+                   microbatch=1, count=False, gather_bytes=None) -> dict:
+    """``gather_bytes``: ``ctx.GATHER_BYTES`` for the case (0: every
+    model-axis sum takes the ring all-reduce, the MoE combine its f32
+    partial sums)."""
+    from repro_torch.distributed import ctx
+    from repro_torch.models import lm
+    cfg = configs.get(arch).smoke(dtype=torch.float32, **over)
+    blocks = ttrain.shard_params(cfg, convert.from_jax(cfg, params), mesh)
+    state = ttrain.TrainState(blocks, adamw.init(blocks))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    limit = ctx.GATHER_BYTES
+    if gather_bytes is not None:
+        ctx.GATHER_BYTES = gather_bytes
+    try:
+        with _step_probe(count, cfg, mesh) as seen:
+            _, _, grads, _, _ = ttrain._sharded_grads(
+                cfg, state.params, batch, 0, mesh, sharding.DEFAULT_RULES,
+                False, microbatch)
+        new, metrics = ttrain.train_step(cfg, state, batch, step,
+                                         **schedule, mesh=mesh,
+                                         microbatch=microbatch)
+    finally:
+        ctx.GATHER_BYTES = limit
+    out = dict(grads=_blocks(grads), params=_blocks(new.params),
+               metrics={k: float(v) for k, v in metrics.items()})
+    if count:
+        out["probe"] = seen
+        out["layers"], out["embed"] = _gathered_bytes(
+            cfg, lm.param_pspecs(cfg, sharding.DEFAULT_RULES,
+                                 head_aligned=True), mesh)
+    return out
+
+
+def _gathered_bytes(cfg, specs: dict, mesh) -> tuple[list, int]:
+    """-> (the bytes each layer's gathers hand the rank, in depth order;
+    the embedding's): a leaf's whole dims but ``model`` for an attn or
+    moe layer, wherever an axis of its placement splits it."""
+    from repro_torch.distributed import ctx
+    from repro_torch.models import lm
+
+    def gathered(spec, shape, dtype, keep) -> int:
+        gather, kept = ctx._split(spec, keep)
+        if all(sharding.axis_size(mesh, a) == 1 for a in gather):
+            return 0
+        size = np.prod(sharding.block_shape(shape, kept, mesh))
+        return int(size) * dtype.itemsize
+    defs = lm.param_defs(cfg)
+    layers = []
+    for i, (kind, n) in enumerate(cfg.segments()):
+        key = f"seg{i}_{kind}"
+        keep = ("model",) if lm._tensor_parallel(key) else ()
+        for _ in range(n):
+            layers.append(sum(
+                gathered(specs[key][k][1:], d.shape[1:], d.dtype, keep)
+                for k, d in defs[key].items()))
+    embed = sum(gathered(specs["embed"][k], d.shape, d.dtype, ("model",))
+                for k, d in defs["embed"].items())
+    return layers, embed
+
+
+class _step_probe:
+    """While on: every parameter gather (``sharding.gather``) that took
+    bytes in, as (pass, the bytes it hands the rank), the pass "fwd"
+    until the gradient pass starts (``torch.autograd.grad``) and "bwd"
+    after (the layers' recompute); the most gathered bytes alive at once
+    (each gather's storage followed to its release); and the largest
+    op output whose last dim is the padded vocab (a (tokens, vocab)
+    logits tensor would be one)."""
+
+    def __init__(self, on: bool, cfg, mesh):
+        self.on, self.cfg = on, cfg
+        self.seen = {"calls": [], "live_max": 0, "vocab_outputs": 0}
+
+    def __enter__(self):
+        if not self.on:
+            return self.seen
+        import weakref
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+        seen, live, phase = self.seen, [0], ["fwd"]
+        self.orig = sharding.gather, torch.autograd.grad
+
+        def counted(block, spec, mesh, shape, sum_axes=None):
+            before = sharding.all_gather.bytes
+            out = self.orig[0](block, spec, mesh, shape, sum_axes)
+            if sharding.all_gather.bytes > before:
+                n = out.numel() * out.element_size()
+                seen["calls"].append((phase[0], n))
+                live[0] += n
+                seen["live_max"] = max(seen["live_max"], live[0])
+                weakref.finalize(out.untyped_storage(),
+                                 lambda: live.__setitem__(0, live[0] - n))
+            return out
+
+        def grad(*args, **kw):
+            phase[0] = "bwd"
+            return self.orig[1](*args, **kw)
+        vocab = self.cfg.padded_vocab
+
+        class Outputs(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in (out if isinstance(out, (list, tuple)) else [out]):
+                    if isinstance(t, torch.Tensor) and t.ndim >= 2 \
+                            and t.shape[-1] == vocab:
+                        seen["vocab_outputs"] = max(seen["vocab_outputs"],
+                                                    t.numel())
+                return out
+        sharding.gather, torch.autograd.grad = counted, grad
+        self.mode = Outputs()
+        self.mode.__enter__()
+        return seen
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.mode.__exit__(*exc)
+            sharding.gather, torch.autograd.grad = self.orig
+
+
+def tp_layer_grad_rank(rank: int, arch: str, dtype: str,
+                       device="cuda") -> dict:
+    """One layer of ``arch``'s first kind at full width, in ``dtype``,
+    forward and backward through its checkpoint (``blocks._layer_fwd``,
+    the layer gathered inside it) on this rank's head-aligned blocks on a
+    (data, model) = (1, 2) mesh, against the single-process layer on the
+    whole leaves, the same input and upstream gradient -> {"x": the
+    input's gradient against the single process's, "leaves": {key: each
+    leaf's gradient block's largest error over the whole gradient's
+    largest |g|}, "y": the output's largest error over its largest |y|,
+    "replicated": the gradients of the leaves replicated over ``model``
+    and of the input, as numpy, for the test to compare across ranks}."""
+    import dataclasses
+
+    from repro_torch.distributed import ctx
+    from repro_torch.models import blocks, registry
+    mesh = mesh_mod.make_mesh((1, 2), ("data", "model"), device)
+    cfg = dataclasses.replace(configs.get(arch), dtype=getattr(torch, dtype))
+    kind = cfg.segments()[0][0]
+    block = registry.get(kind)
+    defs = block.defs(cfg, 1)
+    g = torch.Generator(device=device)
+    g.manual_seed(cfg.d_model + 7)
+    whole = pdefs.init(defs, g, device)
+    specs = pdefs.pspecs(defs, sharding.DEFAULT_RULES, head_aligned=True)
+    b, s = 2, 64
+    x = torch.randn((b, s, cfg.d_model), generator=g, device=device).to(
+        cfg.dtype)
+    dy = torch.randn((b, s, cfg.d_model), generator=g, device=device).to(
+        cfg.dtype)
+
+    def loss_of(p, xin, opts_ctx):
+        with opts_ctx:
+            y, aux, _ = blocks._layer_fwd(cfg, block, p, 0, xin,
+                                          blocks.FwdOpts(), None, True)
+        total = (y.float() * dy.float()).sum()
+        return y, total if aux is None else total + aux
+
+    live = {k: w.detach().requires_grad_(True) for k, w in whole.items()}
+    x1 = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        y1, l1 = loss_of(live, x1, contextlib.nullcontext())
+        gw = torch.autograd.grad(l1, [x1, *live.values()])
+    want = dict(zip(["x", *live], gw))
+    y1 = y1.detach()
+    del live, l1
+    bl = {k: sharding.shard(w, specs[k], mesh).requires_grad_(True)
+          for k, w in whole.items()}
+    shapes = {k: tuple(d.shape) for k, d in defs.items()}
+    seg = ctx.Segment(bl, specs, shapes, mesh, ("model",))
+    x2 = x.detach().requires_grad_(True)
+    rules = {"batch": None, "tp": "model", "ep": "model"}
+    with torch.enable_grad():
+        y2, l2 = loss_of(seg, x2, ctx.activation_rules(rules, mesh))
+        got = dict(zip(["x", *bl], torch.autograd.grad(
+            l2, [x2, *bl.values()])))
+    # a KV head that both ranks' query heads read: the train step sums
+    # its holders' shares
+    keys = list(bl)
+    got.update(zip(keys, ttrain._sum_shared_heads(
+        [got[k] for k in keys], [specs[k] for k in keys], mesh)))
+    out = {"y": float((y2.detach().float() - y1.float()).abs().max())
+           / float(y1.float().abs().max()), "leaves": {}, "replicated": {}}
+    for key, gb in got.items():
+        w = want[key] if key == "x" else sharding.shard(want[key],
+                                                        specs[key], mesh)
+        top = float(want[key].float().abs().max())
+        out["leaves"][key] = float((gb.float() - w.float()).abs().max()) \
+            / max(top, 1e-30)
+        if key == "x" or "model" not in {a for e in specs[key]
+                                         for a in sharding._names(e)}:
+            out["replicated"][key] = gb.detach().float().cpu().numpy()
+    return out

@@ -1193,3 +1193,36 @@ def test_cuda_tp_block_decode_rows_do_not_depend_on_the_batch(gpu, arch):
                                timeout_s=600)
     for r in ranks:
         assert r == [0] * 8, r
+
+
+def _hold_tp_layer_grads(arch: str) -> None:
+    """One bf16 layer at full width, its forward and backward through its
+    checkpoint on 2 gloo ranks on the card (heads, ``d_ff`` or experts
+    over ``model``; the collectives of its backward on autograd's device
+    thread, the recompute under the rank's context) against the
+    single-process layer: the output within 2^-5 of its largest |y|,
+    every gradient block within 2^-5 of its leaf's largest |g| (the bf16
+    training tolerance of tests/test_torch_train.py), and the gradients
+    of the input and of the leaves replicated over ``model`` the same
+    bits on both ranks."""
+    from mesh_ranks import tp_layer_grad_rank
+    from repro_torch.launch import mesh as mesh_mod
+    ranks = mesh_mod.run_ranks(tp_layer_grad_rank, 2, arch, "bfloat16",
+                               timeout_s=600)
+    for r in ranks:
+        assert r["y"] <= 2 ** -5, r["y"]
+        bad = {k: v for k, v in r["leaves"].items() if v > 2 ** -5}
+        assert not bad, bad
+    assert set(ranks[0]["replicated"]) >= {"x", "ln1", "ln2"}
+    for key, g in ranks[0]["replicated"].items():
+        assert np.array_equal(g, ranks[1]["replicated"][key]), key
+
+
+@pytest.mark.cuda
+def test_cuda_tp_attn_layer_trains_like_the_single_process_layer(gpu):
+    _hold_tp_layer_grads("qwen2-7b+xnor")
+
+
+@pytest.mark.cuda
+def test_cuda_tp_moe_layer_trains_like_the_single_process_layer(gpu):
+    _hold_tp_layer_grads("moonshot-v1-16b-a3b+xnor")

@@ -72,15 +72,28 @@ def test_placements_equal_the_references(arch, xnor):
 
 def test_state_pspecs_mirror_the_references():
     """The moments take the parameters' placement and the step counter is
-    whole, as in the reference's ``TrainState`` of specs."""
+    whole, as in the reference's ``TrainState`` of specs.  The port's
+    are head-aligned: a dim of heads is a ``sharding.Heads`` entry over
+    the reference's axis (whole heads a rank), every other entry the
+    reference's."""
     cfg = configs.get("moonshot-v1-16b-a3b+xnor")
     jcfg = jconfigs.get("moonshot-v1-16b-a3b+xnor")
     got = ttrain.state_pspecs(cfg, FSDP_PODS)
     want = jtrain.state_pspecs(jcfg, FSDP_PODS)
     assert got.opt.step == tuple(want.opt.step) == ()
+
+    def axes(spec):
+        return tuple(e.axes if isinstance(e, sharding.Heads) else e
+                     for e in spec)
+    heads = 0
     for g, w in ((got.params, want.params), (got.opt.m, want.opt.m),
                  (got.opt.v, want.opt.v)):
-        assert _flat(g) == {k: tuple(v) for k, v in _jflat(w).items()}
+        g = _flat(g)
+        assert {k: axes(v) for k, v in g.items()} == \
+            {k: tuple(v) for k, v in _jflat(w).items()}
+        heads += sum(isinstance(e, sharding.Heads) for v in g.values()
+                     for e in v)
+    assert heads == 3 * 4      # wq, wk, wv, wo of the moe layers
 
 
 def test_production_meshes_over_a_recording_group():

@@ -264,8 +264,11 @@ def test_train_step_learns_and_reports():
 def test_onebit_pod_and_pspecs_need_a_mesh():
     """The one-bit exchange runs across a mesh's pod axis: without a mesh
     the step refuses it.  ``state_pspecs`` needs only the rules: the
-    reference's placements (``tests/test_torch_mesh_*.py`` run both on
-    gloo meshes)."""
+    reference's placements, with the dims of heads split into whole heads
+    (``sharding.Heads``; the same blocks as the reference's where the
+    heads divide evenly over ``model``; ``tests/test_torch_mesh_*.py``
+    run both on gloo meshes)."""
+    from repro_torch.distributed import sharding
     cfg = configs.get("qwen2-7b").smoke(dtype=torch.float32)
     with pytest.raises(ValueError, match="'pod' axis"):
         ttrain.train_step(cfg, None, {}, 0, grad_compress="onebit_pod")
@@ -273,8 +276,17 @@ def test_onebit_pod_and_pspecs_need_a_mesh():
     want = jtrain.state_pspecs(jconfigs.get("qwen2-7b").smoke(),
                                jsharding.DEFAULT_RULES)
     assert specs.opt.step == ()
-    assert specs.params["seg0_attn"]["attn_wq"] == tuple(
-        want.params["seg0_attn"]["attn_wq"]) == (None, "data", "model")
+    heads = sharding.Heads("model", cfg.n_heads, cfg.d_head, 1)
+    assert specs.params["seg0_attn"]["attn_wq"] == (None, "data", heads)
+    assert tuple(want.params["seg0_attn"]["attn_wq"]) == (None, "data",
+                                                          "model")
+    n = cfg.n_heads * cfg.d_head
+    for k in (2, 4):
+        for i in range(k):
+            assert sharding.extent(n, heads, k, i) == \
+                sharding.extent(n, "model", k, i)
+    assert specs.params["seg0_attn"]["ffn_w1"] == tuple(
+        want.params["seg0_attn"]["ffn_w1"])
     assert specs.opt.m == specs.opt.v == specs.params
 
 
