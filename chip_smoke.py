@@ -262,10 +262,14 @@ Phases (any failure raises and the script exits non-zero):
    plain composition (each pod's unsharded gradients, the majority vote
    written out, AdamW), and the bytes of sign planes that crossed.  A
    rank that fails fails the script.  10d (``tp_training``, after phase
-   12; ``--tp-train`` adds moonshot) the sharded train step tensor and
+   12; ``--tp-train`` adds recurrentgemma and moonshot) the sharded train
+   step tensor and
    expert parallel over ``TPT_RANKS`` gloo ranks on ``model``, bf16, full
    width, batch 4 x 256: qwen2-7b+xnor at 4 layers (two steps, the
-   second at ``microbatch=2``) and moonshot-v1-16b-a3b+xnor at 2 layers
+   second at ``microbatch=2``) and, with ``--tp-train``,
+   recurrentgemma-2b+xnor at 3 layers (one period of its pattern:
+   rglru, rglru, local; one step) and moonshot-v1-16b-a3b+xnor at 2
+   layers
    (64 experts, 16 a rank, top-6; two steps), each step from the seeded
    state, each rank drawing it a leaf at a time and keeping its
    head-aligned blocks; each step held against the single-process step
@@ -287,8 +291,12 @@ Phases (any failure raises and the script exits non-zero):
    rank exactly the shard's.
 
 12. Tensor- and expert-parallel serving (``tp_serving``, after phase 10):
-   qwen2-7b+xnor and llama4-scout-17b-a16e+xnor (all 16 experts) in bf16
-   at full width and ``TP_LAYERS`` layers, first single-process on the
+   qwen2-7b+xnor and llama4-scout-17b-a16e+xnor (all 16 experts) at 4
+   layers, recurrentgemma-2b+xnor at 3 (rglru, rglru, local: 10 query
+   heads and one KV head over 4 ranks, 3, 3, 3 and 1 a rank) and
+   xlstm-350m+xnor at 8 (7 mlstm, 1 slstm: 4 heads of 512 over 4 ranks,
+   the memory split by its rows) in bf16
+   at full width (``TP_LAYERS``), first single-process on the
    card from the whole seeded tree (a prefill of a 4 x 32 prompt, 4
    greedy decode steps), then over ``TP_RANKS`` gloo ranks on the card
    (mesh data 1 x model 4: whole heads, d_ff, 4 experts and the vocab's
@@ -298,10 +306,13 @@ Phases (any failure raises and the script exits non-zero):
    logits identical; every ``pack`` and ``xnor_gemm`` launch of the
    row-parallel chain and every fused linear held against its plain
    version; the launches a rank of the three; each rank's peak beside
-   the dry-run's trace of the same prefill and decode cells; hazard H2's
-   probe of the model axis's sums (the row-parallel linears at 1-8 rows,
-   each row against itself alone: no element may differ).  gloo stages
-   every collective through the host, so its times are the host's.
+   the dry-run's trace of the same prefill and decode cells; the bytes a
+   rank takes in a decode step beside what gathering each recurrent
+   layer whole over ``model`` took in (PR 25's program for those kinds);
+   hazard H2's probe of the model axis's sums (each segment's first
+   layer's row-parallel linears at 1-8 rows, each row against itself
+   alone: no element may differ).  gloo stages every collective through
+   the host, so its times are the host's.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -2045,10 +2056,10 @@ def migrate(cfg, params, trace, want, geom, directory, gpu, rid=8,
     assert moved == want[rid] and others, "migration changed tokens"
 
 
-# phase 3c's engine runs: 9 of recurrentgemma's 26 layers (three rglru,
-# rglru, local periods; host-bound a layer at a time); its check_paths
+# phase 3c's engine runs: 3 of recurrentgemma's 26 layers (one rglru,
+# rglru, local period; host-bound a layer at a time); its check_paths
 # runs all 26
-RECURRENT_SERVE_LAYERS = 9
+RECURRENT_SERVE_LAYERS = 3
 
 
 def recurrent_serving(gpu: str) -> dict:
@@ -2398,9 +2409,9 @@ def moe_arch_kernels(gpu: str) -> dict:
     return w8["bfloat16"]
 
 
-# phase 3d's engine runs: 12 of moonshot's 48 layers (host-bound a layer
+# phase 3d's engine runs: 4 of moonshot's 48 layers (host-bound a layer
 # at a time); its check_paths runs all 48
-MOE_SERVE_LAYERS = 12
+MOE_SERVE_LAYERS = 4
 
 
 def moe_serving(gpu: str) -> dict:
@@ -3022,9 +3033,9 @@ def whisper_serving(gpu: str) -> dict:
     return launches
 
 
-# phase 3e's llama-vision engine runs: 10 of its 40 layers (two attn x 4,
-# cross periods); its check_paths runs all 40
-VLM_SERVE_LAYERS = 10
+# phase 3e's llama-vision engine runs: 5 of its 40 layers (one attn x 4,
+# cross period); its check_paths runs all 40
+VLM_SERVE_LAYERS = 5
 
 
 def vlm_serving(gpu: str) -> dict:
@@ -3032,7 +3043,7 @@ def vlm_serving(gpu: str) -> dict:
     5th ``cross``: d 4096, 32 heads over 8 KV heads of 128, d_ff 14,336,
     vocab 128,256), each request with its own 1,600 x 4,096 context of
     patch embeddings: :func:`ctx_serving`'s gates at ``VLM_SERVE_LAYERS``
-    layers (host-bound a layer at a time) with 66 fused linears and 8
+    layers (host-bound a layer at a time) with 33 fused linears and 4
     paged decodes every decode step; then :func:`check_paths` at full
     depth on the first request's prompt and context in bf16 at this
     arch's limits with the one-ulp-up control failing them, and
@@ -3045,9 +3056,9 @@ def vlm_serving(gpu: str) -> dict:
     import repro_torch.configs as configs
     from repro_torch.models import lm
 
-    # 8 attn layers of 7 fused linears and a paged decode, 2 cross of 5
+    # 4 attn layers of 7 fused linears and a paged decode, 1 cross of 5
     _, params, trace, launches = ctx_serving(
-        gpu, "llama-3.2-vision-11b+xnor", (66, 8),
+        gpu, "llama-3.2-vision-11b+xnor", (33, 4),
         ("torch.bfloat16", (1600, 8, 128)), "vlm", VLM_SERVE_LAYERS)
     del params
     gc.collect()
@@ -4643,6 +4654,7 @@ TPT_RANKS = 4                # (data, model) = (1, 4)
 # on an H100 80GB HBM3 at 700 W), and 10b holds a second step from such
 # a state
 TPT_ARCHS = (("qwen2-7b+xnor", 4, (1, 2)),
+             ("recurrentgemma-2b+xnor", 3, (1,)),
              ("moonshot-v1-16b-a3b+xnor", 2, (1, 1)))
 TPT_BATCH, TPT_SEQ = 4, 256
 
@@ -4938,8 +4950,14 @@ def tp_training(gpu: str, archs=TPT_ARCHS[:1]) -> None:
 # -- phase 12: tensor- and expert-parallel serving ----------------------------
 
 TP_RANKS = 4                 # (data, model) = (1, 4): every rank all rows
-TP_LAYERS = 4                # of 28 (qwen2-7b) and of 48 (llama4-scout)
-TP_ARCHS = ("qwen2-7b+xnor", "llama4-scout-17b-a16e+xnor")
+# each arch's layers: 4 of 28 (qwen2-7b), 4 of 48 (llama4-scout), one
+# period of recurrentgemma's pattern (rglru, rglru, local) and one xLSTM
+# superblock (7 mlstm, 1 slstm)
+TP_LAYERS = {"qwen2-7b+xnor": 4, "llama4-scout-17b-a16e+xnor": 4,
+             "recurrentgemma-2b+xnor": 3, "xlstm-350m+xnor": 8}
+TP_ARCHS = tuple(TP_LAYERS)
+# the kinds PR 25's program gathered whole over model a layer at a time
+TP_WHOLE_KINDS = ("local", "rglru", "mlstm", "slstm", "bindense")
 TP_BATCH, TP_PROMPT, TP_STEPS = 4, 32, 4
 TP_S_MAX = TP_PROMPT + TP_STEPS + 1
 # the bf16 logits of the sharded steps against the single-process ones:
@@ -4950,7 +4968,20 @@ TP_RULES = {"fsdp": "data", "tp": "model", "ep": "model"}
 
 def _tp_cfg(arch: str):
     import repro_torch.configs as configs
-    return dataclasses.replace(configs.get(arch), n_layers=TP_LAYERS)
+    return dataclasses.replace(configs.get(arch), n_layers=TP_LAYERS[arch])
+
+
+def tp_whole_bytes(cfg) -> int:
+    """The bytes a rank took in a decode step when the recurrent kinds'
+    layers were gathered whole over ``model`` (PR 25's program): every
+    packed leaf of those segments but the rank's own block."""
+    from repro_torch.models import lm
+    from repro_torch.roofline import analysis
+    tree = lm.packed_abstract_params(cfg)
+    total = sum(analysis.tree_bytes(tree[f"seg{i}_{kind}"])
+                for i, (kind, _) in enumerate(cfg.segments())
+                if kind in TP_WHOLE_KINDS)
+    return total * (TP_RANKS - 1) // TP_RANKS
 
 
 def _tp_leaves(defs, path=()):
@@ -5036,28 +5067,41 @@ def tp_single(cfg) -> dict:
     return res
 
 
-def tp_rows_probe(p: dict, cfg) -> dict:
+def tp_rows_probe(p: dict, cfg, kind: str) -> dict:
     """Hazard H2 at the model axis's sums: the row-parallel linears of
-    one layer (packed ``wo`` over the rank's heads, packed ``w2`` over its
-    d_ff block where the layer has a dense FFN, and a float bf16 block of
-    ``wo``'s shape) at 1 to 8 rows, each row against itself alone ->
-    {linear: elements of rows 1-8 that differ}."""
+    one layer of ``kind`` (packed ``wo`` over the rank's heads and a
+    float bf16 block of its shape, packed ``w2`` over its d_ff block
+    where the layer has a dense FFN, the RG-LRU's ``w_out`` and the
+    xLSTM blocks' ``w_down`` over theirs) at 1 to 8 rows, each row
+    against itself alone -> {linear: elements of rows 1-8 that
+    differ}."""
     import torch
 
     from repro_torch.distributed import ctx
-    from repro_torch.models import layers
+    from repro_torch.models import blocks, layers
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 13)
-    hb = ctx.heads(cfg)
-    _, f0, f1 = ctx.extent(cfg.d_ff)
-    kq = cfg.n_heads * cfg.d_head
-    wo = p["attn_wo"]
-    cases = {"wo packed": (hb.nq * cfg.d_head, wo, kq),
-             "wo bf16": (hb.nq * cfg.d_head, torch.randn(
-                 (hb.qb * cfg.d_head, cfg.d_model), generator=g,
-                 device="cuda").to(cfg.dtype), kq)}
+
+    def rows(k):
+        _, lo, hi = ctx.extent(k)
+        return hi - lo
+    cases = {}
+    if "attn_wo" in p:
+        hb = ctx.heads(cfg)
+        kq = cfg.n_heads * cfg.d_head
+        cases["wo packed"] = (hb.nq * cfg.d_head, p["attn_wo"], kq)
+        cases["wo bf16"] = (hb.nq * cfg.d_head, torch.randn(
+            (hb.qb * cfg.d_head, cfg.d_model), generator=g,
+            device="cuda").to(cfg.dtype), kq)
     if "ffn_w2" in p:
-        cases["w2 packed"] = (f1 - f0, p["ffn_w2"], cfg.d_ff)
+        cases["w2 packed"] = (rows(cfg.d_ff), p["ffn_w2"], cfg.d_ff)
+    if "w_out" in p:
+        cases["w_out packed"] = (rows(cfg.d_model), p["w_out"],
+                                 cfg.d_model)
+    if "w_down" in p:
+        k = blocks.MlstmBlock._di(cfg) if kind == "mlstm" \
+            else blocks.SlstmBlock._dff(cfg) // 2
+        cases["w_down packed"] = (rows(k), p["w_down"], k)
     out = {}
     for name, (kv, w, k) in cases.items():
         x = torch.randn((8, 1, kv), generator=g, device="cuda").to(cfg.dtype)
@@ -5101,6 +5145,7 @@ def tp_rank(rank: int, arch: str, feed: list) -> dict:
         logits_, peaks = [], []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        sharding.reset_counts()
         t0 = time.perf_counter()
         logits, state = serve_step.prefill_step(
             cfg, params, {"tokens": tp_prompt(cfg.vocab).cuda()}, TP_S_MAX,
@@ -5109,13 +5154,19 @@ def tp_rank(rank: int, arch: str, feed: list) -> dict:
         torch.cuda.synchronize()
         peaks.append(torch.cuda.max_memory_allocated())
         torch.cuda.reset_peak_memory_stats()
+        out["prefill_bytes"] = sharding.all_gather.bytes \
+            + sharding.all_reduce.bytes
+        sharding.reset_counts()
         for tok in feed:
             logits, state = serve_step.decode_step(
                 cfg, params, torch.from_numpy(tok).cuda(), state, mesh=mesh)
             logits_.append(logits[:, -1].float().cpu().numpy())
         torch.cuda.synchronize()
         peaks.append(torch.cuda.max_memory_allocated())
-        out["kv_heads"] = int(state.seg_states[0].k.shape[2])
+        out["decode_bytes"] = (sharding.all_gather.bytes
+                               + sharding.all_reduce.bytes) // len(feed)
+        out["kv_heads"] = [int(s.k.shape[2]) for s in state.seg_states
+                           if hasattr(s, "k")]
         return logits_, peaks, (time.perf_counter() - t0) * 1e3
 
     with LaunchHolds(per_key=10**9, gemm=True) as holds, \
@@ -5128,18 +5179,20 @@ def tp_rank(rank: int, arch: str, feed: list) -> dict:
         out["held"] = {n: sum(v for k, v in holds.held.items() if k[0] == n)
                        for n in ("pack", "xnor_gemm", "xnor_linear_fused")}
         out["worst"] = dict(holds.worst)
-        sharding.reset_counts()
         with holds.off():                   # unheld: the peaks and ms
             logits, out["peak"], out["ms"] = run()
-        out["traffic"] = {f.__name__: f.bytes for f in (
-            sharding.all_gather, sharding.all_reduce)}
         out["repeat"] = all(np.array_equal(a, b) for a, b in zip(
             logits, out["logits"]))
         out["unheld"] = sorted(holds.unheld - set(holds.held))
         with ctx.activation_rules({"batch": None, "tp": "model",
                                    "ep": "model"}, mesh):
-            out["h2"] = tp_rows_probe(blocks_mod.layer_params(
-                params[f"seg0_{cfg.pattern[0]}"], 0), cfg)
+            out["h2"] = {}
+            for i, (kind, _) in enumerate(cfg.segments()):
+                if kind not in {k for k, _ in cfg.segments()[:i]}:
+                    out["h2"] |= {f"{kind} {name}": v for name, v in
+                                  tp_rows_probe(blocks_mod.layer_params(
+                                      params[f"seg{i}_{kind}"], 0), cfg,
+                                      kind).items()}
     return out
 
 
@@ -5203,7 +5256,7 @@ def tp_serving(gpu: str) -> dict:
         pre, dec = tp_dry(cfg)
         dry = [pre["memory_analysis"]["peak_bytes"],
                dec["memory_analysis"]["peak_bytes"]]
-        print(f"[tp] 12 {cfg.name} bf16, full width, {TP_LAYERS} of "
+        print(f"[tp] 12 {cfg.name} bf16, full width, {TP_LAYERS[arch]} of "
               f"{configs.get(arch).n_layers} layers ({lm.param_count(cfg)} "
               f"params), {TP_RANKS} gloo ranks on model (heads, d_ff, "
               f"experts and vocab), batch {TP_BATCH}, a {TP_PROMPT}-token "
@@ -5222,8 +5275,12 @@ def tp_serving(gpu: str) -> dict:
                   f"{dry[0] / 2**30} / {dry[1] / 2**30} GiB "
                   f"({r['peak'][0] / dry[0]} x, {r['peak'][1] / dry[1]} x);"
                   f" {r['ms']} ms (host clock, gloo through the host: not a "
-                  f"TP speed), bytes in {r['traffic']}; H2 probe (elements "
-                  f"differing at 1-8 rows) {r['h2']}  [{gpu}]")
+                  f"TP speed); collective bytes in: the prefill "
+                  f"{r['prefill_bytes']}, a decode step "
+                  f"{r['decode_bytes']} (gathering the recurrent kinds' "
+                  f"layers whole took {tp_whole_bytes(cfg)} more); H2 "
+                  f"probe (elements differing at 1-8 rows) {r['h2']}  "
+                  f"[{gpu}]")
         print(f"[tp] 12 {cfg.name} single-process on the card: peak "
               f"{ref['peak'] / 2**30} GiB, {ref['ms']} ms; the dry-run's "
               f"decode cell {dec['collectives']}; phase {took} s  [{gpu}]")

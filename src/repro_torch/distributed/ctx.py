@@ -8,7 +8,8 @@ under an ambient rule set ``{"batch": axes, "tp": "model", "ep":
 placed.  The port has no compiler to honour a pin, so the parallel
 layers are written out (``layers.row_linear``, the vocab-parallel
 ``embed`` and ``logits``, the rank's heads in ``attention``, the rank's
-experts in ``moe``); they read the model axis from this context, so
+experts in ``moe``, the recurrent and CNN kinds' blocks in ``blocks``
+and ``bcnn``); they read the model axis from this context, so
 model code carries no mesh plumbing.  Outside a context ``tp_size()`` is
 1 and every layer runs as on one device, dispatching the same ops.
 

@@ -137,12 +137,12 @@ def _sdpa(cfg, q, k, v, mask):
     """q (B, Sq, H, dh), k/v (B, Sk, H, dh), mask (1|B, Sq, Sk) or None;
     f32 scores and softmax, P rounded to v's dtype before P.V."""
     scale = cfg.d_head ** -0.5
-    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
+    scores = layers.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
     if mask is not None:
         scores = torch.where(mask[:, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype).float(),
-                       v.float())
+    out = layers.einsum("bhqs,bshd->bqhd", probs.to(v.dtype).float(),
+                        v.float())
     return out.to(q.dtype)
 
 
@@ -253,11 +253,11 @@ def decode_cross_attention(cfg, p: dict, x: torch.Tensor,
     out = []
     for j in range(b):
         k, v = (t[j:j + 1] for t in ctx_kv)
-        scores = torch.einsum("bqkgd,bskd->bkgqs", q[j:j + 1].float(),
-                              k.float()) * scale
+        scores = layers.einsum("bqkgd,bskd->bkgqs", q[j:j + 1].float(),
+                               k.float()) * scale
         probs = torch.softmax(scores, dim=-1)
-        out.append(torch.einsum("bkgqs,bskd->bqkgd",
-                                probs.to(v.dtype).float(), v.float()))
+        out.append(layers.einsum("bkgqs,bskd->bqkgd",
+                                 probs.to(v.dtype).float(), v.float()))
     out = torch.cat(out).to(q.dtype)
     return layers.linear(out.reshape(b, s, cfg.n_heads * cfg.d_head),
                          p["wo"], cfg.quant)
@@ -332,12 +332,12 @@ def _decode_heads(q, ck, cv, valid, scale):
     """q (B, 1, KV, G, dh) against the caches (B, KV, S, dh) -> (B, 1, KV,
     G, dh) f32: f32 scores, the ``valid`` (B, S) keys, P rounded to q's
     dtype before P.V."""
-    scores = torch.einsum("bqkgd,bksd->bkgqs", q.float(),
-                          ck.to(q.dtype).float()) * scale
+    scores = layers.einsum("bqkgd,bksd->bkgqs", q.float(),
+                           ck.to(q.dtype).float()) * scale
     scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkgqs,bksd->bqkgd", probs.to(q.dtype).float(),
-                        cv.to(q.dtype).float())
+    return layers.einsum("bkgqs,bksd->bqkgd", probs.to(q.dtype).float(),
+                         cv.to(q.dtype).float())
 
 
 class PagedKVCache(NamedTuple):
@@ -419,8 +419,8 @@ def paged_attention(cfg, p: dict, x: torch.Tensor, cache: PagedKVCache,
                                                      cfg.d_head)
     gv = cache.v[idx].permute(0, 2, 1, 3, 4).reshape(b, cfg.n_kv_heads, cap,
                                                      cfg.d_head)
-    scores = torch.einsum("bqkgd,bksd->bkgqs", q.float(),
-                          gk.to(q.dtype).float()) * scale
+    scores = layers.einsum("bqkgd,bksd->bkgqs", q.float(),
+                           gk.to(q.dtype).float()) * scale
     kslot = torch.arange(cap, device=x.device)[None, None, :]
     if window:
         age = torch.remainder(torch.remainder(qpos[:, :, None], cap) - kslot,
@@ -430,8 +430,8 @@ def paged_attention(cfg, p: dict, x: torch.Tensor, cache: PagedKVCache,
         valid_k = kslot <= qpos[:, :, None]                    # (B, C, cap)
     scores = torch.where(valid_k[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bksd->bqkgd", probs.to(q.dtype).float(),
-                       gv.to(q.dtype).float()).to(x.dtype)
+    out = layers.einsum("bkgqs,bksd->bqkgd", probs.to(q.dtype).float(),
+                        gv.to(q.dtype).float()).to(x.dtype)
     if i8:
         out = out / cfg.kv_i8_scale
     out = out.reshape(b, c, cfg.n_heads * cfg.d_head)

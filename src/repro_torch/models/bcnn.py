@@ -32,8 +32,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import prng, verify
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models import layers, xnor_classifier
-from repro_torch.models.blocks import PagedLayout
+from repro_torch.models.blocks import PagedLayout, _row_out, _whole
 from repro_torch.models.params import ParamDef
 from repro_torch.models.registry import BlockContract, register
 
@@ -48,9 +49,13 @@ VOCAB = N_CLASSES + 2  # classes + query + one spare
 class BinDenseBlock(PagedLayout):
     """A binary MLP block gated by the pooled image context; its state,
     the gate ``g`` (B, 1, d) in cfg.dtype, is written by prefill and only
-    read by decode."""
+    read by decode.  Under tensor parallelism a rank computes its column
+    blocks of ``w_ctx`` (the gate, and the state, its block of d, as the
+    reference places it, gathered whole at its use) and of ``w_up``;
+    ``w_down`` is row parallel."""
     contract = BlockContract("bindense", per_slot_state=True,
                              prefix_shareable=True, decode_writes_slot=False)
+    tensor_parallel = True
 
     @classmethod
     def defs(cls, cfg, n):
@@ -71,16 +76,17 @@ class BinDenseBlock(PagedLayout):
         """(B, 1, d): the context's mean row through ``w_ctx``; zeros
         without a context."""
         if ctx is None:
-            return torch.zeros((batch, 1, cfg.d_model), dtype=cfg.dtype,
-                               device=p["w_ctx"].device)
+            return torch.zeros((batch, 1, dctx.extent(cfg.d_model)[0]),
+                               dtype=cfg.dtype, device=p["w_ctx"].device)
         pooled = ctx.float().mean(dim=1, keepdim=True)
         return layers.linear(pooled.to(cfg.dtype), p["w_ctx"]).to(cfg.dtype)
 
     @classmethod
     def _mlp(cls, cfg, p, x, g):
+        (g,) = _whole((g, cfg.d_model))
         h = layers.rms_norm(x, p["ln1"])
-        u = layers.linear(h + g, p["w_up"], cfg.quant)
-        return x + layers.linear(torch.relu(u), p["w_down"], cfg.quant)
+        u = layers.linear(dctx.enter(h + g), p["w_up"], cfg.quant)
+        return x + _row_out(cfg, p["w_down"], torch.relu(u), cfg.d_ff)
 
     @classmethod
     def fwd(cls, cfg, p, x, opts, ctx=None):

@@ -29,9 +29,10 @@ Every kind implements:
   state_spec(cfg, n, batch, s_max, device)    dense decode state
   state_pspec(cfg, ba, kv_shard, tp_size)     its placements, one layer
 and ``tensor_parallel``: whether the kind computes on its blocks over
-the model axis under :mod:`repro_torch.distributed.ctx` (``attn`` and
-``moe``; every other kind's layer is gathered whole and computes as on
-one device),
+the model axis under :mod:`repro_torch.distributed.ctx` (``attn``,
+``local``, ``moe``, ``rglru``, ``mlstm``, ``slstm`` and ``bindense``;
+the context kinds' layers are gathered whole and compute as on one
+device), with its ``tp_state_pspec``,
 and, from :class:`PagedLayout`, the paged state its contract implies
 (``paged_state_spec``, ``paged_split`` / ``paged_merge``) and the session
 migration surface (``export_slot`` / ``import_slot``).  A state is a tree
@@ -75,6 +76,36 @@ def _norm_def(cfg, n):
 def _sub(p: dict, prefix: str) -> dict:
     cut = len(prefix)
     return {k[cut:]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def _whole(*blocks: tuple) -> list:
+    """(this rank's ceil-div block of a last dim, the dim's whole
+    length) pairs -> the whole tensors, every rank's blocks in rank order
+    through one ``ctx.gather_last``; the tensors themselves outside
+    tensor parallelism.  A tensor that then enters a rank's share goes
+    through ``ctx.enter``, so its gradient reaches the gather whole."""
+    if dctx.tp_size() == 1:
+        return [t for t, _ in blocks]
+    k = dctx.tp_size()
+    widths = [t.shape[-1] for t, _ in blocks]
+    got = dctx.gather_last(torch.cat([t for t, _ in blocks], dim=-1))
+    got = got.reshape(*got.shape[:-1], k, sum(widths))
+    out, s = [], 0
+    for (_, n), w in zip(blocks, widths):
+        out.append(got[..., s:s + w].reshape(*got.shape[:-2], k * w)
+                   [..., :n].contiguous())
+        s += w
+    return out
+
+
+def _row_out(cfg, w, y: torch.Tensor, k: int) -> torch.Tensor:
+    """``y`` (this rank's block of a dim of ``k``) @ the row-parallel
+    ``w``: ``layers.row_linear`` on its valid part; ``layers.linear``
+    outside tensor parallelism."""
+    if dctx.tp_size() == 1:
+        return layers.linear(y, w, cfg.quant)
+    _, start, stop = dctx.extent(k)
+    return layers.row_linear(y[..., :stop - start], w, cfg.quant, k)
 
 
 def layer_params(p, i: int) -> dict:
@@ -177,6 +208,13 @@ class PagedLayout:
     per-slot)."""
 
     tensor_parallel = False
+
+    @classmethod
+    def tp_state_pspec(cls, cfg, ba):
+        """A tensor-parallel kind's dense-state placements in the sharded
+        steps: the reference's (``state_pspec``) unless the kind says
+        otherwise."""
+        return cls.state_pspec(cfg, ba)
 
     @classmethod
     def slot_spec(cls, cfg, n, batch, device):
@@ -371,7 +409,6 @@ class LocalBlock(AttnBlock):
     contract = BlockContract("local", paged_kv=True, table_class="win",
                              window=True)
     window = 1
-    tensor_parallel = False
 
 
 @register
@@ -409,8 +446,15 @@ class RglruBlock(_FfnBlock):
     """Griffin's recurrent block: a gated branch gelu(h W_gate) times the
     RG-LRU over conv1d(h W_x), projected by W_out; then the FFN.  The
     state is per slot: ``(RGLRUState(h (B, d) f32), conv buffer (B, W-1,
-    d) in cfg.dtype)``."""
+    d) in cfg.dtype)``.
+
+    Under tensor parallelism a rank computes its block of the d channels:
+    ``w_gate`` / ``w_x`` columns, the conv, ``lam`` and the RG-LRU on them
+    (the state its block, as the reference places it); ``w_r`` / ``w_i``
+    read the whole conv output (gathered once a layer call) into their
+    column blocks, and ``w_out`` is row parallel."""
     contract = BlockContract("rglru", per_slot_state=True)
+    tensor_parallel = True
 
     @classmethod
     def defs(cls, cfg, n):
@@ -431,11 +475,14 @@ class RglruBlock(_FfnBlock):
 
     @classmethod
     def _mix(cls, cfg, p, h):
+        h = dctx.enter(h)
         return (layers.gelu(layers.linear(h, p["w_gate"], cfg.quant)),
                 layers.linear(h, p["w_x"], cfg.quant))
 
     @classmethod
     def _gates(cls, cfg, p, uc):
+        (uc,) = _whole((uc, cfg.d_model))
+        uc = dctx.enter(uc)
         return (layers.linear(uc, p["w_r"], cfg.quant),
                 layers.linear(uc, p["w_i"], cfg.quant))
 
@@ -445,10 +492,10 @@ class RglruBlock(_FfnBlock):
         g, u = cls._mix(cfg, p, h)
         uc = ssm.conv1d(u, p["conv_k"])
         r, i = cls._gates(cfg, p, uc.to(u.dtype))
-        st0 = ssm.RGLRUState.zeros(x.shape[0], cfg.d_model, x.device)
+        st0 = ssm.RGLRUState.zeros(x.shape[0], u.shape[-1], x.device)
         y, st = ssm.rglru(uc, r, i, p["lam"], cfg.rglru_c, st0)
-        x = cls._residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
-                                                        cfg.quant))
+        x = cls._residual_ffn(cfg, p, x, _row_out(cfg, p["w_out"], g * y,
+                                                  cfg.d_model))
         state = None
         if opts.want_state:
             state = (st, _conv_buf(u, cfg.conv_width - 1, cfg.dtype))
@@ -464,8 +511,8 @@ class RglruBlock(_FfnBlock):
         uc, buf_new = ssm.conv1d_step(buf, u, p["conv_k"])
         r, i = cls._gates(cfg, p, uc)
         y, st_new = ssm.rglru_step(uc, r, i, p["lam"], cfg.rglru_c, st)
-        x = cls._residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
-                                                        cfg.quant))
+        x = cls._residual_ffn(cfg, p, x, _row_out(cfg, p["w_out"], g * y,
+                                                  cfg.d_model))
         st.h.copy_(st_new.h)
         buf.copy_(buf_new)
         return x
@@ -479,8 +526,8 @@ class RglruBlock(_FfnBlock):
         r, i = cls._gates(cfg, p, uc.to(u.dtype))
         y, st_new = ssm.rglru(uc, r, i, p["lam"], cfg.rglru_c, st,
                               valid=valid)
-        x = cls._residual_ffn(cfg, p, x, layers.linear(g * y, p["w_out"],
-                                                        cfg.quant))
+        x = cls._residual_ffn(cfg, p, x, _row_out(cfg, p["w_out"], g * y,
+                                                  cfg.d_model))
         st.h.copy_(st_new.h)
         buf.copy_(ssm.conv1d_carry_out(buf, u, n_valid))
         return x
@@ -507,8 +554,19 @@ class MlstmBlock(PagedLayout):
     cell's output normed by ``out_norm`` and gated by silu(z), projected
     down.  No FFN.  The state is per slot: ``(MLSTMState(c (B, NH, dh,
     dh), n (B, NH, dh), m (B, NH)), conv buffer (B, W-1, di) in
-    cfg.dtype)``, the memory f32."""
+    cfg.dtype)``, the memory f32.
+
+    Under tensor parallelism a rank holds its block of ``di`` (``w_up``,
+    ``w_gate``, ``conv_k``, the q / k / v columns, ``out_norm``,
+    ``w_down``'s rows) and its block of the memory's first dh axis (the
+    ``v`` rows, as the reference places ``c``): the conv output and ``u``
+    are gathered once a layer call, q, k and v once, and q, k, the
+    ``w_if`` gates and the normalizer ``n . q`` are whole on every rank,
+    so ``C q`` sums a whole k axis in the single-process order; the
+    cell's output is gathered before ``out_norm`` (a whole-row norm).
+    ``n`` and ``m`` stay whole."""
     contract = BlockContract("mlstm", per_slot_state=True)
+    tensor_parallel = True
 
     @classmethod
     def _di(cls, cfg) -> int:
@@ -537,9 +595,14 @@ class MlstmBlock(PagedLayout):
 
     @classmethod
     def _up(cls, cfg, p, x):
-        h = layers.rms_norm(x, p["ln1"])
+        h = dctx.enter(layers.rms_norm(x, p["ln1"]))
         return (layers.linear(h, p["w_up"], cfg.quant),
                 layers.linear(h, p["w_gate"], cfg.quant))
+
+    @classmethod
+    def _rows(cls, cfg) -> tuple[int, int, int]:
+        """This rank's block of the memory's first dh axis."""
+        return dctx.extent(cls._di(cfg) // cfg.n_heads)
 
     @classmethod
     def _qkvif(cls, cfg, p, u, uc_in):
@@ -548,27 +611,43 @@ class MlstmBlock(PagedLayout):
         output ``uc_in`` (before its SiLU).  The ``w_if`` product reads
         the SiLU's last product unrounded, as the jitted reference does
         where an f32 cast follows it."""
-        nh = cfg.n_heads
-        dh = cls._di(cfg) // nh
+        nh, di = cfg.n_heads, cls._di(cfg)
+        dh = di // nh
         b, s = u.shape[:2]
-        uc = layers.silu(uc_in)
+        uc_in, u = _whole((uc_in, di), (u, di))
+        uc = layers.silu(dctx.enter(uc_in))
         scale = torch.tensor(dh ** -0.5).to(u.dtype)
-        q = layers.linear(uc, p["wq"], cfg.quant).reshape(b, s, nh, dh)
-        k = layers.linear(uc, p["wk"], cfg.quant).reshape(b, s, nh, dh) \
-            * scale
-        v = layers.linear(u, p["wv"], cfg.quant).reshape(b, s, nh, dh)
+        q, k, v = _whole((layers.linear(uc, p["wq"], cfg.quant), di),
+                         (layers.linear(uc, p["wk"], cfg.quant), di),
+                         (layers.linear(dctx.enter(u), p["wv"], cfg.quant),
+                          di))
+        q = q.reshape(b, s, nh, dh)
+        k = k.reshape(b, s, nh, dh) * scale
+        v = v.reshape(b, s, nh, dh)
         gif = ssm.rows_matmul(layers.silu(uc_in, f32=True),
                               p["w_if"]) + p["b_if"]
-        return q, k, v, gif[..., :nh], gif[..., nh:]
+        ig, fg = gif[..., :nh], gif[..., nh:]
+        if dctx.tp_size() == 1:
+            return q, k, v, ig, fg
+        # the cell computes this rank's v rows: what enters it is whole
+        rb, r0, r1 = cls._rows(cfg)
+        v = torch.nn.functional.pad(dctx.enter(v)[..., r0:r1],
+                                    (0, rb - (r1 - r0)))
+        return (*(dctx.enter(t) for t in (q, k)), v,
+                *(dctx.enter(t) for t in (ig, fg)))
 
     @classmethod
     def _down(cls, cfg, p, x, hseq, z):
         """The cell's output (B, S, NH, dh) f32, normed, gated by silu(z)
         and projected down, joins the residual."""
         b, s = x.shape[:2]
-        hseq = hseq.reshape(b, s, cls._di(cfg)).to(x.dtype)
-        hseq = layers.rms_norm(hseq, p["out_norm"]) * layers.silu(z)
-        return x + layers.linear(hseq, p["w_down"], cfg.quant)
+        di = cls._di(cfg)
+        (hseq,) = _whole((hseq, di // cfg.n_heads))
+        hseq = dctx.enter(hseq).reshape(b, s, di).to(x.dtype)
+        _, c0, c1 = dctx.extent(di)
+        hseq = layers.rms_norm(hseq, p["out_norm"], cols=slice(c0, c1)) \
+            * layers.silu(z[..., :c1 - c0])
+        return x + _row_out(cfg, p["w_down"], hseq, di)
 
     @classmethod
     def fwd(cls, cfg, p, x, opts: FwdOpts, ctx=None):
@@ -577,7 +656,8 @@ class MlstmBlock(PagedLayout):
         uc = ssm.conv1d(u, p["conv_k"]).to(u.dtype)
         q, k, v, ig, fg = cls._qkvif(cfg, p, u, uc)
         nh = cfg.n_heads
-        st0 = ssm.MLSTMState.zeros(b, nh, cls._di(cfg) // nh, x.device)
+        st0 = ssm.MLSTMState.zeros(b, nh, cls._di(cfg) // nh, x.device,
+                                   rows=v.shape[-1])
         hseq, st = ssm.mlstm_chunkwise(q, k, v, ig, fg, st0,
                                        min(cfg.mlstm_chunk, s))
         x = cls._down(cfg, p, x, hseq, z)
@@ -636,6 +716,13 @@ class MlstmBlock(PagedLayout):
         return (ssm.MLSTMState((ba, None, "model", None), (ba, None, "model"),
                                (ba, None)), (ba, None, "model"))
 
+    @classmethod
+    def tp_state_pspec(cls, cfg, ba):
+        """The reference's, but ``n`` whole: every rank computes the
+        normalizer ``n . q`` in the single-process order."""
+        return (ssm.MLSTMState((ba, None, "model", None), (ba, None, None),
+                               (ba, None)), (ba, None, "model"))
+
 
 @register
 class SlstmBlock(_FfnBlock):
@@ -644,14 +731,26 @@ class SlstmBlock(_FfnBlock):
     ``r_kernel`` (run one token at a time), then a GLU projection
     ``a * gelu(g)`` of width ``int(4 d / 3 / 64) * 64`` as the block's
     FFN.  The state is per slot: ``SLSTMState(c, n, m, h)``, each (B, d)
-    f32."""
+    f32.
+
+    Under tensor parallelism a rank computes its column blocks of
+    ``w_gates`` and of the GLU's ``w_up`` (blocks of the concatenated
+    gates, ``a | g``), gathered whole once a layer call; the cell runs
+    whole on every rank (a sequential recurrence: no collective a token)
+    and so does its state; ``w_down`` is row parallel."""
     contract = BlockContract("slstm", per_slot_state=True)
+    tensor_parallel = True
+
+    @classmethod
+    def _dff(cls, cfg) -> int:
+        """The GLU's up width (a 4/3 factor, both halves)."""
+        return int(4 * cfg.d_model / 3 / 64) * 64 * 2
 
     @classmethod
     def defs(cls, cfg, n):
         d, nh = cfg.d_model, cfg.n_heads
         dh = d // nh
-        dff = int(4 * d / 3 / 64) * 64 * 2      # GLU up width (4/3 factor)
+        dff = cls._dff(cfg)
         return {
             "ln1": _norm_def(cfg, n),
             "w_gates": ParamDef((n, d, 4 * d), (None, "fsdp", "tp"), cfg.dtype,
@@ -669,13 +768,22 @@ class SlstmBlock(_FfnBlock):
 
     @classmethod
     def _ffn(cls, cfg, p, h, valid=None, opts=None):
-        a, g = layers.linear(h, p["w_up"], cfg.quant).chunk(2, dim=-1)
-        return layers.linear(a * layers.gelu(g), p["w_down"], cfg.quant)
+        dff = cls._dff(cfg)
+        (up,) = _whole((layers.linear(dctx.enter(h), p["w_up"], cfg.quant),
+                        dff))
+        a, g = up.chunk(2, dim=-1)
+        y = a * layers.gelu(g)
+        if dctx.tp_size() > 1:
+            _, start, stop = dctx.extent(y.shape[-1])
+            y = dctx.enter(y)[..., start:stop]
+        return _row_out(cfg, p["w_down"], y, dff // 2)
 
     @classmethod
     def _gates(cls, cfg, p, x):
-        return layers.linear(layers.rms_norm(x, p["ln1"]), p["w_gates"],
-                             cfg.quant)
+        h = dctx.enter(layers.rms_norm(x, p["ln1"]))
+        (gates,) = _whole((layers.linear(h, p["w_gates"], cfg.quant),
+                           4 * cfg.d_model))
+        return gates
 
     @classmethod
     def fwd(cls, cfg, p, x, opts: FwdOpts, ctx=None):
@@ -707,6 +815,11 @@ class SlstmBlock(_FfnBlock):
     def state_pspec(cls, cfg, ba, kv_shard: str = "heads",
                     tp_size: int = 16):
         return ssm.SLSTMState(*((ba, "model"),) * 4)
+
+    @classmethod
+    def tp_state_pspec(cls, cfg, ba):
+        """Whole over ``model``: the cell runs whole on every rank."""
+        return ssm.SLSTMState(*((ba, None),) * 4)
 
 
 def _ctx_kv_spec(cfg, n, batch, device) -> tuple:

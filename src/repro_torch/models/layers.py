@@ -21,6 +21,7 @@ import torch
 from repro_torch.core import xnor_layers
 from repro_torch.distributed import ctx
 from repro_torch.kernels import cuda, ops
+from repro_torch.models import cpu_math
 from repro_torch.models.params import ParamDef
 
 
@@ -65,11 +66,37 @@ def _padded_sum(x: torch.Tensor, square: bool = False) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
-             dtype: torch.dtype | None = None) -> torch.Tensor:
-    """RMSNorm in f32, rounded to ``dtype`` (``x.dtype`` by default)."""
+             dtype: torch.dtype | None = None, cols: slice | None = None
+             ) -> torch.Tensor:
+    """RMSNorm in f32, rounded to ``dtype`` (``x.dtype`` by default).
+    ``cols``: the statistics over the whole row, the output of those
+    elements alone (``scale`` holds just theirs)."""
     x32 = x.float()
     var = row_sum(x32, square=True) * (1.0 / x.shape[-1])
+    if cols is not None:
+        x32, scale = x32[..., cols], scale[:cols.stop - cols.start]
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(dtype or x.dtype)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, f32: bool = False
+           ) -> torch.Tensor:
+    """x (..., K) @ w (K, N), rounded to x's dtype (``f32``: left f32).
+    On the card PyTorch's product; on the CPU the reference's CPU dot
+    order (:mod:`cpu_math`, fault F7), not the host BLAS's."""
+    if cuda.on_card(x):
+        return torch.matmul(x.float(), w.float()) if f32 \
+            else torch.matmul(x, w)
+    y = cpu_math.matmul(x, w)
+    return y if f32 else y.to(x.dtype)
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of one contracted index in f32: on the
+    card PyTorch's, on the CPU in the reference's CPU dot order
+    (:func:`cpu_math.einsum`)."""
+    if cuda.on_card(a):
+        return torch.einsum(eq, a.float(), b.float())
+    return cpu_math.einsum(eq, a, b)
 
 
 def linear(x: torch.Tensor, w, quant: str = "none",
@@ -83,7 +110,7 @@ def linear(x: torch.Tensor, w, quant: str = "none",
     elif quant == "xnor":
         y = xnor_layers.xnor_linear(x, w.t())
     else:
-        y = torch.matmul(x, w)
+        y = matmul(x, w)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
@@ -134,7 +161,7 @@ def row_linear(x: torch.Tensor, w, quant: str, k: int) -> torch.Tensor:
                 * (1.0 / k)).to(w.dtype)
         y = ctx.reduce_sum(part) * alpha[:, None] * beta
     else:
-        y = ctx.reduce_sum(torch.matmul(x2.float(), wv.float()))
+        y = ctx.reduce_sum(matmul(x2, wv, f32=True))
     return y.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 
@@ -199,7 +226,7 @@ def silu(g: torch.Tensor, f32: bool = False) -> torch.Tensor:
     an f32 cast follows.  Subnormals are the platform's: XLA's CPU and
     the TPU flush them to zero, torch keeps them unless
     ``torch.set_flush_denormal`` is on."""
-    r = torch.reciprocal(torch.exp(-g) + 1)
+    r = torch.reciprocal(cpu_math.exp(-g) + 1)
     return g.float() * r.float() if f32 else g * r
 
 
@@ -220,7 +247,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     def c(v):
         return torch.tensor(v, dtype=torch.float32).to(x.dtype)
     inner = x + c(0.044715) * (x * (x * x))
-    cdf = c(0.5) * (1.0 + torch.tanh(c(math.sqrt(2 / math.pi)) * inner))
+    cdf = c(0.5) * (1.0 + cpu_math.tanh(c(math.sqrt(2 / math.pi)) * inner))
     return x * cdf
 
 
@@ -274,6 +301,6 @@ def logits(cfg, p: dict, x: torch.Tensor, gather: bool = True
     rank's block, its padding columns included."""
     h = rms_norm(x, p["final_norm"])
     if ctx.tp_size() == 1:
-        return torch.matmul(h, p["lm_head"])
-    y = torch.matmul(ctx.enter(h), p["lm_head"])
+        return matmul(h, p["lm_head"])
+    y = matmul(ctx.enter(h), p["lm_head"])
     return ctx.gather_last(y)[..., :cfg.padded_vocab] if gather else y

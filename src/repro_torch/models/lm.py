@@ -32,7 +32,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.distributed import ctx as dctx
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, cpu_math, layers
 from repro_torch.models import params as pdefs
 from repro_torch.models import registry
 
@@ -185,12 +185,12 @@ def _picked_lse(cfg, logits: torch.Tensor, labels: torch.Tensor):
     if dctx.tp_size() == 1:
         onehot = labels[..., None] == torch.arange(logits.shape[-1],
                                                    device=logits.device)
-        return (logits * onehot).sum(-1), torch.logsumexp(logits, dim=-1)
+        return (logits * onehot).sum(-1), cpu_math.logsumexp(logits)
     _, start, stop = dctx.extent(cfg.padded_vocab)
     logits = logits[..., :stop - start]
     m = dctx.max_over(logits.amax(-1))
-    lse = m + torch.log(dctx.reduce_sum(
-        torch.exp(logits - m[..., None]).sum(-1)))
+    lse = m + cpu_math.log(dctx.reduce_sum(
+        cpu_math.exp(logits - m[..., None]).sum(-1)))
     local = labels.long() - start
     hit = (local >= 0) & (local < stop - start)
     picked = logits.gather(-1, local.clamp(0, stop - start - 1)[..., None])

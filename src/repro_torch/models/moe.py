@@ -45,7 +45,7 @@ import torch
 
 from repro_torch.distributed import ctx
 from repro_torch.kernels import cuda
-from repro_torch.models import layers
+from repro_torch.models import cpu_math, layers
 from repro_torch.models.params import ParamDef
 
 F32 = torch.float32
@@ -97,8 +97,8 @@ def route(cfg, router: torch.Tensor, xg: torch.Tensor,
         logits = layers.row_sum(xg.to(F32)[..., None, :]
                                 * router.t().contiguous())[..., 0]
     else:
-        logits = torch.matmul(xg.to(F32), router)
-    u = torch.exp(logits - logits.amax(-1, keepdim=True))
+        logits = layers.matmul(xg, router, f32=True)
+    u = cpu_math.exp(logits - logits.amax(-1, keepdim=True))
     probs = u / layers.row_sum(u)
     # jax.lax.top_k breaks ties toward the lower index: a stable sort
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import cuda
-from repro_torch.models import layers
+from repro_torch.models import cpu_math, layers
 
 F32 = torch.float32
 
@@ -106,7 +106,7 @@ class RGLRUState(NamedTuple):
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    return torch.clamp(x, min=0) + torch.log1p(cpu_math.exp(-x.abs()))
 
 
 def _log_a(lam: torch.Tensor, r_gate: torch.Tensor, c: float):
@@ -163,9 +163,9 @@ def rglru(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
         keep = valid[..., None]
         log_a = torch.where(keep, log_a, 0.0)
         gated = torch.where(keep, gated, 0.0)
-    a = torch.exp(log_a)
-    b_t = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
-                                 min=1e-12)) * gated
+    a = cpu_math.exp(log_a)
+    b_t = cpu_math.sqrt(torch.clamp(1.0 - cpu_math.exp(2.0 * log_a),
+                                    min=1e-12)) * gated
     a_all = torch.cat([torch.ones_like(state.h[:, None]), a], dim=1)
     b_all = torch.cat([state.h[:, None], b_t], dim=1)
     _, h_all = _assoc_scan([a_all, b_all])
@@ -175,9 +175,10 @@ def rglru(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
 def rglru_step(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
                lam: torch.Tensor, c: float, state: RGLRUState):
     """One decode token: x, r_gate, i_gate (B, 1, D)."""
-    a = torch.exp(_log_a(lam, r_gate[:, 0], c))
+    a = cpu_math.exp(_log_a(lam, r_gate[:, 0], c))
     gated = torch.sigmoid(i_gate[:, 0].to(F32)) * x[:, 0].to(F32)
-    h = a * state.h + torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated
+    h = a * state.h + cpu_math.sqrt(torch.clamp(1.0 - a * a,
+                                                min=1e-12)) * gated
     return h[:, None].to(x.dtype), RGLRUState(h)
 
 
@@ -199,38 +200,13 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return layers.row_sum((a * b).contiguous())[..., 0]
 
 
-def _xla_dot(a: torch.Tensor, b: torch.Tensor, lanes: int = 1,
-             fma: bool = True) -> torch.Tensor:
-    """sum(a * b) over the last axis (a and b broadcast), f32, in the order
-    the jitted reference's CPU dot sums it: ``lanes`` partial sums over
-    k = j mod lanes, each accumulated in k order with one rounding a step
-    (a fused multiply-add; ``fma=False``: the product rounded first), then
-    added by adjacent pairs.  XLA picks the emitter, and so the order, by
-    the operands' layout: see :func:`_contract`.  For the CPU only."""
-    a64, b64 = a.double(), b.double()
-    k = a.shape[-1]
-    parts = []
-    for j in range(min(lanes, k)):
-        acc = None
-        for i in range(j, k, lanes):
-            p = a64[..., i] * b64[..., i]
-            if not fma:
-                p = p.float().double()
-            acc = p.float() if acc is None else (acc.double() + p).float()
-        parts.append(acc)
-    while len(parts) > 1:
-        pairs = [parts[i] + parts[i + 1] for i in range(0, len(parts) - 1, 2)]
-        parts = pairs + parts[len(pairs) * 2:]
-    return parts[0]
-
-
 def _contract(eq: str, a: torch.Tensor, b: torch.Tensor, lanes: int = 1,
               fma: bool = True) -> torch.Tensor:
     """``torch.einsum(eq, a, b)`` for one contracted index, f32.  On the
-    CPU it sums in the jitted reference's order (:func:`_xla_dot`), which
-    XLA's CPU dot emitters fix by the operands' layout; at the shapes the
-    tests hold: 4 lanes for the chunk's q k^T and C q and the gates'
-    ``w_if`` product, 8 for the step's C q, one lane for P V, q n, the
+    CPU it sums in the jitted reference's order (``cpu_math.lanes_dot``),
+    which XLA's CPU dot emitters fix by the operands' layout; at the
+    shapes the tests hold: 4 lanes for the chunk's q k^T and C q and the
+    gates' ``w_if`` product, 8 for the step's C q, one lane for P V, q n, the
     step's n q and the memory's update, unfused products for the chunk's
     row-by-row sum of the weighted q k^T (fault F5: the mLSTM's
     normalizer cancels, so the last bits of these sums decide bf16
@@ -249,7 +225,7 @@ def _contract(eq: str, a: torch.Tensor, b: torch.Tensor, lanes: int = 1,
         shape = [t.shape[[x for x in out if x in idx].index(x)]
                  if x in idx else 1 for x in out]
         return t.reshape(*shape, t.shape[-1])
-    return _xla_dot(lay(a, ia), lay(b, ib), lanes, fma)
+    return cpu_math.lanes_dot(lay(a, ia), lay(b, ib), lanes, fma)
 
 
 def _cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -285,12 +261,13 @@ class MLSTMState(NamedTuple):
 
     @classmethod
     def zeros(cls, b: int, nh: int, dh: int, device,
-              lead: tuple = ()) -> "MLSTMState":
+              lead: tuple = (), rows: int | None = None) -> "MLSTMState":
         """The fresh state (``m`` at -1e30); ``lead`` prepends axes (a
-        segment's layers)."""
+        segment's layers); ``rows`` of ``c`` (a block of its first dh
+        axis, the ``v`` side) in place of all dh."""
         def z(*shape):
             return torch.zeros(lead + shape, dtype=F32, device=device)
-        return cls(z(b, nh, dh, dh), z(b, nh, dh),
+        return cls(z(b, nh, dh if rows is None else rows, dh), z(b, nh, dh),
                    torch.full(lead + (b, nh), -1e30, dtype=F32,
                               device=device))
 
@@ -301,8 +278,8 @@ def mlstm_step(state: MLSTMState, q, k, v, i_raw, f_raw):
     lf = _log_sigmoid(f_raw.to(F32))
     i32 = i_raw.to(F32)
     m_new = torch.maximum(lf + state.m, i32)
-    fp = torch.exp(lf + state.m - m_new)
-    ip = torch.exp(i32 - m_new)
+    fp = cpu_math.exp(lf + state.m - m_new)
+    ip = cpu_math.exp(i32 - m_new)
     k32, v32, q32 = k.to(F32), v.to(F32), q.to(F32)
     c = fp[..., None, None] * state.c + ip[..., None, None] * (
         v32[..., :, None] * k32[..., None, :])
@@ -312,7 +289,7 @@ def mlstm_step(state: MLSTMState, q, k, v, i_raw, f_raw):
     else:
         num = _contract("bhij,bhj->bhi", c, q32, lanes=8)
         nq = _contract("bhj,bhj->bh", n, q32)
-    den = torch.maximum(nq.abs(), torch.exp(-m_new))
+    den = torch.maximum(nq.abs(), cpu_math.exp(-m_new))
     return num / den[..., None], MLSTMState(c, n, m_new)
 
 
@@ -343,8 +320,8 @@ def _mlstm_chunk(st: MLSTMState, qt, kt, vt, it, ft):
                                 device=qt.device))
     dmat = torch.where(tri[None, :, :, None], dmat, -torch.inf)
     m_t = torch.maximum(a_inter, dmat.amax(dim=2))          # (B, L, NH)
-    w_inter = torch.exp(a_inter - m_t)
-    w_intra = torch.exp(dmat - m_t[:, :, None, :])          # (B, t, s, NH)
+    w_inter = cpu_math.exp(a_inter - m_t)
+    w_intra = cpu_math.exp(dmat - m_t[:, :, None, :])          # (B, t, s, NH)
     sqk = _contract("blhd,bshd->blsh", qt, kt, lanes=4)
     wq = w_intra * sqk
     num = (_contract("blsh,bshd->blhd", wq, vt)
@@ -352,13 +329,13 @@ def _mlstm_chunk(st: MLSTMState, qt, kt, vt, it, ft):
                                             lanes=4))
     den = (_contract("blsh,blsh->blh", w_intra, sqk, fma=False)
            + w_inter * _contract("blhd,bhd->blh", qt, st.n))
-    den = torch.maximum(den.abs(), torch.exp(-m_t))
+    den = torch.maximum(den.abs(), cpu_math.exp(-m_t))
     h = num / den[..., None]                                # (B, L, NH, dh)
     # boundary update
     scale_s = g[:, None, :] - bcum + it
     m_new = torch.maximum(g + st.m, scale_s.amax(dim=1))
-    w_old = torch.exp(g + st.m - m_new)
-    w_s = torch.exp(scale_s - m_new[:, None, :])            # (B, L, NH)
+    w_old = cpu_math.exp(g + st.m - m_new)
+    w_s = cpu_math.exp(scale_s - m_new[:, None, :])            # (B, L, NH)
     c_new = (w_old[..., None, None] * st.c
              + _contract("blhd,blhe->bhde", w_s[..., None] * vt, kt))
     n_new = (w_old[..., None] * st.n
@@ -413,15 +390,15 @@ def slstm_step(state: SLSTMState, x_gates, r_kernel, nh: int):
     hprev = state.h.reshape(b, 1, nh, 1, dh)
     rec = _dot(hprev, r_kernel.to(F32).transpose(-1, -2).contiguous())
     gates = x_gates.to(F32).reshape(b, 4, nh, dh) + rec
-    zt = torch.tanh(gates[:, 0]).reshape(b, d)
+    zt = cpu_math.tanh(gates[:, 0]).reshape(b, d)
     it = gates[:, 1].reshape(b, d)
     lf = _log_sigmoid(gates[:, 2]).reshape(b, d)
     ot = torch.sigmoid(gates[:, 3]).reshape(b, d)
     m_new = torch.maximum(lf + state.m, it)
-    fp, ip = torch.exp(lf + state.m - m_new), torch.exp(it - m_new)
+    fp, ip = cpu_math.exp(lf + state.m - m_new), cpu_math.exp(it - m_new)
     c = fp * state.c + ip * zt
     n = fp * state.n + ip
-    h = ot * c / torch.maximum(n, torch.exp(-m_new))
+    h = ot * c / torch.maximum(n, cpu_math.exp(-m_new))
     return SLSTMState(c, n, m_new, h), h
 
 

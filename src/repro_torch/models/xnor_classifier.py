@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import xnor_layers
+from repro_torch.models import cpu_math, layers
 
 D_IN, D_H, N_CLS = 256, 512, 2
 
@@ -50,7 +51,7 @@ def init(generator: torch.Generator, device) -> dict:
 
 def forward(params: dict, x: torch.Tensor, packed: bool = False):
     """(n, 256) images -> (n, 2) logits."""
-    h = torch.tanh(x @ params["w_in"].T)                 # fp first layer
+    h = cpu_math.tanh(layers.matmul(x, params["w_in"].T))  # fp first layer
     h = xnor_layers.xnor_linear(h, params["w_mid"], packed=packed)
     h = torch.relu(h)
-    return h @ params["w_out"].T                         # fp last layer
+    return layers.matmul(h, params["w_out"].T)         # fp last layer

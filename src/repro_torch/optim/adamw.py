@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import verify
+from repro_torch.models import cpu_math
 
 F32 = torch.float32
 
@@ -58,9 +59,9 @@ def global_norm(grads, copies=None, psum=None) -> torch.Tensor:
     ``psum`` sums a scalar over every rank, so that each element counts
     once, not once a replica."""
     if copies is None:
-        return torch.sqrt(sum(g.float().square().sum()
+        return cpu_math.sqrt(sum(g.float().square().sum()
                               for g in _leaves(grads)))
-    return torch.sqrt(psum(sum(
+    return cpu_math.sqrt(psum(sum(
         g.float().square().sum() / c if isinstance(c, int)
         else (g.float().square() / c).sum()
         for g, c in zip(_leaves(grads), copies))))
@@ -104,7 +105,7 @@ def update(params, grads, state: AdamWState, lr, *, b1=0.9, b2=0.95,
         g32 = (g.float() * scale).to(g.dtype).float()
         m.mul_(b1).add_(g32 * (1 - b1))
         v.mul_(b2).add_(g32 * (1 - b2) * g32)
-        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        u = (m / bc1) / (cpu_math.sqrt(v / bc2) + eps)
         if decay:
             u = u + weight_decay * p.float()
         p.copy_((p.float() - lr * u).to(p.dtype))

@@ -19,9 +19,10 @@ batch axes, "tp": "model", "ep": "model"}``): ``params`` holds this
 rank's blocks (:func:`shard_params` under ``rules``; ``rules["fsdp"] =
 None`` is the reference's serving placement, the parameters whole over
 the data axis), the rank computes its block of the batch over the batch
-axes (``sharding.batch_axes``), and the ``attn`` and ``moe`` layers
-compute tensor and expert parallel over ``model``: a rank keeps its
-blocks of heads, ``d_ff``, experts and vocab (the head-aligned
+axes (``sharding.batch_axes``), and the layers of every kind but the
+context kinds (``enc``, ``cross``, ``dec``) compute tensor and expert
+parallel over ``model``: a rank keeps its blocks of heads, ``d_ff``,
+experts, channels and vocab (the head-aligned
 placements of ``lm.param_pspecs(..., head_aligned=True)``) and computes
 on them.  A layer's FSDP blocks are gathered just before it runs and
 dropped after (``ctx.Segment``); a kind with no tensor-parallel form has

@@ -12,10 +12,11 @@ under the rules its train cells lower with, ``{"batch": the batch axes,
 keeps only its blocks of the parameters and of both moments
 (:func:`state_pspecs`: head-aligned, ``sharding.Heads``), runs
 ``lm.loss_fn`` on its block of the batch with the global batch's means,
-and updates its blocks.  The ``attn`` and ``moe`` layers compute on the
-rank's heads, ``d_ff`` block and experts, the CE on its vocab block (no
-rank holds a (tokens, vocab) tensor); every other kind's layer is
-gathered whole.  A layer's FSDP blocks are gathered inside its
+and updates its blocks.  The ``attn``, ``local`` and ``moe`` layers
+compute on the rank's heads, ``d_ff`` block and experts, ``rglru``,
+``mlstm``, ``slstm`` and ``bindense`` on their blocks (``blocks.py``),
+the CE on its vocab block (no rank holds a (tokens, vocab) tensor); the
+context kinds' layers are gathered whole.  A layer's FSDP blocks are gathered inside its
 checkpoint, just before it runs, and again by its recompute; each
 gather's backward sums the layer's gradient over the batch axes and
 hands the rank its block as the backward pass reaches it.  No step

@@ -247,7 +247,8 @@ def _tp_case(mesh, s_max, arch, over, dtype, packed, batch, params=None,
         out["blocks"] = {verify.leaf_key(p): (t.numel() * t.element_size(),
                                               tuple(t.shape))
                          for p, t in verify.tree_flatten_with_path(blocks)}
-        out["kv_heads"] = int(state.seg_states[0].k.shape[2])
+        if hasattr(state.seg_states[0], "k"):
+            out["kv_heads"] = int(state.seg_states[0].k.shape[2])
     return out
 
 
@@ -318,20 +319,20 @@ def _tp_units(mesh) -> dict:
 
 
 def tp_block_rows_rank(rank: int, arch: str, dtype: str,
-                       device="cuda") -> list:
-    """One layer of ``arch``'s first kind, binarized and packed at full
-    width, this rank's head-aligned blocks of it on a (data, model) =
-    (1, 2) mesh, in the dense decode the sharded serving step runs, at 1
-    to 8 slots -> for each slot count, the elements of its rows that
-    differ from each slot run alone (hazard H2 at the model axis's
-    sums)."""
+                       device="cuda", kind: str | None = None) -> list:
+    """One layer of ``kind`` (``arch``'s first by default), binarized
+    and packed at full width, this rank's head-aligned blocks of it on a
+    (data, model) = (1, 2) mesh, in the dense decode the sharded serving
+    step runs from a random state, at 1 to 8 slots -> for each slot
+    count, the elements of its rows that differ from each slot run alone
+    (hazard H2 at the model axis's sums and gathers)."""
     import dataclasses
 
     from repro_torch.distributed import ctx
     from repro_torch.models import blocks, registry
     mesh = mesh_mod.make_mesh((1, 2), ("data", "model"), device)
     cfg = dataclasses.replace(configs.get(arch), dtype=getattr(torch, dtype))
-    block = registry.get(cfg.segments()[0][0])
+    block = registry.get(kind or cfg.segments()[0][0])
     defs = block.defs(cfg, 1)
     g = torch.Generator(device=device)
     g.manual_seed(cfg.d_model + 1)
@@ -349,19 +350,19 @@ def tp_block_rows_rank(rank: int, arch: str, dtype: str,
     del whole
     slots, s_max = 8, 32
     cache = block.state_spec(cfg, 1, slots, s_max, device)
-    spec = block.tp_state_pspec(cfg, None)
-    state = type(cache)(*(sharding.shard(torch.randn(
+    state = blocks.state_map(lambda leaf, s: sharding.shard(torch.randn(
         leaf.shape, generator=g, device=device).to(leaf.dtype),
-        (None, *s), mesh) for leaf, s in zip(cache, spec)))
-    start = [t.clone() for t in state]
+        (None, *s), mesh), cache, block.tp_state_pspec(cfg, None))
+    leaves = blocks.state_leaves(state)
+    start = [t.clone() for t in leaves]
     pos = torch.tensor([5, 17, 30, 0, 9, 22, 13, 31], device=device)
     x = torch.randn((slots, 1, cfg.d_model), generator=g,
                     device=device).to(cfg.dtype)
 
     def step(lo, hi):
-        for leaf, t in zip(state, start):
+        for leaf, t in zip(leaves, start):
             leaf.copy_(t)
-        st = type(state)(*(leaf[0, lo:hi] for leaf in state))
+        st = blocks.state_map(lambda leaf: leaf[0, lo:hi], state)
         return block.decode(cfg, p, x[lo:hi], st, pos[lo:hi], None)
     rules = {"batch": None, "tp": "model", "ep": "model"}
     with torch.inference_mode(), ctx.activation_rules(rules, mesh), \
@@ -424,8 +425,9 @@ def _tp_train_case(mesh, step, schedule, arch, over, params, batch,
 
 def _gathered_bytes(cfg, specs: dict, mesh) -> tuple[list, int]:
     """-> (the bytes each layer's gathers hand the rank, in depth order;
-    the embedding's): a leaf's whole dims but ``model`` for an attn or
-    moe layer, wherever an axis of its placement splits it."""
+    the embedding's): a leaf's whole dims but ``model`` for a
+    tensor-parallel kind's layer, wherever an axis of its placement
+    splits it."""
     from repro_torch.distributed import ctx
     from repro_torch.models import lm
 

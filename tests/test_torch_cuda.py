@@ -1179,18 +1179,23 @@ def test_cuda_row_parallel_xnor_chain_matches_its_plain_version(gpu, heads,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen2-7b+xnor",
-                                  "moonshot-v1-16b-a3b+xnor"])
-def test_cuda_tp_block_decode_rows_do_not_depend_on_the_batch(gpu, arch):
+@pytest.mark.parametrize("arch, kind", [
+    ("qwen2-7b+xnor", "attn"), ("moonshot-v1-16b-a3b+xnor", "moe"),
+    ("recurrentgemma-2b+xnor", "local"), ("recurrentgemma-2b+xnor", "rglru"),
+    ("xlstm-350m+xnor", "mlstm"), ("xlstm-350m+xnor", "slstm")])
+def test_cuda_tp_block_decode_rows_do_not_depend_on_the_batch(gpu, arch,
+                                                               kind):
     """One bf16 layer at full width (attn; moe, its experts split over
-    the ranks), tensor parallel over 2 gloo ranks on the card, at 1 to 8
-    slots: each slot's output row has the same bits whatever the batch
-    (hazard H2 at the model axis's sums: the row-parallel ``wo`` and
-    ``w2``, the experts' rows)."""
+    the ranks; local at recurrentgemma's 10 query heads and one KV head;
+    rglru, mlstm and slstm on their blocks, their state's too), tensor
+    parallel over 2 gloo ranks on the card, at 1 to 8 slots: each slot's
+    output row has the same bits whatever the batch (hazard H2 at the
+    model axis's sums and gathers: the row-parallel ``wo``, ``w2``,
+    ``w_out`` and ``w_down``, the experts' rows, the gathered columns)."""
     from mesh_ranks import tp_block_rows_rank
     from repro_torch.launch import mesh as mesh_mod
     ranks = mesh_mod.run_ranks(tp_block_rows_rank, 2, arch, "bfloat16",
-                               timeout_s=600)
+                               "cuda", kind, timeout_s=600)
     for r in ranks:
         assert r == [0] * 8, r
 

@@ -10,10 +10,13 @@ heads and 2 KV heads (ranks 0-2 hold 2 query heads, rank 3 none, and
 rank 1's read both KV heads), the same packed ``+xnor`` (the row-parallel
 ``wo`` and ``w2`` on the unfused pack -> ``xnor_gemm`` chain) and with
 its float weights (the sign products' sums over the ranks), moonshot
-(top-2 over 4 experts, one a rank), llama4-scout ``+xnor`` (top-1) and
-recurrentgemma-2b ``+xnor``, whose ``local`` and ``rglru`` layers have
-no tensor-parallel form and are gathered whole a layer at a time.  A
-prefill of 12 tokens, then two decode steps of teacher-forced tokens;
+(top-2 over 4 experts, one a rank), llama4-scout ``+xnor`` (top-1),
+recurrentgemma-2b (``rglru`` on its channel block; ``local`` on its
+heads: at 6 query heads and its one KV head, ranks 0-2 hold 2 query
+heads and the KV head, rank 3 none), xlstm-350m (the mLSTM on its block
+of ``di`` and of the memory's rows, at 2 heads too, which do not divide
+the 4 ranks; the sLSTM's gates gathered and its cell whole) and
+xnor-cnn (``bindense`` on its ``d_ff`` block).  A prefill of 12 tokens, then two decode steps of teacher-forced tokens;
 every rank's logits rows (all of them: the batch is whole on each rank
 of this mesh) are held against the single-process steps in f32 at
 ``rtol = atol = 1e-5`` (a sum split over four ranks reorders the f32
@@ -42,6 +45,8 @@ B, S, S_MAX = 8, 12, 16
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_LOGIT_BOUND = 2 ** -6
 QWEN = dict(n_heads=6, n_kv_heads=2)
+RG = dict(n_heads=6, n_kv_heads=1)      # 2, 2, 2 and 0 query heads a rank
+XL = dict(n_heads=2, n_kv_heads=2)      # heads that do not divide model
 CASES = {
     "qwen2-7b": ("qwen2-7b", QWEN, "float32", False),
     "qwen2-7b+xnor": ("qwen2-7b+xnor", QWEN, "float32", True),
@@ -52,10 +57,22 @@ CASES = {
                                    "float32", True),
     "recurrentgemma-2b+xnor": ("recurrentgemma-2b+xnor", {}, "float32",
                                True),
+    "recurrentgemma-2b 6 heads": ("recurrentgemma-2b", RG, "float32", False),
+    "xlstm-350m": ("xlstm-350m", {}, "float32", False),
+    "xlstm-350m+xnor": ("xlstm-350m+xnor", {}, "float32", True),
+    "xnor-cnn": ("xnor-cnn", {}, "float32", True),
     "qwen2-7b+xnor bf16": ("qwen2-7b+xnor", QWEN, "bfloat16", True),
     "moonshot-v1-16b-a3b bf16": ("moonshot-v1-16b-a3b", {}, "bfloat16",
                                  False),
+    "recurrentgemma-2b+xnor 6 heads bf16": ("recurrentgemma-2b+xnor", RG,
+                                            "bfloat16", True),
+    "xlstm-350m+xnor 2 heads bf16": ("xlstm-350m+xnor", XL, "bfloat16",
+                                     True),
+    "xnor-cnn bf16": ("xnor-cnn", {}, "bfloat16", True),
 }
+# the recurrent and CNN kinds' cases whose second decode step is counted
+TP_KINDS = ("recurrentgemma-2b+xnor 6 heads bf16",
+            "xlstm-350m+xnor 2 heads bf16", "xnor-cnn")
 
 
 def batch_of(vocab: int, seed: int = 3) -> dict:
@@ -79,9 +96,12 @@ def single(arch, over, dtype, packed, batch, params=None) -> list:
     return steps
 
 
-def case_dicts(cases: dict, count: str | None = None) -> dict:
+def case_dicts(cases: dict, count=()) -> dict:
+    """The ranks' cases; those named in ``count`` (a name or names)
+    count what their second decode step gathers."""
+    count = (count,) if isinstance(count, str) else tuple(count)
     return {name: dict(arch=arch, over=over, dtype=dt, packed=packed,
-                       batch=batch_of(256), count=name == count)
+                       batch=batch_of(256), count=name in count)
             for name, (arch, over, dt, packed) in cases.items()}
 
 
@@ -102,7 +122,8 @@ def hold(name, got, want, dtype, rows=slice(None)):
 @pytest.fixture(scope="module")
 def ranks():
     return mesh_mod.run_ranks(tp_rank, 4, (1, 4), ("data", "model"),
-                              case_dicts(CASES, count="qwen2-7b+xnor"),
+                              case_dicts(CASES, ("qwen2-7b+xnor",)
+                                         + TP_KINDS),
                               S_MAX, True, device="cpu", timeout_s=600)
 
 
@@ -124,6 +145,19 @@ def test_no_fsdp_axis_no_gather_and_heads_split(ranks):
             axes == [] and nbytes == 0 for axes, nbytes in seen["calls"])
         assert seen["total"] > 0             # the logits and the sums
         assert r["cases"]["qwen2-7b+xnor"]["kv_heads"] == 2
+
+
+@pytest.mark.parametrize("name", TP_KINDS)
+def test_recurrent_and_cnn_kinds_gather_no_parameter_over_model(name,
+                                                                ranks):
+    """A decode step of ``local`` + ``rglru``, ``mlstm`` + ``slstm`` and
+    ``bindense`` layers on (1, 4) gathers no parameter (each computes on
+    its blocks over ``model``); only activations move."""
+    for r in ranks:
+        seen = r["cases"][name]["gathers"]
+        assert all(axes == [] and nbytes == 0
+                   for axes, nbytes in seen["calls"])
+        assert seen["total"] > 0
 
 
 def test_vocab_parallel_embedding_is_bitwise(ranks):
@@ -196,10 +230,12 @@ def test_row_parallel_xnor_dots_are_bitwise_against_whole_k(dtype):
 
 
 def test_head_aligned_placements_of_the_serving_steps():
-    """``lm.param_pspecs(..., head_aligned=True)`` splits an attn or moe
-    layer's head dims into whole heads and packs a row-parallel plane's
-    K blocks apart; other kinds keep the reference's placements; the
-    decode state's KV heads follow ``wk``."""
+    """``lm.param_pspecs(..., head_aligned=True)`` splits a layer's head
+    dims into whole heads (attn, moe, local) and packs a row-parallel
+    plane's K blocks apart; other kinds keep the reference's placements;
+    the decode state's KV heads follow ``wk``, the recurrent kinds' state
+    keeps ``model`` where they compute on blocks of it, and a kind with
+    no tensor-parallel form (llama-vision's ``cross``) is whole."""
     import repro_torch.configs as configs
     cfg = configs.get("qwen2-7b+xnor")
     rules = sharding.DEFAULT_RULES
@@ -217,7 +253,19 @@ def test_head_aligned_placements_of_the_serving_steps():
         "model", 28, 1, 7), None, None)
     rg = configs.get("recurrentgemma-2b")
     rg_spec = lm.param_pspecs(rg, rules, head_aligned=True)
-    assert rg_spec == lm.param_pspecs(rg, rules)
-    assert "model" in repr(lm.decode_state_pspecs(rg, "data"))
-    assert "model" not in repr(lm.decode_state_pspecs(rg, "data",
-                                                      head_aligned=True))
+    plain = lm.param_pspecs(rg, rules)
+    assert rg_spec["seg0_rglru"] == plain["seg0_rglru"]
+    assert rg_spec["seg1_local"]["attn_wk"][2] == sharding.Heads(
+        "model", 10, 256, 10)
+    rg_state = lm.decode_state_pspecs(rg, "data", head_aligned=True)
+    assert rg_state.seg_states[0][0].h == (None, "data", "model")
+    vlm = configs.get("llama-3.2-vision-11b")
+    vlm_spec = lm.param_pspecs(vlm, rules, head_aligned=True)
+    cross = [k for k in vlm_spec if k.endswith("_cross")]
+    assert cross and all(vlm_spec[k] == lm.param_pspecs(vlm, rules)[k]
+                         for k in cross)
+    vlm_state = lm.decode_state_pspecs(vlm, "data", head_aligned=True)
+    kinds = [kind for kind, _ in vlm.segments()]
+    assert "model" in repr(lm.decode_state_pspecs(vlm, "data").seg_states[
+        kinds.index("cross")])
+    assert "model" not in repr(vlm_state.seg_states[kinds.index("cross")])

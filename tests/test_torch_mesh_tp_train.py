@@ -2,7 +2,9 @@
 sharded ``train_step`` on the (data, model) = (1, 4) mesh against the
 JAX package's jitted single-device ``train_step`` and the port's
 single-process step (``test_torch_mesh_tp_train_pods.py``: the same on
-(pod, data, model) = (2, 2, 2), and ``microbatch=2``).
+(pod, data, model) = (2, 2, 2), and ``microbatch=2``;
+``test_torch_mesh_tp_train_recurrent.py``: the recurrent and CNN
+kinds).
 
 Each rank keeps its head-aligned blocks of the parameters and both
 moments and computes on them: qwen2-7b's smoke config at 6 query heads
@@ -10,9 +12,11 @@ and 2 KV heads (ranks 0-2 hold 2 query heads, rank 3 none; rank 1's
 read both KV heads, which ranks 0 and 2 hold too: their gradients are
 summed over the holders), float and ``+xnor`` (the float STE, the
 row-parallel ``wo`` and ``w2`` as sign products summed over the ranks),
-moonshot (top-2 over 4 experts, one a rank) and recurrentgemma-2b
-``+xnor``, whose ``rglru`` and ``local`` layers have no tensor-parallel
-form and are gathered whole a layer at a time; moonshot again with every
+moonshot (top-2 over 4 experts, one a rank), recurrentgemma-2b
+``+xnor`` (its ``rglru`` and ``local`` layers on their blocks), and
+llama-3.2-vision-11b at 10 layers with a seeded context a row, whose two
+``cross`` layers have no tensor-parallel form and are gathered whole a
+layer at a time; moonshot again with every
 model-axis sum on the ring all-reduce (``ctx.GATHER_BYTES`` 0: the MoE
 combine's f32 partial sums under autograd).  The batch (8 x 16) holds 1
 to 8 unlabelled positions a row (``test_torch_mesh_train``).
@@ -59,9 +63,10 @@ CASES = {
     "qwen2-7b+xnor": ("qwen2-7b+xnor", QWEN, 1),
     "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {}, 1),
     "recurrentgemma-2b+xnor": ("recurrentgemma-2b+xnor", {}, 1),
+    "llama-3.2-vision-11b": ("llama-3.2-vision-11b", dict(n_layers=10), 1),
     "moonshot-v1-16b-a3b ring sums": ("moonshot-v1-16b-a3b", {}, 1),
 }
-COUNTED = "recurrentgemma-2b+xnor"
+COUNTED = "llama-3.2-vision-11b"
 # cases run with ctx.GATHER_BYTES = 0: every sum over model takes the
 # ring all-reduce (a prefill's path) and the MoE combine sums f32
 # partials, whose weights enter the rank's experts through ctx.enter
@@ -75,6 +80,10 @@ def reference(arch: str, over: dict, microbatch: int) -> dict:
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(
         zlib.crc32(arch.encode()) % 2**31))
     host = _batch(jcfg.vocab)
+    if jcfg.n_ctx_tokens:      # a context arch: each row's seeded context
+        host["ctx"] = np.random.default_rng(6).standard_normal(
+            (len(host["tokens"]), jcfg.n_ctx_tokens, jcfg.d_model)
+        ).astype(np.float32)
     batch = jax.tree.map(jnp.asarray, host)
     _, _, jgrads = jax.jit(lambda p, b: jtrain._grads(
         jcfg, p, b, 0, microbatch))(jp, batch)
@@ -104,11 +113,13 @@ def verify_tree(tree):
         if isinstance(tree, dict) else tree.detach().numpy()
 
 
-def run(shape: tuple, axes: tuple, cases: dict, counted: str,
+def run(shape: tuple, axes: tuple, cases: dict, counted,
         ring=frozenset()) -> dict:
     """Each case's references, and one spawn of the mesh's ranks taking
     the sharded step of every case (those in ``ring`` at
-    ``ctx.GATHER_BYTES`` 0)."""
+    ``ctx.GATHER_BYTES`` 0; those named in ``counted``, a name or names,
+    with what their gradient pass gathers)."""
+    counted = (counted,) if isinstance(counted, str) else tuple(counted)
     refs = {}
     for name, case in cases.items():
         same = [n for n in refs if cases[n] == case]
@@ -116,7 +127,7 @@ def run(shape: tuple, axes: tuple, cases: dict, counted: str,
     rank_cases = {name: dict(arch=arch, over=over, microbatch=mb,
                              params=refs[name]["params"],
                              batch=refs[name]["batch"],
-                             count=name == counted,
+                             count=name in counted,
                              gather_bytes=0 if name in ring else None)
                   for name, (arch, over, mb) in cases.items()}
     ranks = mesh_mod.run_ranks(tp_train_rank, int(np.prod(shape)), shape,
@@ -247,9 +258,9 @@ def test_leaves_replicated_over_model_are_bitwise_equal(name, runs):
 
 
 def test_kinds_without_tp_gather_a_layer_at_a_time_over_model(runs):
-    """recurrentgemma's rglru and local layers gathered whole over
-    ``model`` (nothing is split over ``data`` on this mesh), a layer at a
-    time, twice; the vocab stays split."""
+    """llama-vision's cross layers gathered whole over ``model``
+    (nothing is split over ``data`` on this mesh; its attn layers compute
+    on their heads), a layer at a time, twice; the vocab stays split."""
     hold_gathers(COUNTED, CASES[COUNTED], runs, 8)
 
 
