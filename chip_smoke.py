@@ -308,7 +308,8 @@ Phases (any failure raises and the script exits non-zero):
    version; the launches a rank of the three; each rank's peak beside
    the dry-run's trace of the same prefill and decode cells; the bytes a
    rank takes in a decode step beside what gathering each recurrent
-   layer whole over ``model`` took in (PR 25's program for those kinds);
+   layer whole over ``model`` would take in (computed from the leaves'
+   sizes);
    hazard H2's probe of the model axis's sums (each segment's first
    layer's row-parallel linears at 1-8 rows, each row against itself
    alone: no element may differ).  gloo stages every collective through
@@ -4695,7 +4696,7 @@ def train_blocks(cfg, mesh, rules=None):
 def _model_block(t, spec, k: int, i: int):
     """Rank ``i``'s block of a whole leaf on the (data 1, model ``k``)
     mesh, zero-padded (``sharding.extent`` on each dim split over
-    ``model``)."""
+    ``model``, on each piece of a ``sharding.Parts`` dim)."""
     import torch
 
     from repro_torch.distributed import sharding
@@ -4703,11 +4704,13 @@ def _model_block(t, spec, k: int, i: int):
         if "model" not in sharding._names(entry):
             continue
         bs, lo, hi = sharding.extent(t.shape[dim], entry, k, i)
-        t = t.narrow(dim, lo, hi - lo)
-        if hi - lo < bs:
-            pad = list(t.shape)
+        pieces = []
+        for piece in t.chunk(getattr(entry, "parts", 1), dim):
+            piece = piece.narrow(dim, lo, hi - lo)
+            pad = list(piece.shape)
             pad[dim] = bs - (hi - lo)
-            t = torch.cat([t, t.new_zeros(pad)], dim)
+            pieces += [piece, piece.new_zeros(pad)]
+        t = torch.cat(pieces, dim)
     return t.contiguous()
 
 
@@ -4956,7 +4959,8 @@ TP_RANKS = 4                 # (data, model) = (1, 4): every rank all rows
 TP_LAYERS = {"qwen2-7b+xnor": 4, "llama4-scout-17b-a16e+xnor": 4,
              "recurrentgemma-2b+xnor": 3, "xlstm-350m+xnor": 8}
 TP_ARCHS = tuple(TP_LAYERS)
-# the kinds PR 25's program gathered whole over model a layer at a time
+# the kinds that were gathered whole over model a layer at a time before
+# they computed on their blocks
 TP_WHOLE_KINDS = ("local", "rglru", "mlstm", "slstm", "bindense")
 TP_BATCH, TP_PROMPT, TP_STEPS = 4, 32, 4
 TP_S_MAX = TP_PROMPT + TP_STEPS + 1
@@ -4972,9 +4976,10 @@ def _tp_cfg(arch: str):
 
 
 def tp_whole_bytes(cfg) -> int:
-    """The bytes a rank took in a decode step when the recurrent kinds'
-    layers were gathered whole over ``model`` (PR 25's program): every
-    packed leaf of those segments but the rank's own block."""
+    """The bytes a rank would take in a decode step if the recurrent
+    kinds' layers were gathered whole over ``model``, computed (not
+    run): every packed leaf of those segments but the rank's own
+    block."""
     from repro_torch.models import lm
     from repro_torch.roofline import analysis
     tree = lm.packed_abstract_params(cfg)
@@ -5278,7 +5283,8 @@ def tp_serving(gpu: str) -> dict:
                   f"TP speed); collective bytes in: the prefill "
                   f"{r['prefill_bytes']}, a decode step "
                   f"{r['decode_bytes']} (gathering the recurrent kinds' "
-                  f"layers whole took {tp_whole_bytes(cfg)} more); H2 "
+                  f"layers whole would take {tp_whole_bytes(cfg)} more, "
+                  f"computed from the packed leaves' sizes); H2 "
                   f"probe (elements differing at 1-8 rows) {r['h2']}  "
                   f"[{gpu}]")
         print(f"[tp] 12 {cfg.name} single-process on the card: peak "

@@ -16,7 +16,9 @@ are the port's own, for the tensor-parallel serving steps
 (:mod:`repro_torch.distributed.ctx`): :class:`Heads` splits a dim of
 attention heads so that no head is cut (the reference's ceil-div blocks
 cut heads and GSPMD reshards at its ``constrain``; the port has no such
-resharding), and :class:`Bits` splits a packed plane's words as its float
+resharding), :class:`Parts` splits each of a dim's equal pieces laid
+end to end (a GLU's ``a | g``) so that a rank holds its channels of
+every piece, and :class:`Bits` splits a packed plane's words as its float
 K was split, each block packed on its own.  Meshes are laid out as
 ``launch.mesh`` builds them (rank = the row-major index of its
 coordinates), so a group's ranks are in coordinate order.
@@ -128,6 +130,16 @@ class Heads(NamedTuple):
     per: int = 1
 
 
+class Parts(NamedTuple):
+    """A placement entry for a dim of ``parts`` equal pieces laid end to
+    end (a GLU's concatenated ``a | g``): each piece is split over
+    ``axes`` in ceil-div blocks, and a rank's block is its block of every
+    piece in order, each zero-padded, so that it holds every piece of its
+    channels."""
+    axes: Any
+    parts: int
+
+
 class Bits(NamedTuple):
     """A placement entry for the word dim of packed planes whose float K
     (``k`` elements) is placed by ``inner`` (axes or :class:`Heads`):
@@ -155,7 +167,7 @@ def head_blocks(n_heads: int, per: int, k: int, i: int) -> tuple:
 
 
 def _names(axes) -> tuple:
-    if isinstance(axes, Heads):
+    if isinstance(axes, (Heads, Parts)):
         axes = axes.axes
     elif isinstance(axes, Bits):
         return _names(axes.inner)
@@ -240,7 +252,10 @@ def _extent(n: int, mesh, axes) -> tuple[int, int, int]:
 
 
 def extent(n: int, axes, k: int, i: int) -> tuple[int, int, int]:
-    """:func:`_extent` for rank ``i`` of ``k``."""
+    """:func:`_extent` for rank ``i`` of ``k``; of a :class:`Parts` dim,
+    its block of each piece (of ``n // parts``)."""
+    if isinstance(axes, Parts):
+        n //= axes.parts
     if isinstance(axes, Heads):
         bs, lo, hi = head_blocks(axes.n_heads, axes.per, k, i)
         return bs * axes.size, lo * axes.size, hi * axes.size
@@ -252,7 +267,7 @@ def extent(n: int, axes, k: int, i: int) -> tuple[int, int, int]:
 def _block_len(n: int, axes, mesh) -> int:
     if isinstance(axes, Bits):
         return bitpack.packed_width(_extent(axes.k, mesh, axes.inner)[0])
-    return _extent(n, mesh, axes)[0]
+    return _extent(n, mesh, axes)[0] * getattr(axes, "parts", 1)
 
 
 def copies(spec, mesh) -> int:
@@ -265,7 +280,7 @@ def copies(spec, mesh) -> int:
 def block_shape(shape, spec, mesh) -> tuple:
     """The shape of each rank's block of a tensor of ``shape`` (its
     padded length ``ceil(n / k)`` on every dim split ``k`` ways; a
-    :class:`Heads` or :class:`Bits` dim's own block)."""
+    :class:`Heads`, :class:`Parts` or :class:`Bits` dim's own block)."""
     return tuple(_block_len(n, axes, mesh) for n, axes in
                  zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
 
@@ -281,30 +296,41 @@ def shard_bits(words: torch.Tensor, k: int, bs: int, start: int,
     return bitpack.pack_bits(bitpack.pad_to_word(block))
 
 
+def _cut(t: torch.Tensor, dim: int, bs: int, start: int,
+         stop: int) -> torch.Tensor:
+    t = t.narrow(dim, start, stop - start)
+    if stop - start < bs:
+        pad = list(t.shape)
+        pad[dim] = bs - (stop - start)
+        t = torch.cat([t, t.new_zeros(pad)], dim)
+    return t
+
+
 def shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """This rank's block of ``t`` (a new tensor, zero-padded where the
-    block runs past the end of a dim)."""
+    block runs past the end of a dim or of a :class:`Parts` piece)."""
     for dim, axes in enumerate(spec):
         if axis_size(mesh, axes) == 1:
             continue
         if isinstance(axes, Bits):
             t = shard_bits(t, axes.k, *_extent(axes.k, mesh, axes.inner))
             continue
-        bs, start, stop = _extent(t.shape[dim], mesh, axes)
-        t = t.narrow(dim, start, stop - start)
-        if stop - start < bs:
-            pad = list(t.shape)
-            pad[dim] = bs - (stop - start)
-            t = torch.cat([t, t.new_zeros(pad)], dim)
+        ext = _extent(t.shape[dim], mesh, axes)
+        t = torch.cat([_cut(piece, dim, *ext) for piece in
+                       t.chunk(getattr(axes, "parts", 1), dim)], dim)
     return t.clone(memory_format=torch.contiguous_format)
 
 
 def unpad(block: torch.Tensor, shape, spec, mesh) -> torch.Tensor:
     """The part of this rank's block that lies inside a tensor of
-    ``shape`` (a view)."""
-    for dim, axes in enumerate(spec):
+    ``shape`` (a view; a :class:`Parts` dim is split in two there, the
+    pieces and each piece's valid part)."""
+    for dim, axes in reversed(list(enumerate(spec))):
         if axis_size(mesh, axes) > 1:
-            _, start, stop = _extent(shape[dim], mesh, axes)
+            bs, start, stop = _extent(shape[dim], mesh, axes)
+            if isinstance(axes, Parts):
+                block = block.unflatten(dim, (axes.parts, bs))
+                dim += 1
             block = block.narrow(dim, 0, stop - start)
     return block
 
@@ -314,7 +340,7 @@ def _gather(block: torch.Tensor, spec, mesh, shape) -> torch.Tensor:
     for dim, axes in enumerate(spec):
         if axis_size(mesh, axes) == 1:
             continue
-        if isinstance(axes, (Heads, Bits)):
+        if isinstance(axes, (Heads, Parts, Bits)):
             raise NotImplementedError(
                 f"a {type(axes).__name__} dim is never gathered: its "
                 "ranks compute on their blocks")

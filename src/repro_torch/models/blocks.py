@@ -733,11 +733,13 @@ class SlstmBlock(_FfnBlock):
     FFN.  The state is per slot: ``SLSTMState(c, n, m, h)``, each (B, d)
     f32.
 
-    Under tensor parallelism a rank computes its column blocks of
-    ``w_gates`` and of the GLU's ``w_up`` (blocks of the concatenated
-    gates, ``a | g``), gathered whole once a layer call; the cell runs
-    whole on every rank (a sequential recurrence: no collective a token)
-    and so does its state; ``w_down`` is row parallel."""
+    Under tensor parallelism a rank computes its column block of
+    ``w_gates``, gathered whole once a layer call: the cell's recurrent
+    product mixes a head's channels every token, so the cell runs whole
+    on every rank (a sequential recurrence: no collective a token) and so
+    does its state.  The GLU's ``w_up`` is placed by pieces
+    (``sharding.Parts``): a rank holds ``a`` and ``g`` of its channels,
+    computes ``a * gelu(g)`` on them, and ``w_down`` is row parallel."""
     contract = BlockContract("slstm", per_slot_state=True)
     tensor_parallel = True
 
@@ -760,7 +762,7 @@ class SlstmBlock(_FfnBlock):
                                  torch.float32, scale=0.05),
             "ln2": _norm_def(cfg, n),
             "w_up": ParamDef((n, d, dff), (None, "fsdp", "tp"), cfg.dtype,
-                             binarize=True),
+                             binarize=True, parts=2),
             "w_down": ParamDef((n, dff // 2, d), (None, "tp", "fsdp"),
                                cfg.dtype,
                                binarize=True),
@@ -768,15 +770,10 @@ class SlstmBlock(_FfnBlock):
 
     @classmethod
     def _ffn(cls, cfg, p, h, valid=None, opts=None):
-        dff = cls._dff(cfg)
-        (up,) = _whole((layers.linear(dctx.enter(h), p["w_up"], cfg.quant),
-                        dff))
-        a, g = up.chunk(2, dim=-1)
-        y = a * layers.gelu(g)
-        if dctx.tp_size() > 1:
-            _, start, stop = dctx.extent(y.shape[-1])
-            y = dctx.enter(y)[..., start:stop]
-        return _row_out(cfg, p["w_down"], y, dff // 2)
+        a, g = layers.linear(dctx.enter(h), p["w_up"], cfg.quant).chunk(
+            2, dim=-1)
+        return _row_out(cfg, p["w_down"], a * layers.gelu(g),
+                        cls._dff(cfg) // 2)
 
     @classmethod
     def _gates(cls, cfg, p, x):

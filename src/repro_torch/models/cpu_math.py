@@ -1,5 +1,5 @@
-"""The CPU path's float products and f32 transcendentals, with bits that
-do not depend on the host (fault F7).
+"""The CPU path's float products and f32 transcendentals, in the jitted
+reference's order rather than the host libraries' (fault F7).
 
 PyTorch's CPU matmul hands an f32 product to MKL and a bf16 one to
 oneDNN, and its f32 ``exp``, ``log``, ``tanh`` and ``sqrt`` (above a few
@@ -12,16 +12,19 @@ hosts, and tests that hold greedy tokens and f32 gradients against the
 reference passed on one host and failed on another.
 
 XLA's CPU backend rounds a bf16 dot's operands to f32, runs an f32 dot
-in YNNPACK and rounds the result once.  YNNPACK's order at a given shape
-reads nothing of the host (its bits did not move under XLA's ISA caps,
-``taskset`` or the libraries' ISA caps): each output is one fused
-multiply-add chain over k (or, for narrow outputs, a few lanes of chains
-added by pairs), and K is cut into blocks by a panel budget compiled
-into the library (128 KiB; it reads no cache size), the blocks' sums
-added in order.  The port sums in that
-order itself on the CPU and reads nothing of the host: ``cpu_dot.c``,
-built with the host's C compiler at first use (the same order in
-PyTorch ops, :func:`lanes_dot`, where no compiler is found).  The f32
+in YNNPACK and rounds the result once.  YNNPACK picks its f32 dot kernel
+by the host's instruction set: jaxlib's kernel table names each for its
+ISA (``dot_fp32_<tile>_avx512f``, ``_avx2``, ``_fma3``, ``_sse2``) and
+for no vendor.  On an AVX-512F host (Intel, or AMD from Zen 4) each
+output is one fused multiply-add chain over k, or, for narrow outputs,
+4 lanes of chains added by pairs (the ``*x4x4_1x4x4`` kernels; AVX2's
+narrow kernels take 2 lanes, ``*x4x2_1x4x2``), and K is cut into blocks
+by a panel budget compiled into the library (128 KiB), the blocks' sums
+added in order.  The port sums in the AVX-512F kernels' order on the
+CPU: ``cpu_dot.c``, built with the host's C compiler at first use (a
+missing compiler or a failed build raises with the compiler's output).
+On a host without AVX-512F the reference's narrow products take 2 lanes
+and the port's bits may part from them (ROADMAP, F7).  The f32
 transcendentals go through f64 and round once: correctly rounded on
 every host (``sqrt`` then equals XLA's; ``exp``, ``log`` and ``tanh``
 are XLA's own approximations, which differ from any correctly rounded
@@ -32,6 +35,7 @@ PyTorch's products and functions, as the single-process step has them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -93,41 +97,48 @@ _FLAGS = ["-O3", "-fPIC", "-shared", "-ffp-contract=off", "-fno-fast-math"]
 _LIB: list = []
 
 
+@functools.cache
+def host_fma() -> bool:
+    """Whether the host's CPU flags list ``fma``: XLA's CPU emitters fuse
+    a multiply and an add only where they do."""
+    try:
+        return " fma " in Path("/proc/cpuinfo").read_text().replace("\n", " ")
+    except OSError:
+        return False
+
+
 def _flags() -> list[str]:
     """The compiler's flags: fused multiply-adds inline (``-mfma``) where
-    the host's flags list them, a libm call otherwise."""
-    try:
-        fma = " fma " in Path("/proc/cpuinfo").read_text().replace("\n", " ")
-    except OSError:
-        fma = False
-    return _FLAGS + (["-mfma"] if fma else [])
+    the host has them, a libm call otherwise."""
+    return _FLAGS + (["-mfma"] if host_fma() else [])
 
 
 def _native():
     """``cpu_dot.c``'s entry point, compiled once into the git-ignored
-    build directory (a file a source and flags); None without a C
-    compiler."""
+    build directory (a file a source and flags); raises with the
+    compiler's output where there is no C compiler or the build fails."""
     if _LIB:
         return _LIB[0]
     cc = shutil.which("cc") or shutil.which("gcc")
-    fn = None
-    if cc is not None:
-        flags = _flags()
-        digest = hashlib.sha256(_SRC.read_bytes() + " ".join(flags)
-                                .encode()).hexdigest()[:16]
-        lib = _BUILD / f"libcpu_dot-{digest}.so"
-        if not lib.exists():
-            _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            done = subprocess.run([cc, *flags, "-o", str(tmp), str(_SRC),
-                                   "-lm"], capture_output=True)
-            if done.returncode == 0:
-                os.replace(tmp, lib)
+    if cc is None:
+        raise RuntimeError("cpu_dot.c: no C compiler (cc or gcc) on PATH; "
+                           "the CPU path's float products need one")
+    flags = _flags()
+    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(flags)
+                            .encode()).hexdigest()[:16]
+    lib = _BUILD / f"libcpu_dot-{digest}.so"
+    if not lib.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        done = subprocess.run([cc, *flags, "-o", str(tmp), str(_SRC), "-lm"],
+                              capture_output=True, text=True)
+        if done.returncode != 0:
             tmp.unlink(missing_ok=True)
-        if lib.exists():
-            fn = ctypes.CDLL(str(lib)).cpu_dot
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6
+            raise RuntimeError(f"{cc} failed for cpu_dot.c:\n{done.stderr}")
+        os.replace(tmp, lib)
+    fn = ctypes.CDLL(str(lib)).cpu_dot
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6
     _LIB.append(fn)
     return fn
 
@@ -140,23 +151,14 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = b.shape[2]
     if k == 0:
         return torch.zeros((g, m, n), dtype=F32, device=a.device)
-    lanes = 4 if m > 1 and n <= NARROW and m * n > 4 else 1
-    kc = block(m, n, k)
-    fn = _native()
-    if fn is not None:
-        a, b = a.contiguous(), b.contiguous()
-        out = torch.empty((g, m, n), dtype=F32, device=a.device)
-        if a.device.type == "cpu" and fn(a.data_ptr(), b.data_ptr(),
-                                         out.data_ptr(), g, m, k, n, lanes,
-                                         kc):
-            raise MemoryError("cpu_dot: no memory for its partial sums")
+    out = torch.empty((g, m, n), dtype=F32, device=a.device)
+    if a.device.type == "meta":
         return out
-    bt = b.transpose(1, 2)
-    out = None
-    for s in range(0, k, kc):
-        part = lanes_dot(a[:, :, None, s:s + kc], bt[:, None, :, s:s + kc],
-                         lanes)
-        out = part if out is None else out + part
+    lanes = 4 if m > 1 and n <= NARROW and m * n > 4 else 1
+    a, b = a.contiguous(), b.contiguous()
+    if _native()(a.data_ptr(), b.data_ptr(), out.data_ptr(), g, m, k, n,
+                 lanes, block(m, n, k)):
+        raise MemoryError("cpu_dot: no memory for its partial sums")
     return out
 
 
@@ -187,6 +189,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = _Matmul.apply(x.reshape(1, math.prod(lead), x.shape[-1]).float(),
                       w.float()[None])
     return y.reshape(*lead, w.shape[-1])
+
+
+def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (G, M, K) @ b (G, K, N) -> (G, M, N) f32, each of the G products
+    summed as the reference's CPU dot sums it (the operands in f32)."""
+    return _Matmul.apply(a.float(), b.float())
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

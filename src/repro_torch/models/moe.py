@@ -162,9 +162,18 @@ def experts(cfg, p: dict, xg: torch.Tensor, r: Routing) -> torch.Tensor:
     # one token a (expert, group, place): the dispatch product is exact
     xe = torch.einsum("gtec,gtd->egcd", dispatch, ctx.enter(xg)).reshape(
         ne, g * c, d)
-    with _f32_reductions():
-        h = layers.silu_mul(torch.bmm(xe, p["w1"]), torch.bmm(xe, p["w3"]))
-        return torch.bmm(h, p["w2"])
+    h = layers.silu_mul(_bmm(xe, p["w1"]), _bmm(xe, p["w3"]))
+    return _bmm(h, p["w2"])
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (E, M, K) @ b (E, K, N) summed in f32 and rounded once to a's
+    dtype: on the card PyTorch's bmm, on the CPU the reference's CPU dot
+    order (:func:`cpu_math.bmm`, fault F7)."""
+    if cuda.on_card(a):
+        with _f32_reductions():
+            return torch.bmm(a, b)
+    return cpu_math.bmm(a, b).to(a.dtype)
 
 
 def combine(cfg, r: Routing, ye: torch.Tensor, dtype) -> torch.Tensor:

@@ -14,7 +14,9 @@ Logical axes of a ``spec`` (mapped to mesh axes by the rules of
 
 A leaf whose "tp" dim holds attention heads says so (``heads``); under
 ``head_aligned`` placements (the tensor-parallel serving steps) that dim
-is split into whole heads (``sharding.Heads``) and a packed plane whose
+is split into whole heads (``sharding.Heads``), a dim of concatenated
+pieces into each piece's block (``sharding.Parts``), and a packed plane
+whose
 K is split over the model axis packs each rank's K block on its own
 (``sharding.Bits``).
 """
@@ -27,7 +29,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core import xnor_layers
-from repro_torch.distributed.sharding import Bits, Heads
+from repro_torch.distributed.sharding import Bits, Heads, Parts
 
 
 class ParamDef(NamedTuple):
@@ -41,6 +43,8 @@ class ParamDef(NamedTuple):
                             # and the lm head stay full precision)
     heads: tuple | None = None  # (n_heads, d_head, q heads an entry) of a
                             # "tp" dim of heads (q_per_kv for K / V)
+    parts: int = 1          # a "tp" dim of this many equal pieces laid
+                            # end to end (a GLU's a | g)
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -74,6 +78,8 @@ def _spec(d: ParamDef, rules: dict, head_aligned: bool) -> tuple:
             return None
         if a == "tp" and head_aligned and d.heads is not None:
             return Heads(rules.get(a), *d.heads)
+        if a == "tp" and head_aligned and d.parts > 1:
+            return Parts(rules.get(a), d.parts)
         return rules.get(a)
     return tuple(map(one, d.spec))
 

@@ -86,9 +86,26 @@ def conv1d_carry_out(buf: torch.Tensor, x: torch.Tensor,
 
 def conv1d_step(buf: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor):
     """Decode step: buf (B, W-1, D) the previous inputs, x (B, 1, D).
-    Sums the W taps in f32 and rounds once -> (y (B, 1, D), new buf)."""
+    Sums the W taps in f32 and rounds once -> (y (B, 1, D), new buf).
+
+    On the CPU in the jitted reference's order.  Its einsum is a
+    vector-matrix product a channel (the taps against the (W, B) history),
+    which XLA's CPU emitter sums over the taps in order, as one chain of
+    fused multiply-adds an output where the host has FMA, except a lone
+    column of its 8-wide tiles (the last where B = 1 mod 8; the first at
+    B = 2) and every output on a host without FMA: those round each
+    product first."""
     hist = torch.cat([buf, x], dim=1)                       # (B, W, D)
-    y = torch.einsum("bwd,wd->bd", hist.to(F32), kernel.flip(0).to(F32))
+    h32, k32 = hist.to(F32), kernel.flip(0).to(F32)
+    if cuda.on_card(hist):
+        y = torch.einsum("bwd,wd->bd", h32, k32)
+    else:
+        b, fma = hist.shape[0], cpu_math.host_fma()
+        h32, k32 = h32.transpose(1, 2), k32.t()[None]
+        y = cpu_math.lanes_dot(h32, k32, fma=fma)
+        lone = [b - 1] * (b % 8 == 1) + [0] * (b == 2)
+        if fma and lone:
+            y[lone] = cpu_math.lanes_dot(h32[lone], k32, fma=False)
     return y[:, None].to(x.dtype), hist[:, 1:]
 
 

@@ -5,7 +5,9 @@ instruction sets the host libraries may take.
 - ``cpu_math.matmul`` equals a jitted ``x @ y`` bit for bit at the
   shapes the models reach (the smoke configs' linears and heads, f32
   and bf16 operands), and ``cpu_math.einsum`` a jitted ``jnp.einsum`` at
-  attention's contractions (the GQA forms too);
+  attention's contractions (the GQA forms too), ``cpu_math.bmm`` the
+  experts' einsum, and ``ssm.conv1d_step`` the reference's (XLA's
+  vector-matrix emitter's order, with and without FMA);
 - the compiled chain (``cpu_dot.c``) equals the same order in PyTorch
   ops (``cpu_math.lanes_dot``) bit for bit, K blocks and lanes included;
 - the backward products are the same chain (``torch.autograd``);
@@ -66,6 +68,26 @@ def test_einsum_is_the_jitted_einsum(eq, sa, sb):
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("e, g, c, d, f", [
+    (4, 2, 3, 64, 96), (4, 2, 20, 64, 96), (2, 1, 40, 96, 64),
+    (4, 8, 2, 128, 48)])
+def test_bmm_is_the_jitted_expert_product(e, g, c, d, f, dtype):
+    """``cpu_math.bmm`` over (expert, group * place) rows, rounded to the
+    operands' dtype, equals the reference's expert einsum."""
+    rng = np.random.default_rng(e * g * c + d + f)
+    a = jnp.asarray(rng.standard_normal((e, g, c, d)), dtype)
+    b = jnp.asarray(rng.standard_normal((e, d, f)), dtype)
+    want = np.asarray(jax.jit(lambda x, y: jnp.einsum("egcd,edf->egcf", x, y))(
+        a, b).astype(jnp.float32))
+    ta = torch.from_numpy(np.array(a.astype(jnp.float32)))
+    tb = torch.from_numpy(np.array(b.astype(jnp.float32)))
+    got = cpu_math.bmm(ta.reshape(e, g * c, d), tb)
+    if dtype == jnp.bfloat16:
+        got = got.bfloat16().float()
+    assert np.array_equal(got.reshape(e, g, c, f).numpy(), want)
+
+
 @pytest.mark.parametrize("g, m, k, n", [
     (1, 24, 64, 256), (3, 5, 200, 8), (2, 48, 600, 300), (1, 70, 40, 24)])
 def test_compiled_chain_is_the_torch_chain(g, m, k, n):
@@ -92,6 +114,53 @@ def test_backward_products_are_the_chain():
     cpu_math.matmul(x, w).backward(g)
     assert torch.equal(x.grad, cpu_math.matmul(g, w.detach().t()))
     assert torch.equal(w.grad, cpu_math.matmul(x.detach().t(), g))
+
+
+def _conv_step_case(b: int, dtype):
+    from repro.models import ssm as jssm
+    from repro_torch.models import ssm
+    rng = np.random.default_rng(b)
+    buf, x, k = (jnp.asarray(rng.standard_normal(shape), dtype)
+                 for shape in ((b, 3, 96), (b, 1, 96), (4, 96)))
+    want, _ = jax.jit(jssm.conv1d_step)(buf, x, k)
+    tt = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[dtype]
+    got, _ = ssm.conv1d_step(*(torch.from_numpy(np.array(
+        t.astype(jnp.float32))).to(tt) for t in (buf, x, k)))
+    return got.float().numpy(), np.asarray(want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("b", [1, 2, 3, 8, 9, 17])
+def test_conv_step_is_the_jitted_reference(b, dtype):
+    """``ssm.conv1d_step`` equals the jitted reference's decode step of
+    the causal conv bit for bit (its taps' order: fused chains, the lone
+    tile columns' products rounded first)."""
+    got, want = _conv_step_case(b, dtype)
+    assert np.array_equal(got, want)
+
+
+_NO_FMA = """
+import jax.numpy as jnp, numpy as np
+import test_torch_cpu_math as t
+from repro_torch.models import cpu_math
+cpu_math.host_fma = lambda: False
+print(all(np.array_equal(*t._conv_step_case(b, jnp.float32))
+          for b in (1, 2, 8, 9)))
+"""
+
+
+def test_conv_step_without_fma_is_the_reference_without_fma():
+    """Where the host has no FMA (XLA held to SSE4.2 here) the reference
+    rounds every product of the taps' sum first, and so does the port
+    told that the host has none."""
+    run = subprocess.run(
+        [sys.executable, "-c", _NO_FMA], check=True, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "JAX_PLATFORMS": "cpu",
+             "XLA_FLAGS": "--xla_cpu_max_isa=SSE4_2",
+             "PYTHONPATH": os.pathsep.join([os.path.join(ROOT, "src"),
+                                            os.path.join(ROOT, "tests")])})
+    assert run.stdout.strip().splitlines()[-1] == "True"
 
 
 _PROBE = """

@@ -15,7 +15,8 @@ recurrentgemma-2b (``rglru`` on its channel block; ``local`` on its
 heads: at 6 query heads and its one KV head, ranks 0-2 hold 2 query
 heads and the KV head, rank 3 none), xlstm-350m (the mLSTM on its block
 of ``di`` and of the memory's rows, at 2 heads too, which do not divide
-the 4 ranks; the sLSTM's gates gathered and its cell whole) and
+the 4 ranks; the sLSTM's gates gathered and its cell whole, its GLU on
+the rank's channels) and
 xnor-cnn (``bindense`` on its ``d_ff`` block).  A prefill of 12 tokens, then two decode steps of teacher-forced tokens;
 every rank's logits rows (all of them: the batch is whole on each rank
 of this mesh) are held against the single-process steps in f32 at
@@ -24,7 +25,9 @@ partials) with equal greedy tokens, and in bf16 within
 ``BF16_LOGIT_BOUND`` (2^-6 of |logit| + 2^-6, the port's bf16 logit
 bound against the reference; the CPU runs read 0 here: the f32 partials,
 summed and rounded once, round as the single matmul does at these
-widths) with equal greedy tokens.
+widths) with equal greedy tokens.  xlstm-350m at 2 heads in f32 is held
+bit for bit against the single-process steps with each row-parallel
+f32 sum in the ranks' order (:func:`single_rank_order`).
 """
 
 import numpy as np
@@ -36,7 +39,7 @@ from repro_torch.core import bitpack, xnor_layers
 from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.models import layers, lm
+from repro_torch.models import blocks, layers, lm
 from repro_torch.train import serve_step
 
 torch.set_num_threads(1)
@@ -60,6 +63,7 @@ CASES = {
     "recurrentgemma-2b 6 heads": ("recurrentgemma-2b", RG, "float32", False),
     "xlstm-350m": ("xlstm-350m", {}, "float32", False),
     "xlstm-350m+xnor": ("xlstm-350m+xnor", {}, "float32", True),
+    "xlstm-350m+xnor 2 heads": ("xlstm-350m+xnor", XL, "float32", True),
     "xnor-cnn": ("xnor-cnn", {}, "float32", True),
     "qwen2-7b+xnor bf16": ("qwen2-7b+xnor", QWEN, "bfloat16", True),
     "moonshot-v1-16b-a3b bf16": ("moonshot-v1-16b-a3b", {}, "bfloat16",
@@ -70,6 +74,9 @@ CASES = {
                                      True),
     "xnor-cnn bf16": ("xnor-cnn", {}, "bfloat16", True),
 }
+# held bit for bit against the single-process steps with the ranks' order
+# of each row-parallel f32 sum (:func:`single_rank_order`)
+EXACT = {"xlstm-350m 2 heads": ("xlstm-350m", XL, "float32", False)}
 # the recurrent and CNN kinds' cases whose second decode step is counted
 TP_KINDS = ("recurrentgemma-2b+xnor 6 heads bf16",
             "xlstm-350m+xnor 2 heads bf16", "xnor-cnn")
@@ -94,6 +101,28 @@ def single(arch, over, dtype, packed, batch, params=None) -> list:
                 cfg, tree, torch.from_numpy(tok), state)
             steps.append(logits.float().numpy())
     return steps
+
+
+def single_rank_order(arch, over, dtype, packed, batch, k: int = 4) -> list:
+    """:func:`single` with each row-parallel float product (``blocks.
+    _row_out``: the mLSTM's and sLSTM's ``w_down``) summed as ``k`` ranks
+    sum it: each rank's K block's f32 partial, added in rank order, then
+    rounded once (``layers.row_linear``, ``ctx.reduce_sum``)."""
+    plain = blocks._row_out
+
+    def row_out(cfg, w, y, n):
+        assert isinstance(w, torch.Tensor) and cfg.quant == "none"
+        out = None
+        for r in range(k):
+            _, lo, hi = sharding.extent(n, None, k, r)
+            part = layers.matmul(y[..., lo:hi], w[lo:hi], f32=True)
+            out = part if out is None else out + part
+        return out.to(y.dtype)
+    blocks._row_out = row_out
+    try:
+        return single(arch, over, dtype, packed, batch)
+    finally:
+        blocks._row_out = plain
 
 
 def case_dicts(cases: dict, count=()) -> dict:
@@ -122,8 +151,8 @@ def hold(name, got, want, dtype, rows=slice(None)):
 @pytest.fixture(scope="module")
 def ranks():
     return mesh_mod.run_ranks(tp_rank, 4, (1, 4), ("data", "model"),
-                              case_dicts(CASES, ("qwen2-7b+xnor",)
-                                         + TP_KINDS),
+                              case_dicts(CASES | EXACT,
+                                         ("qwen2-7b+xnor",) + TP_KINDS),
                               S_MAX, True, device="cpu", timeout_s=600)
 
 
@@ -133,6 +162,26 @@ def test_tensor_parallel_steps_match_single_process(name, ranks):
     want = single(arch, over, dtype, packed, batch_of(256))
     for r in ranks:
         hold(name, r["cases"][name]["logits"], want, dtype)
+
+
+@pytest.mark.parametrize("name", list(EXACT))
+def test_f32_steps_are_the_single_process_steps_with_the_ranks_sums(name,
+                                                                     ranks):
+    """xlstm-350m at 2 heads in f32 (the mLSTM's memory rows split, its
+    heads whole on no rank): every rank's logits equal bit for bit the
+    single-process steps' in which each row-parallel product alone is
+    summed as the ranks sum it.  So what parts them from the plain
+    single-process steps (4.5e-5 of logits up to 4.2 at 4 ranks, 3.8e-5
+    at 2: past ``TOL``; ``python tests/test_torch_mesh_tp.py``) is the
+    order of those f32 sums and nothing else; the greedy tokens agree."""
+    arch, over, dtype, packed = EXACT[name]
+    want = single_rank_order(arch, over, dtype, packed, batch_of(256))
+    plain = single(arch, over, dtype, packed, batch_of(256))
+    for r in ranks:
+        got = r["cases"][name]["logits"]
+        for step, (g, w, p) in enumerate(zip(got, want, plain)):
+            assert np.array_equal(g, w), (name, step)
+            assert np.array_equal(g[:, -1].argmax(-1), p[:, -1].argmax(-1))
 
 
 def test_no_fsdp_axis_no_gather_and_heads_split(ranks):
@@ -229,6 +278,67 @@ def test_row_parallel_xnor_dots_are_bitwise_against_whole_k(dtype):
         torch.testing.assert_close(sums, x.abs().float().sum(-1))
 
 
+def test_glu_up_is_placed_by_pieces():
+    """The sLSTM's GLU ``w_up`` (``a | g``) is a ``sharding.Parts`` dim
+    under the head-aligned placements (float and packed), the reference's
+    ceil-div block otherwise; a rank's block of each piece is the
+    ceil-div block ``w_down``'s rows take, so it holds ``a`` and ``g`` of
+    the channels whose ``a * gelu(g)`` it projects down."""
+    import repro_torch.configs as configs
+    cfg = configs.get("xlstm-350m+xnor")
+    rules = sharding.DEFAULT_RULES
+    dff = blocks.SlstmBlock._dff(cfg)
+    parts = sharding.Parts("model", 2)
+    assert lm.param_pspecs(cfg, rules, head_aligned=True)["seg1_slstm"][
+        "w_up"] == (None, "data", parts)
+    packed = lm.packed_param_pspecs(cfg, rules, head_aligned=True)[
+        "seg1_slstm"]["w_up"]
+    assert packed.pb == (None, parts, "data") and packed.beta == (None, parts)
+    assert lm.param_pspecs(cfg, rules)["seg1_slstm"]["w_up"] == (
+        None, "data", "model")
+    for tp in (4, 16, 3):
+        for i in range(tp):
+            assert sharding.extent(dff, parts, tp, i) == \
+                sharding.extent(dff // 2, "model", tp, i)
+
+
+class _Mesh:
+    """Rank ``rank`` of a (data 1, model ``k``) mesh, as ``sharding``'s
+    placement functions read one."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, k: int, rank: int):
+        self.k, self.rank = k, rank
+
+    def size(self, i: int) -> int:
+        return (1, self.k)[i]
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.rank if axis == "model" else 0
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_parts_blocks_shard_and_unpad(rank):
+    """Two pieces of 10 over 4 ranks (blocks of 3: 3, 3, 3, 1 valid): a
+    rank's block is its block of each piece, zero-padded; ``unpad`` is a
+    view of the valid part of each piece."""
+    mesh = _Mesh(4, rank)
+    spec = (None, sharding.Parts("model", 2))
+    t = torch.arange(1, 41, dtype=torch.float32).reshape(2, 20)
+    block = sharding.shard(t, spec, mesh)
+    assert block.shape == sharding.block_shape(t.shape, spec, mesh) == (2, 6)
+    lo, hi = min(3 * rank, 10), min(3 * rank + 3, 10)
+    for piece in range(2):
+        got = block[:, 3 * piece:3 * piece + 3]
+        assert torch.equal(got[:, :hi - lo], t[:, 10 * piece + lo:
+                                                10 * piece + hi])
+        assert not got[:, hi - lo:].any()
+    valid = sharding.unpad(block, t.shape, spec, mesh)
+    assert valid.shape == (2, 2, hi - lo)
+    valid.zero_()
+    assert not block.any()
+
+
 def test_head_aligned_placements_of_the_serving_steps():
     """``lm.param_pspecs(..., head_aligned=True)`` splits a layer's head
     dims into whole heads (attn, moe, local) and packs a row-parallel
@@ -269,3 +379,26 @@ def test_head_aligned_placements_of_the_serving_steps():
     assert "model" in repr(lm.decode_state_pspecs(vlm, "data").seg_states[
         kinds.index("cross")])
     assert "model" not in repr(vlm_state.seg_states[kinds.index("cross")])
+
+
+def _readings() -> None:
+    """The f32 2-head xlstm case at 2 and 4 ranks: the largest |logit|
+    difference a step from the plain single-process steps and from
+    :func:`single_rank_order`'s."""
+    for tp in (2, 4):
+        out = mesh_mod.run_ranks(tp_rank, tp, (1, tp), ("data", "model"),
+                                 case_dicts(EXACT), S_MAX, False,
+                                 device="cpu", timeout_s=600)
+        for name, case in EXACT.items():
+            got = out[0]["cases"][name]["logits"]
+            plain = single(*case, batch_of(256))
+            ordered = single_rank_order(*case, batch_of(256), k=tp)
+            print(f"{name} over {tp} ranks: |sharded - single| a step "
+                  f"{[float(np.abs(g - w).max()) for g, w in zip(got, plain)]}"
+                  f", |sharded - single in the ranks' order| "
+                  f"{[float(np.abs(g - w).max()) for g, w in zip(got, ordered)]}"
+                  f", largest |logit| {max(float(np.abs(w).max()) for w in plain)}")
+
+
+if __name__ == "__main__":
+    _readings()

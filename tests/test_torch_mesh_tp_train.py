@@ -138,7 +138,8 @@ def run(shape: tuple, axes: tuple, cases: dict, counted,
 
 def block(full: np.ndarray, spec, coord, axes, shape) -> np.ndarray:
     """The block of ``full`` that mesh coordinate ``coord`` holds
-    (head-aligned entries cut by ``sharding.extent``), zero-padded."""
+    (head-aligned entries cut by ``sharding.extent``, each piece of a
+    ``sharding.Parts`` dim on its own), zero-padded."""
     for dim, entry in enumerate(spec):
         names = sharding._names(entry)
         if not names:
@@ -148,10 +149,12 @@ def block(full: np.ndarray, spec, coord, axes, shape) -> np.ndarray:
             n = shape[axes.index(a)]
             k, idx = k * n, idx * n + coord[axes.index(a)]
         bs, lo, hi = sharding.extent(full.shape[dim], entry, k, idx)
-        full = np.take(full, np.arange(lo, hi), axis=dim)
         pad = [(0, 0)] * full.ndim
         pad[dim] = (0, bs - (hi - lo))
-        full = np.pad(full, pad)
+        full = np.concatenate([
+            np.pad(np.take(piece, np.arange(lo, hi), axis=dim), pad)
+            for piece in np.split(full, getattr(entry, "parts", 1), dim)],
+            axis=dim)
     return full
 
 

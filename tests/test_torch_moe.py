@@ -20,6 +20,7 @@ jitted, as its engine runs it.  What is held:
 
 import contextlib
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -260,9 +261,12 @@ def test_group_must_divide_the_tokens():
 
 @pytest.mark.parametrize("user", [True, False])
 def test_expert_products_sum_in_f32(user, monkeypatch):
-    """Each expert product runs with PyTorch's bf16 reduced-precision
-    reduction off (the reference sums in f32), and the caller's setting is
-    back once ``experts`` returns, also where it raises."""
+    """On the card each expert product runs with PyTorch's bf16
+    reduced-precision reduction off (the reference sums in f32), and the
+    caller's setting is back once ``experts`` returns, also where it
+    raises.  The card's branch is taken here on host tensors (``moe``'s
+    ``cuda.on_card`` answers True); the CPU's products are
+    ``cpu_math.bmm``'s, held by the reference tests of this file."""
     matmul = torch.backends.cuda.matmul
     monkeypatch.setattr(matmul, "allow_bf16_reduced_precision_reduction",
                         user)
@@ -278,12 +282,15 @@ def test_expert_products_sum_in_f32(user, monkeypatch):
           for k, v in _weights(cfg, np.random.default_rng(3)).items()}
     xg = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (2, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
-    ye = moe.experts(cfg, tp, xg, moe.route(cfg, tp["router"], xg))
+    r = moe.route(cfg, tp["router"], xg)
+    monkeypatch.setattr(moe, "cuda",
+                        types.SimpleNamespace(on_card=lambda t: True))
+    ye = moe.experts(cfg, tp, xg, r)
     assert seen == [False] * 3 and ye.dtype == torch.bfloat16
     assert matmul.allow_bf16_reduced_precision_reduction is user
     tp["w2"] = tp["w2"][:, :1]
     with pytest.raises(RuntimeError):
-        moe.experts(cfg, tp, xg, moe.route(cfg, tp["router"], xg))
+        moe.experts(cfg, tp, xg, r)
     assert matmul.allow_bf16_reduced_precision_reduction is user
 
 
